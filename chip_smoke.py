@@ -1,0 +1,472 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the Hopper kernels from `tpu_tree_search_torch/csrc/`, drives the
+port's main path (exact PFSP branch-and-bound through `device.search`, the
+CLI and `device.run`), checks every kernel bit for bit (tolerance 0: all of
+it is int32 math) against its plain PyTorch version at the main path's
+shapes, and times both. Any failed
+check ends the run with a non-zero exit code and no result line.
+
+Phases (one line each, then two JSON lines):
+  1. the card (`nvidia-smi`), torch and CUDA versions
+  2. kernel build
+  3. golden solves with ub=opt, each path's launch counts read after it;
+     then the dense LB2 route (ta003 at the CLI chunk, ta014 at chunk
+     4096) stepped through the kernels and through the plain versions from
+     one state, compared exactly after every step
+  4. ta021 LB2 at the bench chunk (65536) / capacity 2^22: 50 warm-up + 200 timed
+     steps (evals/s), then 20 steps through the kernels and through the
+     plain versions from one state, compared exactly
+  5. the J > 64 path: ta071 LB2 steps, kernels against plain versions
+  6. kernel parity and timing at the main path's shapes
+The last line is `{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: torch finds no CUDA device")
+
+from tpu_tree_search_torch import cli  # noqa: E402
+from tpu_tree_search_torch.engine import device  # noqa: E402
+from tpu_tree_search_torch.ops import batched, expand as ex  # noqa: E402
+from tpu_tree_search_torch.ops import kernels  # noqa: E402
+from tpu_tree_search_torch.problems import taillard  # noqa: E402
+from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
+    BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
+
+ROOT = Path(__file__).resolve().parent
+DEV = torch.device("cuda", 0)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+# int32 add/min/max rate of the CUDA cores: 64 results per clock per SM
+# (compute capability 9.0), 132 SMs, 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls (CUDA
+    events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the engine's kernel calls to the plain versions on the same
+    CUDA tensors (for the step-by-step comparison only)."""
+    saved = kernels.expand_bound, kernels.lb2_sweep
+
+    def expand_bound(tables, prmu_T, depth2, front_T, lb_kind, tile, emit):
+        if emit:
+            return ex.expand_plain(tables, prmu_T, depth2, front_T, lb_kind,
+                                   tile)
+        return None, None, ex.expand_bounds_plain(tables, prmu_T, depth2,
+                                                  front_T, lb_kind, tile)
+
+    def lb2_sweep(tables, cf, sched):
+        return ex.lb2_plain(tables, sched, cf)
+
+    kernels.expand_bound, kernels.lb2_sweep = expand_bound, lb2_sweep
+    try:
+        yield
+    finally:
+        kernels.expand_bound, kernels.lb2_sweep = saved
+
+
+def path_run(name: str, expect: tuple, fn):
+    """Drive one main path with the launch counts set to 0 just before it
+    and read just after; every kernel in `expect` must have launched."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    for k in expect:
+        check(counts[k] > 0, f"{name}: kernel {k} never launched")
+    return out, counts, seconds
+
+
+def clone(state: device.SearchState) -> device.SearchState:
+    return state._replace(prmu=state.prmu.clone(), depth=state.depth.clone(),
+                          aux=state.aux.clone())
+
+
+def run_steps(tables, state, lb_kind: int, chunk: int, steps: int):
+    return device.run_growing(tables, state, lb_kind, chunk,
+                              state.iters + steps)
+
+
+def same_state(a: device.SearchState, b: device.SearchState) -> bool:
+    if any(getattr(a, f) != getattr(b, f) for f in
+           ("size", "best", "tree", "sol", "iters", "evals", "overflow")):
+        return False
+    n = a.size
+    return (torch.equal(a.prmu[:, :n], b.prmu[:, :n])
+            and torch.equal(a.depth[:n], b.depth[:n])
+            and torch.equal(a.aux[:, :n], b.aux[:, :n]))
+
+
+# --- phase 1: the card ----------------------------------------------------
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True, timeout=60, check=True).stdout.strip()
+print(smi.splitlines()[0], flush=True)
+say("device", nvidia_smi=smi, torch=torch.__version__,
+    cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+    count=torch.cuda.device_count())
+torch.cuda.set_device(DEV)
+
+# --- phase 2: build -------------------------------------------------------
+t0 = time.perf_counter()
+built = kernels.build()
+say("build", seconds=round(time.perf_counter() - t0, 3),
+    per_source={k: round(v[0], 3) for k, v in built.items()},
+    ptxas=[ln.strip() for v in built.values() for ln in v[1].splitlines()
+           if "registers" in ln or "spill" in ln])
+
+# --- phase 3: golden solves through the entry points ----------------------
+LAUNCH_FROM: dict[str, dict] = {}
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    (rc, lines), counts, secs = path_run(
+        "ta003 cli", ("expand_emit", "lb2_sweep"),
+        lambda: (cli.main(["pfsp", "-i", "3", "-l", "2", "-u", "1"]), None))
+text = buf.getvalue()
+check(rc == 0, "cli pfsp -i 3 -l 2 -u 1 exit code")
+for want in ("Size of the explored tree: 80062",
+             "Number of explored solutions: 0", "Optimal makespan: 1081"):
+    check(want in text, f"ta003 cli output lacks {want!r}")
+check(device.lb2_route(20, 5, 10, CLI_CHUNK_DEFAULT)[0] == "dense",
+      "ta003 route")
+say("golden ta003 lb2 (cli, dense)", tree=80062, seconds=round(secs, 3),
+    launches=counts)
+
+matrix = [json.loads(l) for l in (ROOT / "tests" / "golden" /
+                                  "pfsp_lb2_matrix.jsonl").read_text()
+          .splitlines()]
+m51 = next(r for r in matrix if r["seed"] == 51)
+GOLDENS = [  # name, p, lb, ub, chunk, expected (tree, sol, best), kernels
+    ("ta014 lb2 (dense)", taillard.processing_times(14), 2, 1377, 4096,
+     (144639, 0, 1377), ("expand_emit", "lb2_sweep")),
+    ("50x20 seed 51 lb2 (prefilter, W=2)",
+     np.asarray(m51["p"], np.int32).reshape(20, 50), 2, m51["ub"], 256,
+     (19481, 0, 3691), ("expand_bounds", "lb2_sweep")),
+    ("ta007 lb1", taillard.processing_times(7), 1, 1234, 4096,
+     (271602, 28447, 1234), ("expand_bounds",)),
+    ("ta007 lb1_d", taillard.processing_times(7), 0, 1234, 4096,
+     (271602, 28447, 1234), ("expand_bounds",)),
+]
+for name, p, lb, ub, chunk, want, expect in GOLDENS:
+    res, counts, secs = path_run(name, expect, lambda: device.search(
+        p, lb_kind=lb, init_ub=ub, chunk=chunk, capacity=1 << 20,
+        device=DEV))
+    got = (res.explored_tree, res.explored_sol, res.best)
+    check(got == want and res.complete, f"{name}: {got} != {want}")
+    if name.startswith("ta014"):
+        # the emit kernel's row is measured at this path's shape
+        LAUNCH_FROM["expand_emit"] = counts
+    say(f"golden {name}", tree=got[0], sol=got[1], best=got[2],
+        seconds=round(secs, 3), launches=counts)
+
+
+def kernels_vs_plain(label, tables, state, chunk, steps):
+    """`steps` steps from one state through the kernels and through the
+    plain versions on the same CUDA tensors, compared exactly after each
+    step (the state itself is left as it was)."""
+    a, b = clone(state), clone(state)
+    for k in range(steps):
+        a = device.step(tables, 2, chunk, a)
+        with plain_kernels():
+            b = device.step(tables, 2, chunk, b)
+        check(same_state(a, b), f"{label} step {k + 1}: kernels != plain")
+    say(f"{label} {steps} steps kernels vs plain", equal=True, size=a.size,
+        tree=a.tree)
+
+
+# the dense route, kernels against plain versions at its two shapes: ta003
+# at the CLI chunk (20x5) and ta014 at chunk 4096 (20x10), each from a
+# state whose pool holds more than a full chunk
+DENSE = {}
+for inst, chunk, warm, steps in ((3, CLI_CHUNK_DEFAULT, 10, 30),
+                                 (14, 4096, 8, 20)):
+    p = taillard.processing_times(inst)
+    tb = batched.make_tables(p, device=DEV)
+    check(device.lb2_route(20, p.shape[0], int(tb.ma0.shape[0]),
+                           chunk)[0] == "dense", f"ta{inst:03d} route")
+    s = device.init_state(20, 1 << 20, taillard.optimal_makespan(inst),
+                          p_times=p, device=DEV)
+    s = run_steps(tb, s, 2, chunk, warm)
+    check(s.size >= chunk, f"ta{inst:03d}: pool {s.size} < chunk {chunk}")
+    kernels_vs_plain(f"ta{inst:03d} lb2 dense chunk {chunk}", tb, s, chunk,
+                     steps)
+    DENSE[inst] = (p, tb, s, chunk)
+
+# --- phase 4: ta021 at the bench shape ------------------------------------
+CHUNK = BENCH_CHUNK_DEFAULT
+p21 = taillard.processing_times(21)
+t21 = batched.make_tables(p21, device=DEV)
+check(device.lb2_route(20, 20, 190, CHUNK)[0] == "prefilter", "ta021 route")
+
+
+def ta021_run():
+    s = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
+                          p_times=p21, device=DEV)
+    s = run_steps(t21, s, 2, CHUNK, 50)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    # the pool is updated in place: `s` keeps only its counters
+    s2 = run_steps(t21, s, 2, CHUNK, 200)
+    torch.cuda.synchronize()
+    return s, s2, time.perf_counter() - t
+
+
+(warm, s21, secs), counts, _ = path_run(
+    "ta021 lb2", ("expand_bounds", "lb2_sweep"), ta021_run)
+LAUNCH_FROM["expand_bounds"] = LAUNCH_FROM["lb2_sweep"] = counts
+steps = s21.iters - warm.iters
+check(steps > 0 and s21.best == 2297, "ta021 bench run")
+say(f"ta021 lb2 chunk {CHUNK}", steps=steps, seconds=round(secs, 4),
+    evals_per_s=(s21.evals - warm.evals) / secs,
+    pushed_per_s=(s21.tree - warm.tree) / secs,
+    ms_per_step=1e3 * secs / steps, pool=s21.size,
+    capacity=s21.prmu.shape[1], launches=counts)
+
+kernels_vs_plain("ta021 lb2 prefilter", t21, s21, CHUNK, 20)
+
+# --- phase 5: the J > 64 path (ta071, 100x10) -----------------------------
+p71 = taillard.processing_times(71)
+t71 = batched.make_tables(p71, device=DEV)
+
+
+def ta071_run():
+    s = device.init_state(100, 1 << 21, None, p_times=p71, device=DEV)
+    return run_steps(t71, s, 2, 4096, 6)
+
+
+s71, counts, secs = path_run("ta071 lb2", ("expand_bounds", "lb2_sweep_bigj"),
+                             ta071_run)
+LAUNCH_FROM["lb2_sweep_bigj"] = counts
+s71p = device.init_state(100, 1 << 21, None, p_times=p71, device=DEV)
+with plain_kernels():
+    s71p = run_steps(t71, s71p, 2, 4096, 6)
+check(same_state(s71, s71p), "ta071: kernels != plain")
+say("ta071 lb2 6 steps (J > 64)", tree=s71.tree, evals=s71.evals,
+    seconds=round(secs, 3), equal_to_plain=True, launches=counts)
+
+# --- phase 6: each kernel against its plain version -----------------------
+RESULTS = []
+
+
+def record(name, replaces, source, launches_key, err, ms, plain_ms,
+           nbytes, nops, shape):
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * nops / INT32_OPS_PER_S
+    RESULTS.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": LAUNCH_FROM[launches_key][launches_key],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "shape": shape})
+
+
+def max_err(x, y, where=None):
+    d = (x.long() - y.long()).abs()
+    if where is not None:
+        d = torch.where(where, d, 0)
+    return int(d.max().item())
+
+
+def popcount_cols(words: torch.Tensor) -> torch.Tensor:
+    w = words.long() & 0xFFFFFFFF
+    return sum(((w >> k) & 1).sum(dim=0) for k in range(32))
+
+
+def random_chunk(p: np.ndarray, B: int, seed: int):
+    """B random parents of instance p on the card: permutation, depth and
+    the front of the scheduled prefix."""
+    M, J = p.shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    prmu = torch.argsort(torch.rand((B, J), generator=g, device=DEV), dim=1)
+    depth = torch.randint(0, J, (B,), generator=g, device=DEV)
+    pt = torch.as_tensor(p.T.copy(), device=DEV)
+    front = torch.zeros((B, M), dtype=torch.int32, device=DEV)
+    for q in range(J):
+        pj = pt[prmu[:, q]]
+        c = [front[:, 0] + pj[:, 0]]
+        for k in range(1, M):
+            c.append(torch.maximum(c[-1], front[:, k]) + pj[:, k])
+        front = torch.where((q < depth)[:, None], torch.stack(c, 1), front)
+    return (prmu.T.to(torch.int16).contiguous(),
+            depth.to(torch.int32)[None, :].contiguous(),
+            front.T.contiguous())
+
+
+def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
+                tile=None):
+    J, B = prmu_T.shape
+    M = front_T.shape[0]
+    if tile is None:
+        tile = ex.effective_tile(J, B, 1024, lb, machines=M)
+    G = B // tile
+    real = device._child_masks(depth2, torch.ones(B, dtype=torch.bool,
+                                                  device=DEV), G, J, tile)[1]
+    n_real = int(real.sum().item())
+    nin = J * B * 2 + B * 4 + M * B * 4 + (M * J + M) * 4
+    remain_ops = int((J - depth2).sum().item()) * M
+    out = []
+    for emit in (False, True):
+        k = kernels.expand_bound(tables, prmu_T, depth2, front_T, lb, tile,
+                                 emit)
+        if emit:
+            pl = ex.expand_plain(tables, prmu_T, depth2, front_T, lb, tile)
+            err = max(max_err(x, y) for x, y in zip(k, pl))
+            plain = lambda: ex.expand_plain(  # noqa: E731
+                tables, prmu_T, depth2, front_T, lb, tile)
+            nbytes = nin + B * J * (4 + 2 * J + 4 * (M + 1))
+            nops = remain_ops + B * J * 7 * M
+        else:
+            pl = ex.expand_bounds_plain(tables, prmu_T, depth2, front_T, lb,
+                                        tile)
+            err = max_err(k[2], pl, real)
+            plain = lambda: ex.expand_bounds_plain(  # noqa: E731
+                tables, prmu_T, depth2, front_T, lb, tile)
+            nbytes = nin + B * J * 4
+            nops = remain_ops + n_real * (7 if lb == 1 else 5) * M
+        check(err == 0, f"expand_bound {label} lb{lb} emit={emit}: "
+                        f"max abs err {err}")
+        ms = cuda_ms(lambda: kernels.expand_bound(
+            tables, prmu_T, depth2, front_T, lb, tile, emit), reps)
+        plain_ms = cuda_ms(plain, max(2, reps // 10))
+        out.append((emit, err, ms, plain_ms, nbytes, nops))
+        say(f"expand_bound {label} lb{lb} emit={emit}", J=J, B=B, tile=tile,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return out
+
+
+def lb2_case(label, tables, cf, sched, reps):
+    M, n = cf.shape
+    P, J = tables.js.shape
+    k = kernels.lb2_sweep(tables, cf, sched)
+    pl = ex.lb2_plain(tables, sched, cf)
+    err = max_err(k, pl)
+    check(err == 0, f"lb2_sweep {label}: max abs err {err}")
+    ms = cuda_ms(lambda: kernels.lb2_sweep(tables, cf, sched), reps)
+    plain_ms = cuda_ms(lambda: ex.lb2_plain(tables, sched, cf), 2)
+    unsched = int((J - popcount_cols(sched)).sum().item())
+    nbytes = n * (M * 4 + sched.shape[0] * 4 + 4) + P * J * 16 + P * 16
+    nops = P * unsched * 4 + P * n * 4
+    say(f"lb2_sweep {label}", J=J, P=P, n=n, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms)
+    return err, ms, plain_ms, nbytes, nops
+
+
+SRC_E = "tpu_tree_search_torch/csrc/expand_bound.cu"
+SRC_L = "tpu_tree_search_torch/csrc/lb2_sweep.cu"
+PE = "tpu_tree_search/ops/pallas_expand.py"
+
+# a realistic popped chunk: the top of the ta021 pool after the bench run
+pp, pd, pa, n_pop, _, _ = device.pop_chunk(s21, CHUNK, 20)
+check(n_pop == CHUNK, "ta021 pool holds a full chunk")
+pa = pa.to(torch.int32).contiguous()
+main_shape = {}
+for lb in (1, 0):
+    for emit, err, ms, plain_ms, nb, no in expand_case("ta021", t21, pp, pd,
+                                                       pa, lb, 50):
+        main_shape[(lb, emit)] = (err, ms, plain_ms, nb, no)
+for J, M, B, inst in ((50, 20, 16384, 51), (100, 10, 8192, 71),
+                      (200, 10, 4096, 91)):
+    p = taillard.processing_times(inst)
+    tb = batched.make_tables(p, device=DEV)
+    expand_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst), 1, 10)
+
+err, ms, plain_ms, nb, no = main_shape[(1, False)]
+record("expand_bound (bounds-only)", f"{PE}:81", SRC_E, "expand_bounds",
+       err, ms, plain_ms, nb, no, f"ta021 chunk {CHUNK}, LB1")
+# the dense route's chunks, popped from the states its parity run began at:
+# the expand kernel at the route's tile (its emit launches are LB1, feeding
+# the pair sweep), and the sweep of every pair over the whole child grid
+for inst, (p, tb, s, chunk) in DENSE.items():
+    M = p.shape[0]
+    tile = device.lb2_route(20, M, int(tb.ma0.shape[0]), chunk)[1]
+    dp, dd, da, n_pop, _, _ = device.pop_chunk(s, chunk, M)
+    check(n_pop == chunk, f"ta{inst:03d} pool holds a full chunk")
+    da = da.to(torch.int32).contiguous()
+    for lb in (1, 0):
+        res = expand_case(f"ta{inst:03d} dense", tb, dp, dd, da, lb, 50,
+                          tile)
+        if inst == 14 and lb == 1:
+            dense_emit = res[1]
+    cf = ex.expand_plain(tb, dp, dd, da, 1, tile)[1][:M]
+    lb2_case(f"ta{inst:03d} dense", tb, cf, ex.sched_mask_cols(dp, dd, tile),
+             20)
+_, err, ms, plain_ms, nb, no = dense_emit
+record("expand_bound (emit)", f"{PE}:73", SRC_E, "expand_emit", err, ms,
+       plain_ms, nb, no, "ta014 dense route, chunk 4096, LB1")
+
+# ta021 sweeps on the chunk's real child columns: the 24-pair head and
+# 166-pair tail over the N/4 frame the prefilter route sweeps in its steady
+# state, and all 190 pairs over the whole grid as a further parity check
+aux21 = ex.expand_plain(t21, pp, pd, pa, 1, 1024)[1][:20]
+sched21 = ex.sched_mask_cols(pp, pd, 1024)
+head, tail = batched.pair_split(t21, batched.PAIR_PREFILTER)
+lb2_case("ta021 190 pairs", t21, aux21, sched21, 20)
+W4 = aux21.shape[1] // 4
+lb2_case("ta021 24-pair head", head, aux21[:, :W4], sched21[:, :W4], 20)
+tail_r = lb2_case("ta021 166-pair tail", tail, aux21[:, :W4],
+                  sched21[:, :W4], 20)
+err, ms, plain_ms, nb, no = tail_r
+record("lb2_sweep (J <= 64)", f"{PE}:488", SRC_L, "lb2_sweep", err, ms,
+       plain_ms, nb, no, f"ta021 166-pair tail over {W4} child columns")
+big = None
+for inst, B in ((51, 4096), (71, 2048), (91, 1024), (111, 512)):
+    p = taillard.processing_times(inst)
+    tb = batched.make_tables(p, device=DEV)
+    prmu_T, depth2, front_T = random_chunk(p, B, inst)
+    cf = ex.expand_plain(tb, prmu_T, depth2, front_T, 1, B)[1][:p.shape[0]]
+    r = lb2_case(f"ta{inst:03d}", tb, cf, ex.sched_mask_cols(prmu_T, depth2,
+                                                             B), 5)
+    if inst == 71:
+        big = r
+err, ms, plain_ms, nb, no = big
+record("lb2_sweep (J > 64)", f"{PE}:639", SRC_L, "lb2_sweep_bigj", err, ms,
+       plain_ms, nb, no, "ta071 45 pairs over 204800 child columns")
+
+for r in RESULTS:
+    check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
+print(json.dumps({"kernels": RESULTS}), flush=True)
+print(json.dumps({"ok": True, "device": {
+    "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+    "count": torch.cuda.device_count()}}), flush=True)

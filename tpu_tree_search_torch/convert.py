@@ -1,0 +1,55 @@
+"""Carry bound tables and search states into and out of the port.
+
+The system has no weights: what crosses between the JAX package and the
+port is the `BoundTables` of an instance and a `SearchState` (the pool and
+its counters). Both cross as plain numpy arrays keyed by field name, so
+neither package imports the other: `{f: np.asarray(getattr(s, f))}` of a
+JAX state is a valid input here, and `state_to_numpy` gives the same
+keys back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.batched import TABLE_FIELDS, BoundTables, sweep_tables
+from .engine.device import SearchState, resolve_device
+
+# the scalar counters of a state, held on the host as Python ints
+_COUNTERS = ("size", "best", "tree", "sol", "iters", "evals", "sent",
+             "recv", "steals")
+
+
+def tables_from_numpy(arrays: dict, device="cuda") -> BoundTables:
+    """BoundTables on `device` from a dict of arrays keyed by field name
+    (the JAX BoundTables' fields; the sweep kernel's packed tables are
+    derived from them on `device`)."""
+    dev = resolve_device(device)
+    base = {f: torch.as_tensor(np.ascontiguousarray(arrays[f],
+                                                    dtype=np.int32),
+                               device=dev)
+            for f in TABLE_FIELDS}
+    steps, pairs = sweep_tables(base)
+    return BoundTables(**base, sweep_steps=steps, sweep_pairs=pairs)
+
+
+def state_from_numpy(arrays: dict, device="cuda") -> SearchState:
+    """SearchState on `device` from a dict of arrays keyed by field name
+    (pool arrays keep their dtypes: prmu/depth int16, aux int16 or
+    int32)."""
+    dev = resolve_device(device)
+    pool = {f: torch.as_tensor(np.array(arrays[f], copy=True), device=dev)
+            for f in ("prmu", "depth", "aux")}
+    counters = {f: int(np.asarray(arrays[f])) for f in _COUNTERS}
+    return SearchState(**pool, **counters,
+                       overflow=bool(np.asarray(arrays["overflow"])))
+
+
+def state_to_numpy(state: SearchState) -> dict:
+    """The state's fields as numpy arrays (pool) and numpy scalars."""
+    out = {f: getattr(state, f).cpu().numpy()
+           for f in ("prmu", "depth", "aux")}
+    out.update({f: np.asarray(getattr(state, f)) for f in _COUNTERS})
+    out["overflow"] = np.asarray(state.overflow)
+    return out

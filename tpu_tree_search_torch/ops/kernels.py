@@ -1,0 +1,215 @@
+"""Build, bind and launch the port's Hopper kernels.
+
+Two CUDA C++ sources under `tpu_tree_search_torch/csrc/` replace the four
+Pallas kernels of `tpu_tree_search/ops/pallas_expand.py` on the engine's
+path:
+
+- `expand_bound.cu` (`_expand_kernel` in emit mode, `_bounds_kernel`
+  bounds-only);
+- `lb2_sweep.cu` (`_lb2_kernel` for J <= 64, `_lb2_bigj_kernel` for
+  J > 64).
+
+Each source is compiled at first use by `nvcc` for `sm_90a` into a shared
+library with a plain C interface (`_build/`, listed in `.gitignore`; the
+file name carries a hash of the source and flags, so an edit rebuilds),
+loaded with ctypes, and launched on PyTorch's current stream. A wrapper
+checks device, dtype and shape, allocates its outputs with `torch.empty`,
+raises when the launch returns an error, and adds one to its entry of
+`LAUNCHES` per launch. Nothing here runs on the CPU: the dispatchers in
+`ops/expand.py` call these wrappers for CUDA tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+from .batched import BoundTables
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# source stem -> (C symbol, argtypes)
+_SOURCES = {
+    "expand_bound": ("tts_expand_bound",
+                     [_vp] * 5 + [_i32] * 6 + [_vp] * 4),
+    "lb2_sweep": ("tts_lb2_sweep",
+                  [_vp, _i64, _vp, _i64, _i32, _i32, _i32] + [_vp] * 4),
+}
+
+# launches per kernel entry, counted where each wrapper launches
+LAUNCHES = {"expand_emit": 0, "expand_bounds": 0, "lb2_sweep": 0,
+            "lb2_sweep_bigj": 0}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(stem: str) -> Path:
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{stem}-{tag[:12]}.so"
+
+
+def build(stems=None) -> dict:
+    """Compile every missing library, one `nvcc` per source, all started
+    together. Returns {stem: (seconds, compiler output)}; raises on a
+    failed build."""
+    stems = list(_SOURCES if stems is None else stems)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for stem in stems:
+        out = library_path(stem)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[stem] = (tmp, out, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    result = {stem: (0.0, "cached") for stem in stems if stem not in procs}
+    for stem, (tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem}.cu:\n{log}")
+        os.replace(tmp, out)
+        result[stem] = (time.perf_counter() - t0, log)
+    return result
+
+
+def _lib(stem: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            path = library_path(stem)
+            if not path.exists():
+                build([stem])
+            lib = ctypes.CDLL(str(path))
+            sym, argtypes = _SOURCES[stem]
+            getattr(lib, sym).argtypes = argtypes
+            getattr(lib, sym).restype = ctypes.c_int
+            _libs[stem] = lib
+        return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def _need(x: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must lie on a CUDA device, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def expand_bound(tables: BoundTables, prmu_T: torch.Tensor,
+                 depth2: torch.Tensor, front_T: torch.Tensor, lb_kind: int,
+                 tile: int, emit: bool):
+    """The expand kernel on (J, B) parents in tiles of `tile`: bounds
+    (1, N) int32 and, with `emit`, children (J, N) int16 and aux (M+1, N)
+    int32 = [child front | depth+1], N = B*J. Returns the three outputs
+    (None for the two not emitted)."""
+    J, B = prmu_T.shape
+    M = front_T.shape[0]
+    _need(prmu_T, torch.int16, "prmu_T")
+    _need(depth2, torch.int32, "depth2")
+    _need(front_T, torch.int32, "front_T")
+    _need(tables.p, torch.int32, "tables.p")
+    if lb_kind not in (0, 1):
+        raise ValueError(f"expand kernel bounds LB1/LB1_d, not {lb_kind}")
+    if depth2.numel() != B or front_T.shape[1] != B or tables.p.shape != (M, J):
+        raise ValueError("expand kernel: inconsistent shapes "
+                         f"{tuple(prmu_T.shape)} {tuple(depth2.shape)} "
+                         f"{tuple(front_T.shape)} {tuple(tables.p.shape)}")
+    if B % tile != 0 or not 1 <= M <= 32 or B * J >= 2**31:
+        raise ValueError(f"expand kernel: B={B} tile={tile} M={M} J={J}")
+    dev = prmu_T.device
+    prmu = prmu_T.contiguous()
+    depth = depth2.reshape(B).contiguous()
+    front = front_T.contiguous()
+    N = B * J
+    bounds = torch.empty((1, N), dtype=torch.int32, device=dev)
+    children = aux = None
+    if emit:
+        children = torch.empty((J, N), dtype=torch.int16, device=dev)
+        aux = torch.empty((M + 1, N), dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    rc = _lib("expand_bound").tts_expand_bound(
+        tables.p.contiguous().data_ptr(),
+        tables.min_tails.contiguous().data_ptr(), prmu.data_ptr(),
+        depth.data_ptr(), front.data_ptr(), J, M, B, tile, lb_kind,
+        int(emit), ptr(children), ptr(aux), bounds.data_ptr(), _stream(dev))
+    _check(rc, "expand_bound")
+    if B:
+        LAUNCHES["expand_emit" if emit else "expand_bounds"] += 1
+    return children, aux, bounds
+
+
+def lb2_sweep(tables: BoundTables, child_front_cols: torch.Tensor,
+              sched_mask: torch.Tensor) -> torch.Tensor:
+    """The pair-sweep kernel: child_front_cols (M, n), sched_mask (W, n)
+    int32 (either may be a column prefix of a wider frame) -> (1, n)
+    int32."""
+    M, n = child_front_cols.shape
+    P, J = tables.js.shape
+    W = (J + 31) // 32
+    _need(sched_mask, torch.int32, "sched_mask")
+    _need(tables.js, torch.int32, "tables.js")
+    if sched_mask.shape != (W, n) or M != tables.p.shape[0] or W > 16:
+        raise ValueError(f"lb2 sweep: cf {tuple(child_front_cols.shape)}, "
+                         f"mask {tuple(sched_mask.shape)}, J={J}")
+    cf = child_front_cols.to(torch.int32)
+    _need(cf, torch.int32, "child_front_cols")
+    dev = cf.device
+    if sched_mask.device != dev or tables.js.device != dev:
+        raise ValueError("lb2 sweep: inputs lie on different devices")
+    if n and cf.stride(1) != 1:
+        cf = cf.contiguous()
+    if n and sched_mask.stride(1) != 1:
+        sched_mask = sched_mask.contiguous()
+    steps, pairs = tables.sweep_steps, tables.sweep_pairs
+    if (steps.shape != (P, J, 4) or pairs.shape != (P, 4)
+            or not (steps.is_contiguous() and pairs.is_contiguous())):
+        raise ValueError("lb2 sweep: packed pair tables "
+                         f"{tuple(steps.shape)} {tuple(pairs.shape)} do not "
+                         f"match P={P}, J={J} or are not contiguous")
+    out = torch.empty((1, n), dtype=torch.int32, device=dev)
+    rc = _lib("lb2_sweep").tts_lb2_sweep(
+        cf.data_ptr(), cf.stride(0), sched_mask.data_ptr(),
+        sched_mask.stride(0), n, J, P, steps.data_ptr(), pairs.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _check(rc, "lb2_sweep")
+    if n:
+        LAUNCHES["lb2_sweep" if J <= 64 else "lb2_sweep_bigj"] += 1
+    return out

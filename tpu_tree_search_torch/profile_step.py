@@ -1,0 +1,106 @@
+"""Where a step's time goes: a `torch.profiler` window over `device.run`.
+
+    python -m tpu_tree_search_torch.profile_step [-i 21] [-l 2]
+        [--chunk 65536] [--capacity 4194304] [--warm 50] [--steps 20]
+        [--device cuda]
+
+Seeds Taillard instance `-i` with ub=opt, runs `--warm` steps, then
+profiles `--steps` more and prints one JSON line: host milliseconds per
+step, the device's busy share of the window (the union of its kernel and
+copy intervals over the window's wall time), the device operations
+(kernels and copies) per step, and those that took the most time, by
+name, with their share of the busy time. On a CPU run there is no device
+trace: those fields are null.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+
+from .engine import device
+from .ops import batched
+from .problems import taillard
+from .tune.defaults import BENCH_CHUNK_DEFAULT
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
+            steps: int, dev: torch.device, top: int = 12) -> dict:
+    p = taillard.processing_times(inst)
+    tables = batched.make_tables(p, device=dev)
+    state = device.init_state(p.shape[1], capacity,
+                              taillard.optimal_makespan(inst), p_times=p,
+                              device=dev)
+    state = device.run_growing(tables, state, lb_kind, chunk, warm)
+    on_cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = device.run_growing(tables, state, lb_kind, chunk,
+                                 state.iters + steps)
+        sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    done = out.iters - state.iters
+    res = {"instance": f"ta{inst:03d}", "lb": lb_kind, "chunk": chunk,
+           "steps": done, "ms_per_step": wall_us / 1e3 / max(done, 1),
+           "evals": out.evals - state.evals, "device_busy_share": None,
+           "device_ms_per_step": None, "device_ops_per_step": None,
+           "top_device_ops": None}
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if on_cuda and kern:
+        busy = _busy_us([(e.time_range.start, e.time_range.end)
+                         for e in kern])
+        by_name: dict[str, float] = defaultdict(float)
+        count: dict[str, int] = defaultdict(int)
+        for e in kern:
+            by_name[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        res.update(
+            device_busy_share=busy / wall_us,
+            device_ms_per_step=busy / 1e3 / max(done, 1),
+            device_ops_per_step=len(kern) / max(done, 1),
+            top_device_ops=[{"name": n[:100], "share_of_busy": us / busy,
+                             "ms_per_step": us / 1e3 / max(done, 1),
+                             "calls_per_step": count[n] / max(done, 1)}
+                            for n, us in ranked])
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="tpu_tree_search_torch.profile_step")
+    ap.add_argument("-i", dest="inst", type=int, default=21)
+    ap.add_argument("-l", dest="lb", type=int, choices=(0, 1, 2), default=2)
+    ap.add_argument("--chunk", type=int, default=BENCH_CHUNK_DEFAULT)
+    ap.add_argument("--capacity", type=int, default=1 << 22)
+    ap.add_argument("--warm", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = device.resolve_device(args.device)
+    print(json.dumps(profile(args.inst, args.lb, args.chunk, args.capacity,
+                             args.warm, args.steps, dev)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
