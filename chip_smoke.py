@@ -4,10 +4,10 @@
 
 Builds the Hopper kernels from `tpu_tree_search_torch/csrc/`, drives the
 port's main path (exact PFSP branch-and-bound through `device.search`, the
-CLI and `device.run`), checks every kernel bit for bit (tolerance 0: all of
-it is int32 math) against its plain PyTorch version at the main path's
-shapes, and times both. Any failed
-check ends the run with a non-zero exit code and no result line.
+CLI and `device.run`, unfused and through the fused route), checks every
+kernel bit for bit (tolerance 0: all of it is int32 math) against its
+plain PyTorch version at the main path's shapes, and times both. Any
+failed check ends the run with a non-zero exit code and no result line.
 
 Phases (one line each, then two JSON lines):
   1. the card (`nvidia-smi`), torch and CUDA versions
@@ -20,7 +20,16 @@ Phases (one line each, then two JSON lines):
      steps (evals/s), then 20 steps through the kernels and through the
      plain versions from one state, compared exactly
   5. the J > 64 path: ta071 LB2 steps, kernels against plain versions
-  6. kernel parity and timing at the main path's shapes
+  6. the fused route (`fused="hw"`): golden solves (ta007 LB1, ta002 LB1
+     through the CLI with TTS_FUSED=1, 50x20 seed 51 LB2); ta021 LB2 at
+     the bench shape, 50 warm-up + 200 timed steps, then 20 steps from one
+     state through the fused kernel, through its plain version and
+     unfused, compared after every step; a spill case (ta021 ub=inf from
+     the root, whose LB1 survivors outgrow the N/4 frame, so the fused
+     step falls through to the unfused prefilter route); search
+     telemetry on the card (ta014 `dense`, ta021 `prefilter`, fused and
+     unfused, kernels and plain versions)
+  7. kernel parity and timing at the main path's shapes
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -29,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,8 +52,10 @@ if not torch.cuda.is_available():
 
 from tpu_tree_search_torch import cli  # noqa: E402
 from tpu_tree_search_torch.engine import device  # noqa: E402
-from tpu_tree_search_torch.ops import batched, expand as ex  # noqa: E402
-from tpu_tree_search_torch.ops import kernels  # noqa: E402
+from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
+from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
+from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
+from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
 from tpu_tree_search_torch.problems import taillard  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
@@ -84,7 +96,7 @@ def cuda_ms(fn, reps: int) -> float:
 def plain_kernels():
     """Route the engine's kernel calls to the plain versions on the same
     CUDA tensors (for the step-by-step comparison only)."""
-    saved = kernels.expand_bound, kernels.lb2_sweep
+    saved = kernels.expand_bound, kernels.lb2_sweep, kernels.fused_expand
 
     def expand_bound(tables, prmu_T, depth2, front_T, lb_kind, tile, emit):
         if emit:
@@ -96,11 +108,19 @@ def plain_kernels():
     def lb2_sweep(tables, cf, sched):
         return ex.lb2_plain(tables, sched, cf)
 
-    kernels.expand_bound, kernels.lb2_sweep = expand_bound, lb2_sweep
+    def fused_expand(tables, prmu_T, depth2, front_T, n_valid, cap, tile,
+                     width, with_sched, bins, with_bounds, aux_i16):
+        return fz.fused_expand_plain(tables, prmu_T, depth2, front_T,
+                                     n_valid, cap, 1, tile, width,
+                                     with_sched, bins, with_bounds, aux_i16)
+
+    kernels.expand_bound, kernels.lb2_sweep, kernels.fused_expand = (
+        expand_bound, lb2_sweep, fused_expand)
     try:
         yield
     finally:
-        kernels.expand_bound, kernels.lb2_sweep = saved
+        (kernels.expand_bound, kernels.lb2_sweep,
+         kernels.fused_expand) = saved
 
 
 def path_run(name: str, expect: tuple, fn):
@@ -123,9 +143,10 @@ def clone(state: device.SearchState) -> device.SearchState:
                           aux=state.aux.clone())
 
 
-def run_steps(tables, state, lb_kind: int, chunk: int, steps: int):
+def run_steps(tables, state, lb_kind: int, chunk: int, steps: int,
+              fused: str = "off"):
     return device.run_growing(tables, state, lb_kind, chunk,
-                              state.iters + steps)
+                              state.iters + steps, fused=fused)
 
 
 def same_state(a: device.SearchState, b: device.SearchState) -> bool:
@@ -135,7 +156,8 @@ def same_state(a: device.SearchState, b: device.SearchState) -> bool:
     n = a.size
     return (torch.equal(a.prmu[:, :n], b.prmu[:, :n])
             and torch.equal(a.depth[:n], b.depth[:n])
-            and torch.equal(a.aux[:, :n], b.aux[:, :n]))
+            and torch.equal(a.aux[:, :n], b.aux[:, :n])
+            and torch.equal(a.telemetry, b.telemetry))
 
 
 # --- phase 1: the card ----------------------------------------------------
@@ -253,6 +275,7 @@ def ta021_run():
 
 (warm, s21, secs), counts, _ = path_run(
     "ta021 lb2", ("expand_bounds", "lb2_sweep"), ta021_run)
+UNFUSED_SECS = secs
 LAUNCH_FROM["expand_bounds"] = LAUNCH_FROM["lb2_sweep"] = counts
 steps = s21.iters - warm.iters
 check(steps > 0 and s21.best == 2297, "ta021 bench run")
@@ -284,7 +307,140 @@ check(same_state(s71, s71p), "ta071: kernels != plain")
 say("ta071 lb2 6 steps (J > 64)", tree=s71.tree, evals=s71.evals,
     seconds=round(secs, 3), equal_to_plain=True, launches=counts)
 
-# --- phase 6: each kernel against its plain version -----------------------
+# --- phase 6: the fused route -------------------------------------------
+FUSED_GOLDENS = [  # name, p, lb, ub, chunk, expected, kernels
+    ("ta007 lb1 fused", taillard.processing_times(7), 1, 1234, 4096,
+     (271602, 28447, 1234), ("fused_expand",)),
+    ("50x20 seed 51 lb2 fused (prefilter, W=2)",
+     np.asarray(m51["p"], np.int32).reshape(20, 50), 2, m51["ub"], 256,
+     (19481, 0, 3691), ("fused_expand", "lb2_sweep")),
+]
+for name, p, lb, ub, chunk, want, expect in FUSED_GOLDENS:
+    res, counts, secs = path_run(name, expect, lambda: device.search(
+        p, lb_kind=lb, init_ub=ub, chunk=chunk, capacity=1 << 20,
+        device=DEV, fused="hw"))
+    got = (res.explored_tree, res.explored_sol, res.best)
+    check(got == want and res.complete, f"{name}: {got} != {want}")
+    if lb == 1:
+        # the uncapped LB1 route never needs the bounds-only kernel
+        check(counts["expand_bounds"] == 0, f"{name}: unfused launches")
+    say(f"golden {name}", tree=got[0], sol=got[1], best=got[2],
+        seconds=round(secs, 3), launches=counts)
+
+os.environ[fz.FUSED_FLAG] = "1"
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    (rc, _), counts, secs = path_run(
+        "ta002 cli fused", ("fused_expand",),
+        lambda: (cli.main(["pfsp", "-i", "2", "-l", "1", "-u", "1"]), None))
+del os.environ[fz.FUSED_FLAG]
+text = buf.getvalue()
+check(rc == 0, "TTS_FUSED=1 cli pfsp -i 2 -l 1 -u 1 exit code")
+for want in ("Size of the explored tree: 30",
+             "Number of explored solutions: 0", "Optimal makespan: 1359"):
+    check(want in text, f"ta002 fused cli output lacks {want!r}")
+say("golden ta002 lb1 (cli, TTS_FUSED=1)", tree=30, seconds=round(secs, 3),
+    launches=counts)
+
+check(fz.fused_ok("hw", 20, device.lb2_route(20, 20, 190, CHUNK)[1], 2, 20,
+                  device=DEV), "ta021 fused gate")
+
+
+def ta021_fused_run():
+    s = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
+                          p_times=p21, device=DEV)
+    s = run_steps(t21, s, 2, CHUNK, 50, fused="hw")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s2 = run_steps(t21, s, 2, CHUNK, 200, fused="hw")
+    torch.cuda.synchronize()
+    return s, s2, time.perf_counter() - t
+
+
+(fwarm, f21, fsecs), counts, _ = path_run(
+    "ta021 lb2 fused", ("fused_expand", "lb2_sweep"), ta021_fused_run)
+LAUNCH_FROM["fused_expand"] = counts
+fsteps = f21.iters - fwarm.iters
+check(fsteps > 0 and f21.best == 2297, "ta021 fused bench run")
+say(f"ta021 lb2 fused chunk {CHUNK}", steps=fsteps,
+    seconds=round(fsecs, 4), evals_per_s=(f21.evals - fwarm.evals) / fsecs,
+    pushed_per_s=(f21.tree - fwarm.tree) / fsecs,
+    ms_per_step=1e3 * fsecs / fsteps,
+    unfused_ms_per_step=1e3 * UNFUSED_SECS / steps, pool=f21.size,
+    launches=counts)
+
+
+def fused_vs_others(label, tables, state, lb, chunk, steps):
+    """`steps` steps from one state through the fused kernel, through the
+    fused plain version and unfused (kernels), compared after every
+    step."""
+    a, b, c = clone(state), clone(state), clone(state)
+    for k in range(steps):
+        a = device.step(tables, lb, chunk, a, fused="hw")
+        with plain_kernels():
+            b = device.step(tables, lb, chunk, b, fused="hw")
+        c = device.step(tables, lb, chunk, c)
+        check(same_state(a, b), f"{label} step {k + 1}: kernel != plain")
+        check(same_state(a, c), f"{label} step {k + 1}: fused != unfused")
+    say(f"{label} {steps} steps fused kernel vs plain vs unfused",
+        equal=True, size=a.size, tree=a.tree)
+
+
+fused_vs_others("ta021 lb2 fused", t21, s21, 2, CHUNK, 20)
+
+
+def spill_run():
+    """ta021 ub=inf from the root: nothing is pruned, so from the fifth
+    step the LB1 survivors outgrow the N/4 frame and the fused step hands
+    the step to the unfused prefilter route (the bounds-only kernel); each
+    step is compared with the unfused step."""
+    a = device.init_state(20, 1 << 22, None, p_times=p21, telemetry=True,
+                          device=DEV)
+    c = clone(a)
+    spill_launches = 0
+    for k in range(6):
+        before = kernels.LAUNCHES["expand_bounds"]
+        a = device.step(t21, 2, CHUNK, a, fused="hw")
+        spill_launches += kernels.LAUNCHES["expand_bounds"] - before
+        c = device.step(t21, 2, CHUNK, c)
+        check(same_state(a, c), f"ta021 spill step {k + 1}: fused != "
+                                "unfused")
+    return a, spill_launches
+
+
+(sp, spill_launches), counts, secs = path_run(
+    "ta021 lb2 fused spill", ("fused_expand", "expand_bounds"), spill_run)
+check(spill_launches > 0, "ta021 spill: no fused step fell through")
+say("ta021 lb2 ub=inf 6 steps fused spill", spill_steps=spill_launches,
+    size=sp.size, tree=sp.tree, equal_to_unfused=True,
+    seconds=round(secs, 3), launches=counts)
+
+
+def telemetry_case(label, inst, lb, chunk, steps):
+    """Telemetry on the card: fused and unfused, kernels and plain
+    versions, from one seeded state; every vector and counter equal."""
+    p = taillard.processing_times(inst)
+    tb = batched.make_tables(p, device=DEV)
+    runs = {}
+    for fused in ("off", "hw"):
+        for plain in (False, True):
+            s = device.init_state(20, 1 << 22, taillard.optimal_makespan(
+                inst), p_times=p, telemetry=True, device=DEV)
+            with plain_kernels() if plain else contextlib.nullcontext():
+                runs[fused, plain] = run_steps(tb, s, lb, chunk, steps,
+                                               fused=fused)
+    ref = runs["off", False]
+    check(bool(ref.telemetry.any()), f"{label}: telemetry is empty")
+    for key, r in runs.items():
+        check(same_state(ref, r), f"{label}: {key} != unfused kernels")
+    pruned = ref.telemetry[tele.O_PRUNED:tele.O_PRUNED + tele.DEPTH_BUCKETS]
+    say(f"{label} telemetry {steps} steps, fused/unfused x kernel/plain",
+        equal=True, tree=ref.tree, pruned=int(pruned.sum().item()))
+
+
+telemetry_case("ta014 lb2 dense", 14, 2, 4096, 20)
+telemetry_case("ta021 lb2 prefilter", 21, 2, CHUNK, 12)
+
+# --- phase 7: each kernel against its plain version -----------------------
 RESULTS = []
 
 
@@ -341,7 +497,7 @@ def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
     if tile is None:
         tile = ex.effective_tile(J, B, 1024, lb, machines=M)
     G = B // tile
-    real = device._child_masks(depth2, torch.ones(B, dtype=torch.bool,
+    real = columns.child_masks(depth2, torch.ones(B, dtype=torch.bool,
                                                   device=DEV), G, J, tile)[1]
     n_real = int(real.sum().item())
     nin = J * B * 2 + B * 4 + M * B * 4 + (M * J + M) * 4
@@ -463,6 +619,82 @@ for inst, B in ((51, 4096), (71, 2048), (91, 1024), (111, 512)):
 err, ms, plain_ms, nb, no = big
 record("lb2_sweep (J > 64)", f"{PE}:639", SRC_L, "lb2_sweep_bigj", err, ms,
        plain_ms, nb, no, "ta071 45 pairs over 204800 child columns")
+
+
+def fused_case(label, tables, prmu_T, depth2, front_T, cap, tile, width,
+               with_sched, bins, with_bounds, aux_i16, reps):
+    """The fused kernel against its plain version on one chunk: every
+    output over the survivors, the count and the histogram."""
+    J, B = prmu_T.shape
+    M = front_T.shape[0]
+    capt = torch.full((), cap, dtype=torch.int32, device=DEV)
+    args = (tables, prmu_T, depth2, front_T, B, capt, tile, width,
+            with_sched, bins, with_bounds, aux_i16)
+    k = kernels.fused_expand(*args)
+    pl = fz.fused_expand_plain(tables, prmu_T, depth2, front_T, B, capt, 1,
+                               tile, width, with_sched, bins, with_bounds,
+                               aux_i16)
+    n_surv = int(pl[4].item())
+    check(int(k[4].item()) == n_surv, f"fused {label}: n_surv "
+                                      f"{int(k[4].item())} != {n_surv}")
+    n = min(n_surv, width)
+    err = 0
+    for x, y in zip(k[:4], pl[:4]):
+        check((x is None) == (y is None) and (x is None or x.dtype ==
+                                              y.dtype), f"fused {label}")
+        if x is not None and n:
+            err = max(err, max_err(x[:, :n], y[:, :n]))
+    if bins:
+        err = max(err, max_err(k[5], pl[5]))
+    check(err == 0, f"fused {label}: max abs err {err}")
+    ms = cuda_ms(lambda: kernels.fused_expand(*args), reps)
+    plain_ms = cuda_ms(lambda: fz.fused_expand_plain(
+        tables, prmu_T, depth2, front_T, B, capt, 1, tile, width,
+        with_sched, bins, with_bounds, aux_i16), 2)
+    # bytes: every input read once, the survivor frame written once;
+    # operations: the remain sums and the LB1 chain of every real child
+    real = columns.child_masks(depth2, torch.ones(B, dtype=torch.bool,
+                                                  device=DEV),
+                               B // tile, J, tile)[1]
+    n_real = int(real.sum().item())
+    per_col = (J * 2 + (M + 1) * (2 if aux_i16 else 4)
+               + 4 * with_bounds + 4 * ex.sched_words(J) * with_sched)
+    nbytes = (J * B * 2 + B * 4 + M * B * 4 + (M * J + M + 1) * 4
+              + n * per_col + 4 + 8 * bins)
+    nops = int((J - depth2).sum().item()) * M + n_real * 7 * M
+    say(f"fused_expand {label}", J=J, M=M, B=B, tile=tile, W=width,
+        n_surv=n_surv, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                           nops / INT32_OPS_PER_S))
+    return err, ms, plain_ms, nbytes, nops
+
+
+SRC_F = "tpu_tree_search_torch/csrc/fused_expand.cu"
+PF = "tpu_tree_search/ops/pallas_fused.py"
+# the main-path row: the popped ta021 chunk at the fused LB2 route's shape
+# (TB 512, frame N/4, scheduled-set words, telemetry off), pruned at the
+# incumbent
+tb21 = device.lb2_route(20, 20, 190, CHUNK)[1]
+fused_main = fused_case("ta021 prefilter", t21, pp, pd, pa, s21.best, tb21,
+                        CHUNK * 20 // 4, True, 0, False, False, 20)
+for inst, B, lb, sched, bins, bounds, i16 in (
+        (7, 4096, 1, False, 8, True, True),      # LB1 with telemetry
+        (51, 16384, 2, True, 0, False, False),   # two scheduled-set words
+        (91, 4096, 1, False, 0, False, True)):   # J = 200, TB 128
+    p = taillard.processing_times(inst)
+    M, J = p.shape
+    tb = batched.make_tables(p, device=DEV)
+    tile = (device.lb2_route(J, M, M * (M - 1) // 2, B)[1] if lb == 2
+            else 128 if J == 200 else
+            ex.effective_tile(J, B, 1024, lb, machines=M))
+    width = B * J // 4 if lb == 2 else B * J
+    fused_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst),
+               taillard.optimal_makespan(inst), tile, width, sched, bins,
+               bounds, i16, 10)
+err, ms, plain_ms, nb, no = fused_main
+record("fused_expand", f"{PF}:165", SRC_F, "fused_expand", err, ms,
+       plain_ms, nb, no, f"ta021 chunk {CHUNK}, TB {tb21}, W = N/4, "
+                         "scheduled-set words")
 
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")

@@ -16,7 +16,7 @@ from tpu_tree_search.ops import batched as jbatched, pallas_expand as jpe
 from tpu_tree_search.ops import reference as ref
 from tpu_tree_search_torch.engine import device as tdevice
 from tpu_tree_search_torch.ops import batched as tbatched, expand as tex
-from tpu_tree_search_torch.ops import kernels
+from tpu_tree_search_torch.ops import columns as tcolumns, kernels
 
 
 def _parents(jobs, machines, B, seed, deep=False):
@@ -142,7 +142,7 @@ def test_regather_matches(jobs, machines, with_sched):
     want = jdevice._regather(jt, jnp.asarray(prmu_T), jnp.asarray(depth2),
                              jnp.asarray(front_T.astype(np.int16)),
                              jnp.asarray(idx), TB, with_sched)
-    got = tdevice._regather(tt, _t(prmu_T), _t(depth2),
+    got = tcolumns.regather(tt, _t(prmu_T), _t(depth2),
                             _t(front_T.astype(np.int16)),
                             torch.as_tensor(idx).long(), TB, with_sched)
     for w, g in zip(want, got):

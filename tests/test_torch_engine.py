@@ -24,7 +24,7 @@ from tpu_tree_search_torch.ops import batched as tbatched
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 _FIELDS = ("prmu", "depth", "aux", "size", "best", "tree", "sol", "iters",
-           "evals", "sent", "recv", "steals", "overflow")
+           "evals", "sent", "recv", "steals", "overflow", "telemetry")
 _jstep = jax.jit(jdevice.step, static_argnums=(1, 2),
                  static_argnames=("tile",))
 
@@ -99,14 +99,22 @@ def test_dense_route_matches_prefilter_state():
 
 
 def test_convert_round_trip():
+    """Pool, counters and the telemetry vector, off (width 0) and on
+    (width 60, after a few JAX steps so that it holds counts)."""
     p = _instance(7, 4, 0)
-    js = jdevice.init_state(7, 256, 500, p_times=p, telemetry=False)
-    want = _jnp_state(js)
-    got = convert.state_to_numpy(convert.state_from_numpy(want, "cpu"))
-    for f in _FIELDS:
-        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
-    for f in ("prmu", "depth", "aux"):
-        assert got[f].dtype == want[f].dtype, f
+    jt = jbatched.make_tables(p)
+    for telemetry in (False, True):
+        js = jdevice.init_state(7, 256, 500, p_times=p, telemetry=telemetry)
+        for _ in range(3):
+            js = _jstep(jt, 1, 8, js, tile=8)
+        want = _jnp_state(js)
+        assert want["telemetry"].shape == ((60,) if telemetry else (0,))
+        assert want["telemetry"].any() == telemetry
+        got = convert.state_to_numpy(convert.state_from_numpy(want, "cpu"))
+        for f in _FIELDS:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        for f in ("prmu", "depth", "aux", "telemetry"):
+            assert got[f].dtype == want[f].dtype, f
 
 
 @functools.lru_cache(maxsize=None)

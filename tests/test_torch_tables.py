@@ -104,9 +104,14 @@ def test_port_imports_no_jax():
         "import tpu_tree_search_torch.convert\n"
         "import tpu_tree_search_torch.engine.device\n"
         "import tpu_tree_search_torch.engine.checkpoint\n"
+        "import tpu_tree_search_torch.engine.telemetry\n"
+        "import tpu_tree_search_torch.ops.columns\n"
         "import tpu_tree_search_torch.ops.expand\n"
+        "import tpu_tree_search_torch.ops.fused\n"
         "import tpu_tree_search_torch.ops.kernels\n"
+        "import tpu_tree_search_torch.profile_step\n"
         "import tpu_tree_search_torch.tune.defaults\n"
+        "import tpu_tree_search_torch.utils.config\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpu_tree_search' or m.startswith('tpu_tree_search.')]\n"
         "assert not bad, bad\n"

@@ -3,6 +3,11 @@
 Reproduces the single-device path of `tpu_tree_search/cli.py`
 (`run_pfsp` -> `device.search`, and the lines of `_print_pfsp_settings`
 and `_print_results`). Runs on `cuda` unless `--device cpu` is given.
+`TTS_FUSED=1` takes the fused route (`ops/fused.py`) where it applies;
+`--search-telemetry` (or `TTS_SEARCH_TELEMETRY=1`) gives the state the
+search-telemetry vector (`engine/telemetry.py`) and prints its summary as
+one JSON line after the results; the other output lines are the same
+either way.
 
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1
 """
@@ -10,6 +15,7 @@ and `_print_results`). Runs on `cuda` unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -53,10 +59,13 @@ def run_pfsp(args) -> int:
     t0 = time.perf_counter()
     out = device.search(p, lb_kind=args.lb, init_ub=init_ub,
                         chunk=args.chunk, capacity=capacity,
-                        max_iters=args.max_iters, device=dev)
+                        max_iters=args.max_iters, device=dev,
+                        telemetry=args.search_telemetry or None)
     elapsed = time.perf_counter() - t0
     _print_results(out.best, out.explored_tree, out.explored_sol, elapsed,
                    complete=out.complete)
+    if out.telemetry is not None:
+        print("Search telemetry: " + json.dumps(out.telemetry))
     return 0
 
 
@@ -76,6 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="initial pool rows (default: by instance class)")
     p.add_argument("--max-iters", type=int, default=None,
                    help="stop after this many steps (a truncated run)")
+    p.add_argument("--search-telemetry", action="store_true",
+                   help="keep the on-device search-telemetry vector "
+                        "(engine/telemetry.py; also TTS_SEARCH_TELEMETRY=1)"
+                        " and print its summary; the counts stay the same")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions)")

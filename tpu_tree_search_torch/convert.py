@@ -19,6 +19,8 @@ from .engine.device import SearchState, resolve_device
 # the scalar counters of a state, held on the host as Python ints
 _COUNTERS = ("size", "best", "tree", "sol", "iters", "evals", "sent",
              "recv", "steals")
+# the fields held on the device
+_DEVICE = ("prmu", "depth", "aux", "telemetry")
 
 
 def tables_from_numpy(arrays: dict, device="cuda") -> BoundTables:
@@ -36,20 +38,23 @@ def tables_from_numpy(arrays: dict, device="cuda") -> BoundTables:
 
 def state_from_numpy(arrays: dict, device="cuda") -> SearchState:
     """SearchState on `device` from a dict of arrays keyed by field name
-    (pool arrays keep their dtypes: prmu/depth int16, aux int16 or
-    int32)."""
+    (pool arrays keep their dtypes: prmu/depth int16, aux int16 or int32;
+    `telemetry` int64 of width 0 or telemetry.WIDTH, width 0 when the dict
+    has none)."""
     dev = resolve_device(device)
-    pool = {f: torch.as_tensor(np.array(arrays[f], copy=True), device=dev)
-            for f in ("prmu", "depth", "aux")}
+    arrays = {**arrays, "telemetry": np.asarray(arrays.get("telemetry", ()),
+                                                np.int64)}
+    dev_arrays = {f: torch.as_tensor(np.array(arrays[f], copy=True),
+                                     device=dev) for f in _DEVICE}
     counters = {f: int(np.asarray(arrays[f])) for f in _COUNTERS}
-    return SearchState(**pool, **counters,
+    return SearchState(**dev_arrays, **counters,
                        overflow=bool(np.asarray(arrays["overflow"])))
 
 
 def state_to_numpy(state: SearchState) -> dict:
-    """The state's fields as numpy arrays (pool) and numpy scalars."""
-    out = {f: getattr(state, f).cpu().numpy()
-           for f in ("prmu", "depth", "aux")}
+    """The state's fields as numpy arrays (pool, telemetry) and numpy
+    scalars."""
+    out = {f: getattr(state, f).cpu().numpy() for f in _DEVICE}
     out.update({f: np.asarray(getattr(state, f)) for f in _COUNTERS})
     out["overflow"] = np.asarray(state.overflow)
     return out

@@ -27,11 +27,14 @@
 // arithmetic is exact int32 (the TPU kernel's f32 one-hot matmuls are exact
 // below 2^24, so the values are equal). Bounds-only, the slots below the
 // parent's depth are not children; the kernel writes INT_MAX there and
-// skips their math.
+// skips their math. The parent state and the per-child chain live in
+// lb1_chain.cuh, shared with fused_expand.cu.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+
+#include "lb1_chain.cuh"
 
 namespace {
 
@@ -57,17 +60,7 @@ __global__ void expand_bound_kernel(
   const int d = depth[b];
 
   int fr[MAXM], rem[MAXM];
-#pragma unroll
-  for (int k = 0; k < MAXM; ++k) {
-    fr[k] = k < M ? front[(long long)k * B + b] : 0;
-    rem[k] = 0;
-  }
-  for (int i = d; i < J; ++i) {
-    const int job = min(max((int)prmu[(long long)i * B + b], 0), J - 1);
-#pragma unroll
-    for (int k = 0; k < MAXM; ++k)
-      if (k < M) rem[k] += sp[k * J + job];
-  }
+  tts::parent_state<MAXM>(sp, prmu, front, J, M, B, b, d, fr, rem);
   const int jd = (d >= 0 && d < J) ? prmu[(long long)d * B + b] : prmu[b];
 
   int i0 = d;
@@ -80,36 +73,11 @@ __global__ void expand_bound_kernel(
   for (int i = max(i0, 0); i < J; ++i) {
     const long long col = ((long long)g * J + i) * TB + bb;
     const int jv = prmu[(long long)i * B + b];
-    const int job = min(max(jv, 0), J - 1);
-    // k = 0 of the child front chain and of both bound chains
-    int c = sp[job];
-    int cf = fr[0] + c;
-    if (emit) aux[col] = cf;
-    int tmp0, lb;
-    if (lb_kind == 1) {
-      tmp0 = cf + (rem[0] - c);
-      lb = tmp0 + st[0];
-    } else {
-      lb = fr[0] + rem[0] + st[0];
-      tmp0 = fr[0] + c;
-    }
-#pragma unroll
-    for (int k = 1; k < MAXM; ++k) {
-      if (k < M) {
-        c = sp[k * J + job];
-        cf = max(cf, fr[k]) + c;
-        if (emit) aux[(long long)k * N + col] = cf;
-        if (lb_kind == 1) {
-          const int tmp1 = max(tmp0, cf + (rem[k] - c));
-          lb = max(lb, tmp1 + st[k]);
-          tmp0 = tmp1;
-        } else {
-          const int tmp1 = max(tmp0, fr[k]);
-          lb = max(lb, tmp1 + rem[k] + st[k]);
-          tmp0 = tmp1 + c;
-        }
-      }
-    }
+    const int lb = tts::child_bound<MAXM>(
+        sp, st, fr, rem, M, J, tts::job_index(jv, J), lb_kind,
+        [&](int k, int cf) {
+          if (emit) aux[(long long)k * N + col] = cf;
+        });
     bounds[col] = lb;
     if (emit) {
       aux[(long long)M * N + col] = d + 1;

@@ -1,22 +1,26 @@
 """Build, bind and launch the port's Hopper kernels.
 
-Two CUDA C++ sources under `tpu_tree_search_torch/csrc/` replace the four
-Pallas kernels of `tpu_tree_search/ops/pallas_expand.py` on the engine's
-path:
+Three CUDA C++ sources under `tpu_tree_search_torch/csrc/` replace the
+five Pallas kernels of `tpu_tree_search/ops/pallas_expand.py` and
+`tpu_tree_search/ops/pallas_fused.py`:
 
 - `expand_bound.cu` (`_expand_kernel` in emit mode, `_bounds_kernel`
   bounds-only);
 - `lb2_sweep.cu` (`_lb2_kernel` for J <= 64, `_lb2_bigj_kernel` for
-  J > 64).
+  J > 64);
+- `fused_expand.cu` (`_fused_kernel`).
 
-Each source is compiled at first use by `nvcc` for `sm_90a` into a shared
-library with a plain C interface (`_build/`, listed in `.gitignore`; the
-file name carries a hash of the source and flags, so an edit rebuilds),
+`expand_bound.cu` and `fused_expand.cu` share the bound chain of
+`lb1_chain.cuh`. Each source is compiled at first use by `nvcc` for
+`sm_90a` into a shared library with a plain C interface (`_build/`,
+listed in `.gitignore`; the file name carries a hash of the source, the
+shared headers and the flags, so an edit rebuilds),
 loaded with ctypes, and launched on PyTorch's current stream. A wrapper
 checks device, dtype and shape, allocates its outputs with `torch.empty`,
 raises when the launch returns an error, and adds one to its entry of
 `LAUNCHES` per launch. Nothing here runs on the CPU: the dispatchers in
-`ops/expand.py` call these wrappers for CUDA tensors only.
+`ops/expand.py` and `ops/fused.py` call these wrappers for CUDA tensors
+only.
 """
 
 from __future__ import annotations
@@ -47,11 +51,13 @@ _SOURCES = {
                      [_vp] * 5 + [_i32] * 6 + [_vp] * 4),
     "lb2_sweep": ("tts_lb2_sweep",
                   [_vp, _i64, _vp, _i64, _i32, _i32, _i32] + [_vp] * 4),
+    "fused_expand": ("tts_fused_expand",
+                     [_vp] * 6 + [_i32] * 9 + [_vp] * 7 + [_i64, _vp]),
 }
 
 # launches per kernel entry, counted where each wrapper launches
 LAUNCHES = {"expand_emit": 0, "expand_bounds": 0, "lb2_sweep": 0,
-            "lb2_sweep_bigj": 0}
+            "lb2_sweep_bigj": 0, "fused_expand": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -72,7 +78,9 @@ def _nvcc() -> str:
 
 def library_path(stem: str) -> Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{stem}-{tag[:12]}.so"
 
 
@@ -213,3 +221,74 @@ def lb2_sweep(tables: BoundTables, child_front_cols: torch.Tensor,
     if n:
         LAUNCHES["lb2_sweep" if J <= 64 else "lb2_sweep_bigj"] += 1
     return out
+
+
+def _fused_scratch_words(B: int, tile: int, J: int) -> int:
+    """int32 scratch of the fused kernel: a ballot word and its base per
+    (tile, slot, sub-block of <= 128 parents, warp), as `fused_expand.cu`
+    lays them out."""
+    BT = min(128, (tile + 31) // 32 * 32)
+    NSB = -(-tile // BT)
+    return 2 * (B // tile) * J * NSB * (BT // 32)
+
+
+def fused_expand(tables: BoundTables, prmu_T: torch.Tensor,
+                 depth2: torch.Tensor, front_T: torch.Tensor, n_valid: int,
+                 bound_cap, tile: int, cap_width: int, with_sched: bool,
+                 tele_bins: int, with_bounds: bool, aux_i16: bool):
+    """The fused kernel on (J, B) parents in tiles of `tile`: the
+    survivors of the LB1 prune against `bound_cap` (an int32 scalar tensor
+    on the device, or an int), compacted into a `cap_width`-wide frame.
+    Returns (children, caux, bounds | None, sched | None, n_surv,
+    hist | None) as `ops/fused.fused_expand` documents."""
+    J, B = prmu_T.shape
+    M = front_T.shape[0]
+    W = cap_width
+    _need(prmu_T, torch.int16, "prmu_T")
+    _need(depth2, torch.int32, "depth2")
+    _need(front_T, torch.int32, "front_T")
+    _need(tables.p, torch.int32, "tables.p")
+    dev = prmu_T.device
+    if not isinstance(bound_cap, torch.Tensor):
+        bound_cap = torch.full((), int(bound_cap), dtype=torch.int32,
+                               device=dev)
+    _need(bound_cap, torch.int32, "bound_cap")
+    if (depth2.numel() != B or front_T.shape[1] != B
+            or tables.p.shape != (M, J) or bound_cap.numel() != 1
+            or len({x.device for x in (prmu_T, depth2, front_T, tables.p,
+                                       bound_cap)}) != 1):
+        raise ValueError("fused kernel: inconsistent inputs "
+                         f"{tuple(prmu_T.shape)} {tuple(depth2.shape)} "
+                         f"{tuple(front_T.shape)} {tuple(tables.p.shape)}")
+    if (tile <= 0 or B % tile != 0 or not 1 <= M <= 32 or B * J >= 2**31
+            or not 1 <= W <= B * J or not 0 <= tele_bins <= 64):
+        raise ValueError(f"fused kernel: B={B} tile={tile} M={M} J={J} "
+                         f"W={W} bins={tele_bins}")
+    SW = (J + 31) // 32 if with_sched else 0
+    children = torch.empty((J, W), dtype=torch.int16, device=dev)
+    caux = torch.empty((M + 1, W), device=dev,
+                       dtype=torch.int16 if aux_i16 else torch.int32)
+    bounds = (torch.empty((1, W), dtype=torch.int32, device=dev)
+              if with_bounds else None)
+    sched = (torch.empty((SW, W), dtype=torch.int32, device=dev)
+             if SW else None)
+    n_surv = torch.empty((), dtype=torch.int32, device=dev)
+    hist = (torch.empty((tele_bins,), dtype=torch.int64, device=dev)
+            if tele_bins else None)
+    scratch = torch.empty(_fused_scratch_words(B, tile, J),
+                          dtype=torch.int32, device=dev)
+    # inputs held in names until the launch is queued: a temporary's
+    # memory could be handed to the next allocation before the kernel
+    # reads it
+    ins = [x.contiguous() for x in (tables.p, tables.min_tails, prmu_T,
+                                    depth2.reshape(B), front_T, bound_cap)]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    rc = _lib("fused_expand").tts_fused_expand(
+        *(x.data_ptr() for x in ins),
+        J, M, B, tile, max(0, min(int(n_valid), B)), W, SW, tele_bins,
+        int(aux_i16), children.data_ptr(), caux.data_ptr(), ptr(bounds),
+        ptr(sched), n_surv.data_ptr(), ptr(hist), scratch.data_ptr(),
+        scratch.numel(), _stream(dev))
+    _check(rc, "fused_expand")
+    LAUNCHES["fused_expand"] += 1
+    return children, caux, bounds, sched, n_surv, hist

@@ -2,9 +2,10 @@
 
     python -m tpu_tree_search_torch.profile_step [-i 21] [-l 2]
         [--chunk 65536] [--capacity 4194304] [--warm 50] [--steps 20]
-        [--device cuda]
+        [--fused] [--device cuda]
 
-Seeds Taillard instance `-i` with ub=opt, runs `--warm` steps, then
+Seeds Taillard instance `-i` with ub=opt, runs `--warm` steps (through the
+fused route with `--fused`, else unfused; `TTS_FUSED` is not read), then
 profiles `--steps` more and prints one JSON line: host milliseconds per
 step, the device's busy share of the window (the union of its kernel and
 copy intervals over the window's wall time), the device operations
@@ -40,13 +41,16 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
 
 
 def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
-            steps: int, dev: torch.device, top: int = 12) -> dict:
+            steps: int, dev: torch.device, top: int = 12,
+            fused: bool = False) -> dict:
     p = taillard.processing_times(inst)
     tables = batched.make_tables(p, device=dev)
     state = device.init_state(p.shape[1], capacity,
                               taillard.optimal_makespan(inst), p_times=p,
                               device=dev)
-    state = device.run_growing(tables, state, lb_kind, chunk, warm)
+    mode = ("hw" if dev.type == "cuda" else "interpret") if fused else "off"
+    state = device.run_growing(tables, state, lb_kind, chunk, warm,
+                               fused=mode)
     on_cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -56,11 +60,12 @@ def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = device.run_growing(tables, state, lb_kind, chunk,
-                                 state.iters + steps)
+                                 state.iters + steps, fused=mode)
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
     done = out.iters - state.iters
     res = {"instance": f"ta{inst:03d}", "lb": lb_kind, "chunk": chunk,
+           "fused": mode,
            "steps": done, "ms_per_step": wall_us / 1e3 / max(done, 1),
            "evals": out.evals - state.evals, "device_busy_share": None,
            "device_ms_per_step": None, "device_ops_per_step": None,
@@ -94,11 +99,15 @@ def main(argv=None) -> int:
     ap.add_argument("--capacity", type=int, default=1 << 22)
     ap.add_argument("--warm", type=int, default=50)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--fused", action="store_true",
+                    help="take the fused route (hw on CUDA, the plain "
+                         "version on the CPU)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = device.resolve_device(args.device)
     print(json.dumps(profile(args.inst, args.lb, args.chunk, args.capacity,
-                             args.warm, args.steps, dev)), flush=True)
+                             args.warm, args.steps, dev,
+                             fused=args.fused)), flush=True)
     return 0
 
 
