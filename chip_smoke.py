@@ -4,32 +4,43 @@
 
 Builds the Hopper kernels from `tpu_tree_search_torch/csrc/`, drives the
 port's main path (exact PFSP branch-and-bound through `device.search`, the
-CLI and `device.run`, unfused and through the fused route), checks every
+CLI and `device.run`; on the card these take the fused route by default
+where it applies, and the unfused route is driven with `fused="off"`),
+checks every
 kernel bit for bit (tolerance 0: all of it is int32 math) against its
 plain PyTorch version at the main path's shapes, and times both. Any
 failed check ends the run with a non-zero exit code and no result line.
 
 Phases (one line each, then two JSON lines):
   1. the card (`nvidia-smi`), torch and CUDA versions
-  2. kernel build
-  3. golden solves with ub=opt, each path's launch counts read after it;
-     then the dense LB2 route (ta003 at the CLI chunk, ta014 at chunk
-     4096) stepped through the kernels and through the plain versions from
-     one state, compared exactly after every step
-  4. ta021 LB2 at the bench chunk (65536) / capacity 2^22: 50 warm-up + 200 timed
-     steps (evals/s), then 20 steps through the kernels and through the
-     plain versions from one state, compared exactly
+  2. kernel build, with ptxas's register and spill lines of every kernel
+     instance; a sweep or fused instance with a stack frame or spills fails
+  3. golden solves with ub=opt through the default route (ta003 LB2
+     through the CLI, ta014 LB2 `dense`, 50x20 seed 51 LB2 and ta007 LB1
+     fused, ta007 LB1_d, ta002 LB1 fused through the CLI), each path's
+     launch counts read after it; then the dense LB2 route (ta003 at the
+     CLI chunk, ta014 at chunk 4096) stepped through the kernels and
+     through the plain versions from one state, compared exactly after
+     every step
+  4. ta021 LB2 at the bench chunk (65536) / capacity 2^22, 50 warm-up +
+     200 timed steps (evals/s), on the default (fused) route and with
+     `fused="off"`; then 20 unfused steps through the kernels and through
+     the plain versions from one state, compared exactly
   5. the J > 64 path: ta071 LB2 steps, kernels against plain versions
-  6. the fused route (`fused="hw"`): golden solves (ta007 LB1, ta002 LB1
-     through the CLI with TTS_FUSED=1, 50x20 seed 51 LB2); ta021 LB2 at
-     the bench shape, 50 warm-up + 200 timed steps, then 20 steps from one
+  6. the fused route against the others: golden solves with
+     `fused="off"` (50x20 seed 51 LB2, ta007 LB1); 20 ta021 steps from one
      state through the fused kernel, through its plain version and
      unfused, compared after every step; a spill case (ta021 ub=inf from
      the root, whose LB1 survivors outgrow the N/4 frame, so the fused
      step falls through to the unfused prefilter route); search
      telemetry on the card (ta014 `dense`, ta021 `prefilter`, fused and
      unfused, kernels and plain versions)
-  7. kernel parity and timing at the main path's shapes
+  7. kernel parity and timing at the main path's shapes, and at the
+     edges: sweeps of 1 column, of widths that are no multiple of the
+     kernel's columns per block, of column prefixes of wider frames, at
+     J = 20, 50, 100, 200 and 500; the fused kernel with n_valid < B,
+     spilling past its frame, with histogram and int16 aux, at J = 200,
+     launched twice on one input and back to back on three
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -38,7 +49,6 @@ from __future__ import annotations
 import contextlib
 import io
 import json
-import os
 import subprocess
 import sys
 import time
@@ -53,6 +63,8 @@ if not torch.cuda.is_available():
 from tpu_tree_search_torch import cli  # noqa: E402
 from tpu_tree_search_torch.engine import device  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
+from tpu_tree_search_torch.kernel_times import (  # noqa: E402
+    cuda_ms, kernel_ms, random_chunk)
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
 from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
@@ -66,6 +78,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # int32 add/min/max rate of the CUDA cores: 64 results per clock per SM
 # (compute capability 9.0), 132 SMs, 1.98 GHz boost clock
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# float32 rate: 128 adds per clock per SM (67 TFLOP/s counts an FMA as
+# two); float32 min/max run at most as fast, and an SM issues no more
+# than 128 thread-instructions a clock, so 128 per clock bounds a chain of
+# float32 adds and maxes however they mix (the LB2 sweep computes in
+# float32)
+FP32_OPS_PER_S = 128 * 132 * 1.98e9
 
 
 def check(ok: bool, what: str) -> None:
@@ -75,21 +93,6 @@ def check(ok: bool, what: str) -> None:
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls (CUDA
-    events, after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 @contextlib.contextmanager
@@ -144,7 +147,7 @@ def clone(state: device.SearchState) -> device.SearchState:
 
 
 def run_steps(tables, state, lb_kind: int, chunk: int, steps: int,
-              fused: str = "off"):
+              fused: str | None = None):
     return device.run_growing(tables, state, lb_kind, chunk,
                               state.iters + steps, fused=fused)
 
@@ -171,12 +174,41 @@ say("device", nvidia_smi=smi, torch=torch.__version__,
 torch.cuda.set_device(DEV)
 
 # --- phase 2: build -------------------------------------------------------
+
+
+def ptxas_instances(log: str) -> list[dict]:
+    """One entry per kernel instance of an `nvcc -Xptxas -v` log: its
+    mangled name, registers, stack frame and spill bytes."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"name": ln.split("'")[1]}
+            out.append(cur)
+        elif cur is not None and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = nums[:3]
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 t0 = time.perf_counter()
 built = kernels.build()
 say("build", seconds=round(time.perf_counter() - t0, 3),
-    per_source={k: round(v[0], 3) for k, v in built.items()},
-    ptxas=[ln.strip() for v in built.values() for ln in v[1].splitlines()
-           if "registers" in ln or "spill" in ln])
+    per_source={k: round(v[0], 3) for k, v in built.items()})
+for stem, (_, log) in built.items():
+    insts = ptxas_instances(log)
+    for inst in insts:
+        say(f"ptxas {stem}", **inst)
+    if stem in ("lb2_sweep", "fused_expand"):
+        # the log is kept beside the library, so a cached build is checked
+        # too
+        check(bool(insts), f"{stem}: no ptxas lines")
+        for inst in insts:
+            check(inst.get("stack") == 0 and inst.get("spill_stores") == 0
+                  and inst.get("spill_loads") == 0,
+                  f"{stem}: {inst['name']} has a stack frame or spills")
 
 # --- phase 3: golden solves through the entry points ----------------------
 LAUNCH_FROM: dict[str, dict] = {}
@@ -198,39 +230,63 @@ matrix = [json.loads(l) for l in (ROOT / "tests" / "golden" /
                                   "pfsp_lb2_matrix.jsonl").read_text()
           .splitlines()]
 m51 = next(r for r in matrix if r["seed"] == 51)
-GOLDENS = [  # name, p, lb, ub, chunk, expected (tree, sol, best), kernels
+GOLDENS = [  # name, p, lb, ub, chunk, (tree, sol, best), launched, not
     ("ta014 lb2 (dense)", taillard.processing_times(14), 2, 1377, 4096,
-     (144639, 0, 1377), ("expand_emit", "lb2_sweep")),
-    ("50x20 seed 51 lb2 (prefilter, W=2)",
+     (144639, 0, 1377), ("expand_emit", "lb2_sweep"), ("fused_expand",)),
+    ("50x20 seed 51 lb2 (fused prefilter, W=2)",
      np.asarray(m51["p"], np.int32).reshape(20, 50), 2, m51["ub"], 256,
-     (19481, 0, 3691), ("expand_bounds", "lb2_sweep")),
-    ("ta007 lb1", taillard.processing_times(7), 1, 1234, 4096,
-     (271602, 28447, 1234), ("expand_bounds",)),
+     (19481, 0, 3691), ("fused_expand", "lb2_sweep"), ()),
+    # the uncapped fused LB1 route never needs the bounds-only kernel
+    ("ta007 lb1 (fused)", taillard.processing_times(7), 1, 1234, 4096,
+     (271602, 28447, 1234), ("fused_expand",), ("expand_bounds",)),
     ("ta007 lb1_d", taillard.processing_times(7), 0, 1234, 4096,
-     (271602, 28447, 1234), ("expand_bounds",)),
+     (271602, 28447, 1234), ("expand_bounds",), ("fused_expand",)),
 ]
-for name, p, lb, ub, chunk, want, expect in GOLDENS:
+
+
+def golden(name, p, lb, ub, chunk, want, expect, absent, **kw):
     res, counts, secs = path_run(name, expect, lambda: device.search(
         p, lb_kind=lb, init_ub=ub, chunk=chunk, capacity=1 << 20,
-        device=DEV))
+        device=DEV, **kw))
     got = (res.explored_tree, res.explored_sol, res.best)
     check(got == want and res.complete, f"{name}: {got} != {want}")
-    if name.startswith("ta014"):
-        # the emit kernel's row is measured at this path's shape
-        LAUNCH_FROM["expand_emit"] = counts
+    for k in absent:
+        check(counts[k] == 0, f"{name}: kernel {k} launched")
     say(f"golden {name}", tree=got[0], sol=got[1], best=got[2],
         seconds=round(secs, 3), launches=counts)
+    return counts
 
 
-def kernels_vs_plain(label, tables, state, chunk, steps):
+# the default route: no `fused` argument, as a user calls it
+for row in GOLDENS:
+    counts = golden(*row)
+    if row[0].startswith("ta014"):
+        # the emit kernel's row is measured at this path's shape
+        LAUNCH_FROM["expand_emit"] = counts
+
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    (rc, _), counts, secs = path_run(
+        "ta002 cli (fused)", ("fused_expand",),
+        lambda: (cli.main(["pfsp", "-i", "2", "-l", "1", "-u", "1"]), None))
+text = buf.getvalue()
+check(rc == 0, "cli pfsp -i 2 -l 1 -u 1 exit code")
+for want in ("Size of the explored tree: 30",
+             "Number of explored solutions: 0", "Optimal makespan: 1359"):
+    check(want in text, f"ta002 cli output lacks {want!r}")
+check(counts["expand_bounds"] == 0, "ta002 cli: unfused launches")
+say("golden ta002 lb1 (cli, fused)", tree=30, seconds=round(secs, 3),
+    launches=counts)
+
+
+def kernels_vs_plain(label, tables, state, chunk, steps, fused=None):
     """`steps` steps from one state through the kernels and through the
     plain versions on the same CUDA tensors, compared exactly after each
     step (the state itself is left as it was)."""
     a, b = clone(state), clone(state)
     for k in range(steps):
-        a = device.step(tables, 2, chunk, a)
+        a = device.step(tables, 2, chunk, a, fused=fused)
         with plain_kernels():
-            b = device.step(tables, 2, chunk, b)
+            b = device.step(tables, 2, chunk, b, fused=fused)
         check(same_state(a, b), f"{label} step {k + 1}: kernels != plain")
     say(f"{label} {steps} steps kernels vs plain", equal=True, size=a.size,
         tree=a.tree)
@@ -261,31 +317,41 @@ t21 = batched.make_tables(p21, device=DEV)
 check(device.lb2_route(20, 20, 190, CHUNK)[0] == "prefilter", "ta021 route")
 
 
-def ta021_run():
+def ta021_run(fused):
     s = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
                           p_times=p21, device=DEV)
-    s = run_steps(t21, s, 2, CHUNK, 50)
+    s = run_steps(t21, s, 2, CHUNK, 50, fused)
     torch.cuda.synchronize()
     t = time.perf_counter()
     # the pool is updated in place: `s` keeps only its counters
-    s2 = run_steps(t21, s, 2, CHUNK, 200)
+    s2 = run_steps(t21, s, 2, CHUNK, 200, fused)
     torch.cuda.synchronize()
     return s, s2, time.perf_counter() - t
 
 
-(warm, s21, secs), counts, _ = path_run(
-    "ta021 lb2", ("expand_bounds", "lb2_sweep"), ta021_run)
-UNFUSED_SECS = secs
-LAUNCH_FROM["expand_bounds"] = LAUNCH_FROM["lb2_sweep"] = counts
-steps = s21.iters - warm.iters
-check(steps > 0 and s21.best == 2297, "ta021 bench run")
-say(f"ta021 lb2 chunk {CHUNK}", steps=steps, seconds=round(secs, 4),
-    evals_per_s=(s21.evals - warm.evals) / secs,
-    pushed_per_s=(s21.tree - warm.tree) / secs,
-    ms_per_step=1e3 * secs / steps, pool=s21.size,
-    capacity=s21.prmu.shape[1], launches=counts)
+TA021 = {}
+# unfused first, then the default route, which is the fused one here
+for fused, label, expect in (
+        ("off", "ta021 lb2 unfused", ("expand_bounds", "lb2_sweep")),
+        (None, "ta021 lb2", ("fused_expand", "lb2_sweep"))):
+    (warm, s21, secs), counts, _ = path_run(label, expect,
+                                            lambda: ta021_run(fused))
+    steps = s21.iters - warm.iters
+    check(steps > 0 and s21.best == 2297, f"{label} bench run")
+    if fused is None:
+        # the main path's launches: a step whose LB1 survivors outgrow
+        # the fused frame runs the bounds-only kernel
+        LAUNCH_FROM.update(dict.fromkeys(
+            ("expand_bounds", "lb2_sweep", "fused_expand"), counts))
+    TA021[fused] = 1e3 * secs / steps
+    say(f"{label} chunk {CHUNK}", steps=steps, seconds=round(secs, 4),
+        evals_per_s=(s21.evals - warm.evals) / secs,
+        pushed_per_s=(s21.tree - warm.tree) / secs,
+        ms_per_step=TA021[fused], pool=s21.size,
+        capacity=s21.prmu.shape[1], launches=counts)
 
-kernels_vs_plain("ta021 lb2 prefilter", t21, s21, CHUNK, 20)
+kernels_vs_plain("ta021 lb2 prefilter unfused", t21, s21, CHUNK, 20,
+                 fused="off")
 
 # --- phase 5: the J > 64 path (ta071, 100x10) -----------------------------
 p71 = taillard.processing_times(71)
@@ -307,66 +373,19 @@ check(same_state(s71, s71p), "ta071: kernels != plain")
 say("ta071 lb2 6 steps (J > 64)", tree=s71.tree, evals=s71.evals,
     seconds=round(secs, 3), equal_to_plain=True, launches=counts)
 
-# --- phase 6: the fused route -------------------------------------------
-FUSED_GOLDENS = [  # name, p, lb, ub, chunk, expected, kernels
-    ("ta007 lb1 fused", taillard.processing_times(7), 1, 1234, 4096,
-     (271602, 28447, 1234), ("fused_expand",)),
-    ("50x20 seed 51 lb2 fused (prefilter, W=2)",
+# --- phase 6: the fused route against the unfused one --------------------
+UNFUSED_GOLDENS = [
+    ("50x20 seed 51 lb2 unfused (prefilter, W=2)",
      np.asarray(m51["p"], np.int32).reshape(20, 50), 2, m51["ub"], 256,
-     (19481, 0, 3691), ("fused_expand", "lb2_sweep")),
+     (19481, 0, 3691), ("expand_bounds", "lb2_sweep"), ("fused_expand",)),
+    ("ta007 lb1 unfused", taillard.processing_times(7), 1, 1234, 4096,
+     (271602, 28447, 1234), ("expand_bounds",), ("fused_expand",)),
 ]
-for name, p, lb, ub, chunk, want, expect in FUSED_GOLDENS:
-    res, counts, secs = path_run(name, expect, lambda: device.search(
-        p, lb_kind=lb, init_ub=ub, chunk=chunk, capacity=1 << 20,
-        device=DEV, fused="hw"))
-    got = (res.explored_tree, res.explored_sol, res.best)
-    check(got == want and res.complete, f"{name}: {got} != {want}")
-    if lb == 1:
-        # the uncapped LB1 route never needs the bounds-only kernel
-        check(counts["expand_bounds"] == 0, f"{name}: unfused launches")
-    say(f"golden {name}", tree=got[0], sol=got[1], best=got[2],
-        seconds=round(secs, 3), launches=counts)
-
-os.environ[fz.FUSED_FLAG] = "1"
-with contextlib.redirect_stdout(io.StringIO()) as buf:
-    (rc, _), counts, secs = path_run(
-        "ta002 cli fused", ("fused_expand",),
-        lambda: (cli.main(["pfsp", "-i", "2", "-l", "1", "-u", "1"]), None))
-del os.environ[fz.FUSED_FLAG]
-text = buf.getvalue()
-check(rc == 0, "TTS_FUSED=1 cli pfsp -i 2 -l 1 -u 1 exit code")
-for want in ("Size of the explored tree: 30",
-             "Number of explored solutions: 0", "Optimal makespan: 1359"):
-    check(want in text, f"ta002 fused cli output lacks {want!r}")
-say("golden ta002 lb1 (cli, TTS_FUSED=1)", tree=30, seconds=round(secs, 3),
-    launches=counts)
+for row in UNFUSED_GOLDENS:
+    golden(*row, fused="off")
 
 check(fz.fused_ok("hw", 20, device.lb2_route(20, 20, 190, CHUNK)[1], 2, 20,
                   device=DEV), "ta021 fused gate")
-
-
-def ta021_fused_run():
-    s = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
-                          p_times=p21, device=DEV)
-    s = run_steps(t21, s, 2, CHUNK, 50, fused="hw")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    s2 = run_steps(t21, s, 2, CHUNK, 200, fused="hw")
-    torch.cuda.synchronize()
-    return s, s2, time.perf_counter() - t
-
-
-(fwarm, f21, fsecs), counts, _ = path_run(
-    "ta021 lb2 fused", ("fused_expand", "lb2_sweep"), ta021_fused_run)
-LAUNCH_FROM["fused_expand"] = counts
-fsteps = f21.iters - fwarm.iters
-check(fsteps > 0 and f21.best == 2297, "ta021 fused bench run")
-say(f"ta021 lb2 fused chunk {CHUNK}", steps=fsteps,
-    seconds=round(fsecs, 4), evals_per_s=(f21.evals - fwarm.evals) / fsecs,
-    pushed_per_s=(f21.tree - fwarm.tree) / fsecs,
-    ms_per_step=1e3 * fsecs / fsteps,
-    unfused_ms_per_step=1e3 * UNFUSED_SECS / steps, pool=f21.size,
-    launches=counts)
 
 
 def fused_vs_others(label, tables, state, lb, chunk, steps):
@@ -375,10 +394,10 @@ def fused_vs_others(label, tables, state, lb, chunk, steps):
     step."""
     a, b, c = clone(state), clone(state), clone(state)
     for k in range(steps):
-        a = device.step(tables, lb, chunk, a, fused="hw")
+        a = device.step(tables, lb, chunk, a)
         with plain_kernels():
-            b = device.step(tables, lb, chunk, b, fused="hw")
-        c = device.step(tables, lb, chunk, c)
+            b = device.step(tables, lb, chunk, b)
+        c = device.step(tables, lb, chunk, c, fused="off")
         check(same_state(a, b), f"{label} step {k + 1}: kernel != plain")
         check(same_state(a, c), f"{label} step {k + 1}: fused != unfused")
     say(f"{label} {steps} steps fused kernel vs plain vs unfused",
@@ -399,9 +418,9 @@ def spill_run():
     spill_launches = 0
     for k in range(6):
         before = kernels.LAUNCHES["expand_bounds"]
-        a = device.step(t21, 2, CHUNK, a, fused="hw")
+        a = device.step(t21, 2, CHUNK, a)
         spill_launches += kernels.LAUNCHES["expand_bounds"] - before
-        c = device.step(t21, 2, CHUNK, c)
+        c = device.step(t21, 2, CHUNK, c, fused="off")
         check(same_state(a, c), f"ta021 spill step {k + 1}: fused != "
                                 "unfused")
     return a, spill_launches
@@ -445,9 +464,9 @@ RESULTS = []
 
 
 def record(name, replaces, source, launches_key, err, ms, plain_ms,
-           nbytes, nops, shape):
+           nbytes, nops, shape, ops_per_s=INT32_OPS_PER_S):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * nops / INT32_OPS_PER_S
+    t_ops = 1e3 * nops / ops_per_s
     RESULTS.append({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
@@ -468,26 +487,6 @@ def max_err(x, y, where=None):
 def popcount_cols(words: torch.Tensor) -> torch.Tensor:
     w = words.long() & 0xFFFFFFFF
     return sum(((w >> k) & 1).sum(dim=0) for k in range(32))
-
-
-def random_chunk(p: np.ndarray, B: int, seed: int):
-    """B random parents of instance p on the card: permutation, depth and
-    the front of the scheduled prefix."""
-    M, J = p.shape
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    prmu = torch.argsort(torch.rand((B, J), generator=g, device=DEV), dim=1)
-    depth = torch.randint(0, J, (B,), generator=g, device=DEV)
-    pt = torch.as_tensor(p.T.copy(), device=DEV)
-    front = torch.zeros((B, M), dtype=torch.int32, device=DEV)
-    for q in range(J):
-        pj = pt[prmu[:, q]]
-        c = [front[:, 0] + pj[:, 0]]
-        for k in range(1, M):
-            c.append(torch.maximum(c[-1], front[:, k]) + pj[:, k])
-        front = torch.where((q < depth)[:, None], torch.stack(c, 1), front)
-    return (prmu.T.to(torch.int16).contiguous(),
-            depth.to(torch.int32)[None, :].contiguous(),
-            front.T.contiguous())
 
 
 def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
@@ -523,12 +522,14 @@ def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
             nops = remain_ops + n_real * (7 if lb == 1 else 5) * M
         check(err == 0, f"expand_bound {label} lb{lb} emit={emit}: "
                         f"max abs err {err}")
-        ms = cuda_ms(lambda: kernels.expand_bound(
-            tables, prmu_T, depth2, front_T, lb, tile, emit), reps)
+        launch = lambda: kernels.expand_bound(  # noqa: E731
+            tables, prmu_T, depth2, front_T, lb, tile, emit)
+        ms = kernel_ms(launch, reps)
+        event_ms = cuda_ms(launch, reps)
         plain_ms = cuda_ms(plain, max(2, reps // 10))
         out.append((emit, err, ms, plain_ms, nbytes, nops))
         say(f"expand_bound {label} lb{lb} emit={emit}", J=J, B=B, tile=tile,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms)
     return out
 
 
@@ -539,13 +540,14 @@ def lb2_case(label, tables, cf, sched, reps):
     pl = ex.lb2_plain(tables, sched, cf)
     err = max_err(k, pl)
     check(err == 0, f"lb2_sweep {label}: max abs err {err}")
-    ms = cuda_ms(lambda: kernels.lb2_sweep(tables, cf, sched), reps)
+    ms = kernel_ms(lambda: kernels.lb2_sweep(tables, cf, sched), reps)
+    event_ms = cuda_ms(lambda: kernels.lb2_sweep(tables, cf, sched), reps)
     plain_ms = cuda_ms(lambda: ex.lb2_plain(tables, sched, cf), 2)
     unsched = int((J - popcount_cols(sched)).sum().item())
     nbytes = n * (M * 4 + sched.shape[0] * 4 + 4) + P * J * 16 + P * 16
     nops = P * unsched * 4 + P * n * 4
     say(f"lb2_sweep {label}", J=J, P=P, n=n, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
+        event_ms=event_ms, plain_ms=plain_ms)
     return err, ms, plain_ms, nbytes, nops
 
 
@@ -566,7 +568,7 @@ for J, M, B, inst in ((50, 20, 16384, 51), (100, 10, 8192, 71),
                       (200, 10, 4096, 91)):
     p = taillard.processing_times(inst)
     tb = batched.make_tables(p, device=DEV)
-    expand_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst), 1, 10)
+    expand_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst, DEV), 1, 10)
 
 err, ms, plain_ms, nb, no = main_shape[(1, False)]
 record("expand_bound (bounds-only)", f"{PE}:81", SRC_E, "expand_bounds",
@@ -603,67 +605,92 @@ W4 = aux21.shape[1] // 4
 lb2_case("ta021 24-pair head", head, aux21[:, :W4], sched21[:, :W4], 20)
 tail_r = lb2_case("ta021 166-pair tail", tail, aux21[:, :W4],
                   sched21[:, :W4], 20)
+# edges: one column, widths that are no multiple of a block's columns,
+# and column prefixes of the wider frame (row strides > n), head and tail
+for n in (1, 1000, 12345, W4 - 37):
+    lb2_case(f"ta021 24-pair head n={n}", head, aux21[:, :n],
+             sched21[:, :n], 3)
+    lb2_case(f"ta021 166-pair tail n={n}", tail, aux21[:, :n],
+             sched21[:, :n], 3)
 err, ms, plain_ms, nb, no = tail_r
 record("lb2_sweep (J <= 64)", f"{PE}:488", SRC_L, "lb2_sweep", err, ms,
-       plain_ms, nb, no, f"ta021 166-pair tail over {W4} child columns")
+       plain_ms, nb, no, f"ta021 166-pair tail over {W4} child columns",
+       FP32_OPS_PER_S)
 big = None
 for inst, B in ((51, 4096), (71, 2048), (91, 1024), (111, 512)):
     p = taillard.processing_times(inst)
     tb = batched.make_tables(p, device=DEV)
-    prmu_T, depth2, front_T = random_chunk(p, B, inst)
+    prmu_T, depth2, front_T = random_chunk(p, B, inst, DEV)
     cf = ex.expand_plain(tb, prmu_T, depth2, front_T, 1, B)[1][:p.shape[0]]
-    r = lb2_case(f"ta{inst:03d}", tb, cf, ex.sched_mask_cols(prmu_T, depth2,
-                                                             B), 5)
+    sched = ex.sched_mask_cols(prmu_T, depth2, B)
+    r = lb2_case(f"ta{inst:03d}", tb, cf, sched, 5)
+    for n in (1, cf.shape[1] // 3 + 1):
+        lb2_case(f"ta{inst:03d} n={n}", tb, cf[:, :n], sched[:, :n], 3)
     if inst == 71:
         big = r
 err, ms, plain_ms, nb, no = big
 record("lb2_sweep (J > 64)", f"{PE}:639", SRC_L, "lb2_sweep_bigj", err, ms,
-       plain_ms, nb, no, "ta071 45 pairs over 204800 child columns")
+       plain_ms, nb, no, "ta071 45 pairs over 204800 child columns",
+       FP32_OPS_PER_S)
 
 
-def fused_case(label, tables, prmu_T, depth2, front_T, cap, tile, width,
-               with_sched, bins, with_bounds, aux_i16, reps):
-    """The fused kernel against its plain version on one chunk: every
-    output over the survivors, the count and the histogram."""
-    J, B = prmu_T.shape
-    M = front_T.shape[0]
-    capt = torch.full((), cap, dtype=torch.int32, device=DEV)
-    args = (tables, prmu_T, depth2, front_T, B, capt, tile, width,
-            with_sched, bins, with_bounds, aux_i16)
-    k = kernels.fused_expand(*args)
-    pl = fz.fused_expand_plain(tables, prmu_T, depth2, front_T, B, capt, 1,
-                               tile, width, with_sched, bins, with_bounds,
-                               aux_i16)
-    n_surv = int(pl[4].item())
+def fused_err(label, k, want, width) -> int:
+    """Largest difference between two fused outputs over the survivors
+    [0, min(n_surv, W)), the histogram and the count."""
+    n_surv = int(want[4].item())
     check(int(k[4].item()) == n_surv, f"fused {label}: n_surv "
                                       f"{int(k[4].item())} != {n_surv}")
     n = min(n_surv, width)
     err = 0
-    for x, y in zip(k[:4], pl[:4]):
+    for x, y in zip(k[:4], want[:4]):
         check((x is None) == (y is None) and (x is None or x.dtype ==
                                               y.dtype), f"fused {label}")
         if x is not None and n:
             err = max(err, max_err(x[:, :n], y[:, :n]))
-    if bins:
-        err = max(err, max_err(k[5], pl[5]))
+    if want[5] is not None:
+        err = max(err, max_err(k[5], want[5]))
+    return err
+
+
+def fused_case(label, tables, prmu_T, depth2, front_T, cap, tile, width,
+               with_sched, bins, with_bounds, aux_i16, reps, n_valid=None):
+    """The fused kernel against its plain version on one chunk: every
+    output over the survivors, the count and the histogram; then the same
+    launch again, whose outputs must equal the first's."""
+    J, B = prmu_T.shape
+    M = front_T.shape[0]
+    n_valid = B if n_valid is None else n_valid
+    capt = torch.full((), cap, dtype=torch.int32, device=DEV)
+    args = (tables, prmu_T, depth2, front_T, n_valid, capt, tile, width,
+            with_sched, bins, with_bounds, aux_i16)
+    k = kernels.fused_expand(*args)
+    pl = fz.fused_expand_plain(tables, prmu_T, depth2, front_T, n_valid,
+                               capt, 1, tile, width, with_sched, bins,
+                               with_bounds, aux_i16)
+    n_surv = int(pl[4].item())
+    err = fused_err(label, k, pl, width)
     check(err == 0, f"fused {label}: max abs err {err}")
-    ms = cuda_ms(lambda: kernels.fused_expand(*args), reps)
+    check(fused_err(label, kernels.fused_expand(*args), k, width) == 0,
+          f"fused {label}: a second launch differs from the first")
+    ms = kernel_ms(lambda: kernels.fused_expand(*args), reps)
+    event_ms = cuda_ms(lambda: kernels.fused_expand(*args), reps)
     plain_ms = cuda_ms(lambda: fz.fused_expand_plain(
-        tables, prmu_T, depth2, front_T, B, capt, 1, tile, width,
+        tables, prmu_T, depth2, front_T, n_valid, capt, 1, tile, width,
         with_sched, bins, with_bounds, aux_i16), 2)
     # bytes: every input read once, the survivor frame written once;
     # operations: the remain sums and the LB1 chain of every real child
-    real = columns.child_masks(depth2, torch.ones(B, dtype=torch.bool,
-                                                  device=DEV),
-                               B // tile, J, tile)[1]
+    valid = torch.arange(B, device=DEV) < n_valid
+    real = columns.child_masks(depth2, valid, B // tile, J, tile)[1]
     n_real = int(real.sum().item())
+    n = min(n_surv, width)
     per_col = (J * 2 + (M + 1) * (2 if aux_i16 else 4)
                + 4 * with_bounds + 4 * ex.sched_words(J) * with_sched)
     nbytes = (J * B * 2 + B * 4 + M * B * 4 + (M * J + M + 1) * 4
               + n * per_col + 4 + 8 * bins)
     nops = int((J - depth2).sum().item()) * M + n_real * 7 * M
     say(f"fused_expand {label}", J=J, M=M, B=B, tile=tile, W=width,
-        n_surv=n_surv, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        n_valid=n_valid, n_surv=n_surv, max_abs_err=err, twice_equal=True,
+        ms=ms, event_ms=event_ms, plain_ms=plain_ms,
         bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
                            nops / INT32_OPS_PER_S))
     return err, ms, plain_ms, nbytes, nops
@@ -688,9 +715,28 @@ for inst, B, lb, sched, bins, bounds, i16 in (
             else 128 if J == 200 else
             ex.effective_tile(J, B, 1024, lb, machines=M))
     width = B * J // 4 if lb == 2 else B * J
-    fused_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst),
+    fused_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst, DEV),
                taillard.optimal_makespan(inst), tile, width, sched, bins,
                bounds, i16, 10)
+# edges: part of the chunk valid; no incumbent, so the survivors outgrow
+# the N/4 frame (n_surv exact past W, stores stop there); three chunks
+# launched back to back on one stream, each against its plain version
+W21 = CHUNK * 20 // 4
+fused_case("ta021 n_valid < B", t21, pp, pd, pa, s21.best, tb21, W21, True,
+           8, True, False, 5, n_valid=CHUNK - 12345)
+fused_case("ta021 spill", t21, pp, pd, pa, 10 ** 6, tb21, W21, True, 8,
+           False, True, 5)
+chunks = [random_chunk(p21, CHUNK, seed, DEV) for seed in (1, 2, 3)]
+capt = torch.full((), s21.best, dtype=torch.int32, device=DEV)
+outs = [kernels.fused_expand(t21, *c, CHUNK, capt, tb21, W21, True, 8, False,
+                             False) for c in chunks]
+for seed, c, o in zip((1, 2, 3), chunks, outs):
+    err = fused_err(f"back to back {seed}", o, fz.fused_expand_plain(
+        t21, *c, CHUNK, capt, 1, tb21, W21, True, 8, False, False), W21)
+    check(err == 0, f"fused back to back {seed}: max abs err {err}")
+say("fused_expand ta021 three chunks back to back", equal_to_plain=True,
+    n_surv=[int(o[4].item()) for o in outs])
+
 err, ms, plain_ms, nb, no = fused_main
 record("fused_expand", f"{PF}:165", SRC_F, "fused_expand", err, ms,
        plain_ms, nb, no, f"ta021 chunk {CHUNK}, TB {tb21}, W = N/4, "

@@ -7,6 +7,8 @@ JAX kernel runs in interpret mode on the CPU and serves as the oracle;
 nothing of the JAX package changes. Every comparison is exact (tolerance
 0: integer math); inputs come from numpy seeds."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,24 +228,60 @@ def test_fused_ok_gates():
         tfused.fused_ok("fast", 8, 64, 1, 3)
 
 
-def test_resolve_mode(monkeypatch):
-    monkeypatch.delenv(tfused.FUSED_FLAG, raising=False)
-    monkeypatch.delenv(tfused.FUSED_INTERPRET_FLAG, raising=False)
-    assert tfused.resolve_mode(None) == "off"
-    assert tfused.resolve_mode(None, on_cuda=True) == "off"
-    monkeypatch.setenv(tfused.FUSED_FLAG, "1")
+RESOLVE_CASES = [
+    # mode, on_cuda, resolved (None is the default: what the run observes)
+    (None, False, "off"), (None, True, "hw"),
+    ("off", False, "off"), ("off", True, "off"),
+    ("hw", True, "hw"), ("hw", False, "hw"),
+    ("interpret", False, "interpret"), ("interpret", True, "interpret"),
+]
+
+
+@pytest.mark.parametrize("mode,on_cuda,want", RESOLVE_CASES)
+def test_resolve_mode(mode, on_cuda, want):
+    """The default follows the tensors' device; an explicit mode passes
+    through (fused_ok then refuses one that does not fit the device)."""
+    assert tfused.resolve_mode(mode, on_cuda=on_cuda) == want
+
+
+@pytest.mark.parametrize("bad", ["on", True, 1])
+def test_resolve_mode_rejects_anything_else(bad):
+    with pytest.raises(ValueError, match="not one of"):
+        tfused.resolve_mode(bad)
+
+
+def test_no_environment_flag_picks_the_route(monkeypatch):
+    """The old TTS_FUSED switches are gone: setting them changes nothing,
+    and no module of the port names them."""
+    monkeypatch.setenv("TTS_FUSED", "1")
+    monkeypatch.setenv("TTS_FUSED_INTERPRET", "1")
     assert tfused.resolve_mode(None) == "off"
     assert tfused.resolve_mode(None, on_cuda=True) == "hw"
-    monkeypatch.setenv(tfused.FUSED_INTERPRET_FLAG, "1")
-    assert tfused.resolve_mode(None) == "interpret"
-    assert tfused.resolve_mode(None, on_cuda=True) == "hw"
-    assert tfused.resolve_mode(True, on_cuda=True) == "hw"
-    monkeypatch.setenv(tfused.FUSED_FLAG, "off")
-    assert tfused.resolve_mode(None) == "off"
-    for mode in ("off", "hw", "interpret"):
-        assert tfused.resolve_mode(mode) == mode
-    with pytest.raises(ValueError):
-        tfused.resolve_mode("on")
+    assert not hasattr(tfused, "FUSED_FLAG")
+    root = Path(tfused.__file__).resolve().parent.parent
+    for path in root.rglob("*.py"):
+        assert "TTS_FUSED" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("entry", ["run", "step", "search"])
+def test_cpu_default_route_is_unfused(monkeypatch, entry):
+    """With no `fused` argument a CPU run never enters the fused route, so
+    the JAX parity tests keep comparing like with like."""
+    seen = []
+    real = tdevice._fused_step
+    monkeypatch.setattr(tdevice, "_fused_step",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    p = PFSPInstance.synthetic(jobs=8, machines=4, seed=3).p_times
+    tt = tbatched.make_tables(p, device="cpu")
+    s = tdevice.init_state(8, 1 << 12, None, p_times=p, device="cpu")
+    if entry == "run":
+        out = tdevice.run(tt, s, 1, 8, max_iters=5)
+    elif entry == "step":
+        out = tdevice.step(tt, 2, 8, s)
+    else:
+        out = tdevice.search(p, lb_kind=2, chunk=8, capacity=1 << 12,
+                             device="cpu")
+    assert out.iters > 0 and not seen
 
 
 def test_hw_mode_on_cpu_tensors_raises():
@@ -362,17 +400,15 @@ def test_run_fused_equals_unfused(jobs, machines, seed, lb_kind):
 
 
 def test_search_fused_ta002_lb1_golden(monkeypatch):
-    """TTS_FUSED=1 with TTS_FUSED_INTERPRET=1 runs the CPU search through
-    the fused route and keeps the ta002 LB1 golden."""
-    monkeypatch.setenv(tfused.FUSED_FLAG, "1")
-    monkeypatch.setenv(tfused.FUSED_INTERPRET_FLAG, "1")
+    """fused="interpret" runs the CPU search through the fused route and
+    keeps the ta002 LB1 golden."""
     seen = []
     real = tdevice._fused_step
     monkeypatch.setattr(tdevice, "_fused_step",
                         lambda *a, **k: seen.append(1) or real(*a, **k))
     out = tdevice.search(taillard.processing_times(2), lb_kind=1,
                          init_ub=1359, chunk=64, capacity=1 << 16,
-                         device="cpu")
+                         device="cpu", fused="interpret")
     # tests/golden/pfsp_lb1_ub1.jsonl, ta002
     assert (out.explored_tree, out.explored_sol, out.best) == (30, 0, 1359)
     assert seen

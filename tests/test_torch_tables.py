@@ -88,6 +88,39 @@ def test_sweep_tables_pack_the_pair_fields():
         assert torch.equal(pairs[:, 3], t.min_tails[part.ma1.long()])
 
 
+@pytest.mark.parametrize("inst", [21, 71], ids=["J20", "J100"])
+@pytest.mark.parametrize("part", ["full", "head", "tail"])
+def test_sweep_tables_match_jax_fields(inst, part):
+    """The pair-sweep kernel's packed tables, full and cut by `pair_split`,
+    hold the JAX BoundTables' LB2 fields row for row: steps {js, ptm0_js,
+    ptm1_js, lag_js} per (pair, step), pairs {ma0, ma1, tail[ma0],
+    tail[ma1]}; the cut tables are contiguous row ranges."""
+    p = jtaillard.processing_times(inst)
+    jt = jbatched.make_tables(p)
+    tt = tbatched.make_tables(p, device="cpu")
+    k = tbatched.PAIR_PREFILTER
+    if part != "full":
+        want = jbatched.pair_split(jt, k)[part == "tail"]
+        got = tbatched.pair_split(tt, k)[part == "tail"]
+        rows = slice(k, None) if part == "tail" else slice(None, k)
+        assert got.sweep_steps.data_ptr() == \
+            tt.sweep_steps[rows].data_ptr()
+    else:
+        want, got = jt, tt
+    steps, pairs = got.sweep_steps, got.sweep_pairs
+    P, J = np.asarray(want.js).shape
+    assert steps.shape == (P, J, 4) and pairs.shape == (P, 4)
+    assert steps.is_contiguous() and pairs.is_contiguous()
+    for col, f in enumerate(("js", "ptm0_js", "ptm1_js", "lag_js")):
+        np.testing.assert_array_equal(steps[..., col].numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    tails = np.asarray(jt.min_tails)
+    ma0, ma1 = np.asarray(want.ma0), np.asarray(want.ma1)
+    np.testing.assert_array_equal(
+        pairs.numpy(), np.stack([ma0, ma1, tails[ma0], tails[ma1]], 1))
+
+
 def test_ceiling_check_matches():
     p = np.full((3, 4), 3_000_000, np.int32)
     with pytest.raises(ValueError, match="2\\^24") as jerr:

@@ -2,8 +2,8 @@
 
 Reproduces the single-device path of `tpu_tree_search/cli.py`
 (`run_pfsp` -> `device.search`, and the lines of `_print_pfsp_settings`
-and `_print_results`). Runs on `cuda` unless `--device cpu` is given.
-`TTS_FUSED=1` takes the fused route (`ops/fused.py`) where it applies;
+and `_print_results`). Runs on `cuda` unless `--device cpu` is given;
+on the card it takes the fused route (`ops/fused.py`) where that applies.
 `--search-telemetry` (or `TTS_SEARCH_TELEMETRY=1`) gives the state the
 search-telemetry vector (`engine/telemetry.py`) and prints its summary as
 one JSON line after the results; the other output lines are the same

@@ -21,31 +21,47 @@
 // What bounds it on this card (an H100 SXM: 3.35 TB/s, 16.7 T int32
 // operations/s on the CUDA cores). At ta021's shape (chunk 65536, 20x20, TB
 // 512, N = 1,310,720 child slots) the kernel reads about 8 MB of parents
-// (prmu J*2, front M*4, depth 4 bytes each) and writes, for the ~0.3 M
-// survivors of a steady step, J*2 + (M+1)*4 + 4 = 128 bytes each, about
-// 38 MB: 0.014 ms at 3.35 TB/s. Its int32 work is the bounds-only
-// kernel's, about 0.1 G operations (a remain sum of M per unscheduled job
-// per parent, ~7*M per real child): 0.006 ms at the CUDA cores' int32
-// rate. So the survivor block's bytes bound it; the bound math has slack
-// and is paid twice here.
+// and writes, for the ~0.3 M survivors of a steady step, J*2 + (M+1)*4 +
+// 4 = 128 bytes each, about 38 MB: 0.015 ms at 3.35 TB/s. Its int32 work,
+// a remain sum of M per unscheduled job per parent and ~7*M per real
+// child, is about 0.1 G operations: 0.006 ms. So bytes bound it.
 //
-// Design: three launches on one stream, no host round trip.
-//  1. count: one thread per parent, blocks of BT <= 128 parents of one
-//     tile. Each thread walks the J slots in lockstep with its warp,
-//     bounds its child, and the warp's push bits go out as one
-//     __ballot_sync word per (tile, slot, sub-block, warp): words in
-//     global column order. Pruned non-leaf children are binned into a
-//     shared-memory histogram, flushed with one 64-bit atomic per bin.
-//  2. scan: one block turns the words' popcounts into an exclusive prefix
-//     (each survivor's rank is its word's base plus the popcount of the
-//     lower lanes) and writes n_surv.
-//  3. write: the same thread layout recomputes only the survivors (its
-//     bit set, rank < W) and stores them at their rank; the lanes of a
-//     warp walk the slots together, and the ranks of a warp's survivors
-//     at one slot are consecutive, so the stores coalesce.
-// The bound chain is lb1_chain.cuh's, shared with expand_bound.cu. A
-// single-pass decoupled look-back would drop the recomputation and the
-// scan launch; that is later work.
+// The first design (count pass, one-block scan, write pass, one thread per
+// parent walking its J slots) took 0.158 ms there and 2.25-2.27 ms at
+// ta091 (J = 200, TB 128: 32 blocks for 132 SMs), both on NVIDIA H100
+// 80GB HBM3 at 700 W (device time, kernel_times.py): too few threads,
+// every survivor bounded twice, and a scan that one block walked alone.
+// This design:
+//  1. prep, one thread per parent: the parent's remain (M int32) and the
+//     scheduled-set words of its prefix (SW) into scratch, computed once
+//     per parent instead of once per child group; it also zeroes the
+//     look-back state and the histogram, so no memset is needed.
+//  2. main, a single pass with a chained scan and decoupled look-back.
+//     A block owns a contiguous span of the global column order: one tile
+//     g, K consecutive slots, all TB parents (K from the shape, so that
+//     the grid holds hundreds of spans: 640 at ta021, 800 at ta091). Its
+//     place in the order is an atomic ticket, not blockIdx, so a block
+//     only ever waits on blocks that are already running. Each thread
+//     bounds its R parents' children at the span's K slots once (parent
+//     state loaded once per parent, the bound kept in shared memory when
+//     it is an output), warp ballots of the push bits go to shared
+//     memory, one warp scans their popcounts, publishes the block's
+//     aggregate, and looks back over its predecessors' status words
+//     (flag + aggregate or inclusive prefix, one 64-bit word each) until
+//     it finds an inclusive prefix. Then each survivor is written at its
+//     rank: the lanes of a warp stand at one slot together, so the
+//     survivors' ranks there are consecutive and the stores coalesce. A
+//     writing thread first copies its parent's permutation into its own
+//     column of shared memory, with several loads in flight, instead of
+//     reading it from device memory once per survivor. Only the child's
+//     front chain, which the output holds, is run again at write time;
+//     the bound is not recomputed.
+// It takes 0.086 ms at ta021's shape and 0.187 ms at ta091's (device
+// time, same card, kernel_times.py). Of what is left, the first pass's
+// loads of the parents' front and remain weigh most (variants timed
+// without each part said so): 80 registers a thread hold a main block to
+// 3 per SM, too few warps to hide their latency.
+// The bound chain is lb1_chain.cuh's, shared with expand_bound.cu.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -56,203 +72,293 @@
 namespace {
 
 constexpr int kMaxBins = 64;
-constexpr int kScanThreads = 1024;
+constexpr int kThreads = 256;    // most threads of a main block
+constexpr int kSlots = 8;        // child slots a thread aims to hold
+constexpr int kSpanFloor = 512;  // spans the grid aims to hold, at least
+constexpr int kPrepThreads = 128;
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
 
-// word index of (tile g, slot i, sub-block sb, warp w): global order
-__device__ __forceinline__ long long word_at(int g, int i, int sb, int w,
-                                             int J, int NSB, int NW) {
-  return (((long long)g * J + i) * NSB + sb) * NW + w;
+// The main kernel's layout, from the shape alone: BT threads a block, each
+// holding R parents of its tile (bb = r*BT + thread) at K consecutive
+// slots; NG slot groups per tile; G*NG blocks.
+struct Geometry {
+  int BT, R, K, NG, NW;
+  long long blocks;
+};
+
+Geometry geometry(int J, int B, int TB) {
+  Geometry q;
+  q.BT = (TB + 31) / 32 * 32;
+  if (q.BT > kThreads) q.BT = kThreads;
+  q.R = (TB + q.BT - 1) / q.BT;
+  const long long G = B / TB;
+  long long k = kSlots / q.R;
+  const long long spread = G * J / kSpanFloor;
+  if (k > spread) k = spread;
+  if (k > J) k = J;
+  q.K = k < 1 ? 1 : (int)k;
+  q.NG = (J + q.K - 1) / q.K;
+  q.NW = q.BT / 32;
+  q.blocks = G * q.NG;
+  return q;
 }
 
-template <int MAXM>
-__global__ void fused_count(const int* __restrict__ p,
-                            const int* __restrict__ tails,
-                            const int16_t* __restrict__ prmu,
-                            const int* __restrict__ depth,
-                            const int* __restrict__ front,
-                            const int* __restrict__ cap_ptr, int J, int M,
-                            int B, int TB, int NSB, int n_valid, int bins,
-                            unsigned* __restrict__ words,
-                            unsigned long long* __restrict__ hist) {
+// int32 words of scratch a launch needs (see tts_fused_expand), or -1 for
+// a shape the kernel does not take.
+long long scratch_words(int B, int TB, int J, int M, int SW) {
+  if (M < 1 || M > 32 || J < 1 || B < 1 || TB < 1 || B % TB != 0 || SW < 0)
+    return -1;
+  const Geometry q = geometry(J, B, TB);
+  if (q.R > 32 || q.blocks >= INT_MAX) return -1;
+  return 2 * (q.blocks + 1) + (long long)(M + SW) * B;
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* s) {
+  return *(const volatile unsigned long long*)s;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* s,
+                                             unsigned long long v) {
+  *(volatile unsigned long long*)s = v;
+}
+
+// One thread per parent: remain (M, B) and prefix words (SW, B) into
+// scratch; zeroes the status words, the ticket and the histogram.
+template <int MAXM, int MC>
+__global__ void fused_prep(const int* __restrict__ p,
+                           const int16_t* __restrict__ prmu,
+                           const int* __restrict__ depth,
+                           const int* __restrict__ front, int J, int M,
+                           int B, int SW, int bins, long long n_status,
+                           unsigned long long* __restrict__ status,
+                           int* __restrict__ rem_out,
+                           unsigned* __restrict__ pre_out,
+                           unsigned long long* __restrict__ hist) {
   extern __shared__ int smem[];
-  int* sp = smem;              // p, (M, J) row-major
-  int* st = sp + M * J;        // min tails, (M,)
-  int* sh = st + M;            // pruned-bound histogram, (bins,)
-  for (int t = threadIdx.x; t < M * J; t += blockDim.x) sp[t] = p[t];
-  for (int t = threadIdx.x; t < M; t += blockDim.x) st[t] = tails[t];
-  for (int t = threadIdx.x; t < bins; t += blockDim.x) sh[t] = 0;
+  const int Mx = MC ? MC : M;
+  int* sp = smem;                                  // p, (M, J)
+  unsigned* spre = (unsigned*)(sp + Mx * J);       // (SW, blockDim)
+  for (int t = threadIdx.x; t < Mx * J; t += blockDim.x) sp[t] = p[t];
+  const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)gridDim.x * blockDim.x;
+  for (long long t = gt; t < n_status; t += total) status[t] = 0ull;
+  for (long long t = gt; t < bins; t += total) hist[t] = 0ull;
+  __syncthreads();
+  if (gt >= B) return;
+  const int b = (int)gt;
+  const int d = depth[b];
+  int fr[MAXM], rem[MAXM];
+  tts::parent_state<MAXM>(sp, prmu, front, J, Mx, B, b, d, fr, rem);
+#pragma unroll
+  for (int k = 0; k < MAXM; ++k)
+    if (k < Mx) rem_out[(long long)k * B + b] = rem[k];
+  if (SW) {
+    unsigned* mine = spre + threadIdx.x;
+    for (int w = 0; w < SW; ++w) mine[w * blockDim.x] = 0u;
+    for (int pos = 0; pos < d && pos < J; ++pos) {
+      const int v = prmu[(long long)pos * B + b];
+      if (v >= 0 && v < 32 * SW) mine[(v >> 5) * blockDim.x] |= 1u << (v & 31);
+    }
+    for (int w = 0; w < SW; ++w)
+      pre_out[(long long)w * B + b] = mine[w * blockDim.x];
+  }
+}
+
+template <int MAXM, int MC>
+__global__ void __launch_bounds__(kThreads)
+fused_main(const int* __restrict__ p, const int* __restrict__ tails,
+           const int16_t* __restrict__ prmu, const int* __restrict__ depth,
+           const int* __restrict__ front, const int* __restrict__ cap_ptr,
+           int J, int M, int B, int TB, int n_valid, int W, int SW, int bins,
+           int aux_i16, Geometry q, unsigned long long* __restrict__ status,
+           const int* __restrict__ rem_in, const unsigned* __restrict__ pre_in,
+           int16_t* __restrict__ children, void* __restrict__ caux,
+           int* __restrict__ bounds, int* __restrict__ sched,
+           int* __restrict__ n_surv, unsigned long long* __restrict__ hist) {
+  extern __shared__ int smem[];
+  const int Mx = MC ? MC : M;
+  const int KRW = q.K * q.R * q.NW;
+  int* sp = smem;                             // p, (M, J)
+  int* st = sp + Mx * J;                      // min tails, (M,)
+  int* sh = st + Mx;                          // pruned-bound histogram
+  unsigned* sw = (unsigned*)(sh + bins);      // ballots, (K, R, NW)
+  int* sbase = (int*)(sw + KRW);              // their bases in the span
+  int* slb = sbase + KRW;                     // bounds, (K, R, BT)
+  // each writing thread's parent permutation, (J, BT)
+  int16_t* sperm = (int16_t*)(slb + (bounds ? q.K * q.R * q.BT : 0));
+  __shared__ int s_ticket;
+  __shared__ int s_base;
+  const int tid = threadIdx.x;
+  for (int t = tid; t < Mx * J; t += blockDim.x) sp[t] = p[t];
+  for (int t = tid; t < Mx; t += blockDim.x) st[t] = tails[t];
+  for (int t = tid; t < bins; t += blockDim.x) sh[t] = 0;
+  if (tid == 0)
+    s_ticket = (int)atomicAdd((unsigned*)(status + q.blocks), 1u);
   __syncthreads();
 
-  const int g = blockIdx.x / NSB;
-  const int sb = blockIdx.x - g * NSB;
-  const int bb = sb * blockDim.x + threadIdx.x;
-  const int b = g * TB + bb;
-  const bool in_tile = bb < TB;
-  const int d = in_tile ? depth[b] : 0;
-  // leaves (depth + 1 == J) belong to the caller's parent-level scan
-  const bool branches = in_tile && b < n_valid && d + 1 < J;
+  const int s = s_ticket;
+  const int g = s / q.NG;
+  const int i0 = (s - g * q.NG) * q.K;
+  const int kk = min(q.K, J - i0);
   const int cap = *cap_ptr;
   const long long ref = max((long long)cap, 1LL);
-  const int NW = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
 
-  int fr[MAXM], rem[MAXM];
-  tts::parent_state<MAXM>(sp, prmu, front, J, M, B, in_tile ? b : 0, d, fr,
-                          rem);
-  for (int i = 0; i < J; ++i) {
-    bool push = false;
-    if (branches && i >= d) {
-      const int lb = tts::child_bound<MAXM>(
-          sp, st, fr, rem, M, J, tts::job_index(prmu[(long long)i * B + b], J),
-          1, [](int, int) {});
-      push = lb < cap;
-      if (!push && bins) {
-        const long long gap = llabs((long long)lb - ref);
-        atomicAdd(&sh[(int)min(gap * bins / ref, (long long)bins - 1)], 1);
-      }
+  // bound every child slot of the span once; push bits as warp ballots
+  for (int r = 0; r < q.R; ++r) {
+    const int bb = r * q.BT + tid;
+    const int b = g * TB + bb;
+    const bool in_tile = bb < TB;
+    const int d = in_tile ? depth[b] : 0;
+    // leaves (depth + 1 == J) belong to the caller's parent-level scan
+    const bool need = in_tile && b < n_valid && d + 1 < J && i0 + kk > d;
+    int fr[MAXM], rem[MAXM];
+#pragma unroll
+    for (int k = 0; k < MAXM; ++k) {
+      fr[k] = (need && k < Mx) ? front[(long long)k * B + b] : 0;
+      rem[k] = (need && k < Mx) ? rem_in[(long long)k * B + b] : 0;
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, push);
-    if (lane == 0) words[word_at(g, i, sb, warp, J, NSB, NW)] = ballot;
+    for (int kq = 0; kq < kk; ++kq) {
+      const int i = i0 + kq;
+      bool push = false;
+      if (need && i >= d) {
+        const int lb = tts::child_bound<MAXM>(
+            sp, st, fr, rem, Mx, J,
+            tts::job_index(prmu[(long long)i * B + b], J), 1,
+            [](int, int) {});
+        push = lb < cap;
+        if (!push && bins) {
+          const long long gap = llabs((long long)lb - ref);
+          atomicAdd(&sh[(int)min(gap * bins / ref, (long long)bins - 1)], 1);
+        }
+        if (bounds) slb[(kq * q.R + r) * q.BT + tid] = lb;
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, push);
+      if (lane == 0) sw[(kq * q.R + r) * q.NW + warp] = ballot;
+    }
   }
-  if (bins) {
-    __syncthreads();
-    for (int t = threadIdx.x; t < bins; t += blockDim.x)
+  __syncthreads();
+  if (bins)
+    for (int t = tid; t < bins; t += blockDim.x)
       if (sh[t]) atomicAdd(&hist[t], (unsigned long long)sh[t]);
-  }
-}
 
-// One block: bases[k] = survivors in words [0, k); *n_surv = all of them.
-// The block walks the words in chunks of kScanPer per thread, neighbouring
-// threads on neighbouring words (coalesced), with a running carry.
-constexpr int kScanPer = 4;
-
-__global__ void fused_scan(const unsigned* __restrict__ words, int n_words,
-                           int* __restrict__ bases, int* __restrict__ n_surv) {
-  __shared__ int warp_sum[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int carry = 0;
-  for (int start = 0; start < n_words; start += blockDim.x * kScanPer) {
-    const int k0 = start + threadIdx.x * kScanPer;
-    int cnt[kScanPer];
-    int own = 0;
-#pragma unroll
-    for (int j = 0; j < kScanPer; ++j) {
-      cnt[j] = k0 + j < n_words ? __popc(words[k0 + j]) : 0;
-      own += cnt[j];
+  if (warp == 0) {
+    // the span's exclusive bases, in column order, and its aggregate
+    const int n_words = kk * q.R * q.NW;
+    int agg = 0;
+    for (int w0 = 0; w0 < n_words; w0 += 32) {
+      const int w = w0 + lane;
+      const int c = w < n_words ? __popc(sw[w]) : 0;
+      const int x = warp_inclusive_sum(c, lane);
+      if (w < n_words) sbase[w] = agg + x - c;
+      agg += __shfl_sync(0xffffffffu, x, 31);
     }
-    int x = own;  // inclusive scan within the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sum[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int v = lane < n_warps ? warp_sum[lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += y;
+    // decoupled look-back: sum predecessors' aggregates back to the
+    // nearest inclusive prefix
+    int excl = 0;
+    if (s == 0) {
+      if (lane == 0) store_status(status, kPrefix | (unsigned)agg);
+    } else {
+      if (lane == 0) store_status(status + s, kAggregate | (unsigned)agg);
+      int at = s - 1;
+      while (true) {
+        const int j = at - lane;
+        const unsigned long long v =
+            j >= 0 ? load_status(status + j) : kPrefix;
+        const unsigned flag = (unsigned)(v >> 32);
+        const unsigned pre = __ballot_sync(0xffffffffu, flag == 2u);
+        const unsigned unset = __ballot_sync(0xffffffffu, flag == 0u);
+        // lanes up to the nearest inclusive prefix are the ones needed
+        const unsigned needed =
+            pre ? (pre ^ (pre - 1u)) : 0xffffffffu;
+        if (unset & needed) {
+          __nanosleep(64);
+          continue;
+        }
+        const int part = ((needed >> lane) & 1u) ? (int)(unsigned)v : 0;
+        excl += __reduce_add_sync(0xffffffffu, part);
+        if (pre) break;
+        at -= 32;
       }
-      warp_sum[lane] = v;
+      if (lane == 0)
+        store_status(status + s, kPrefix | (unsigned)(excl + agg));
     }
-    __syncthreads();
-    int base = carry + x - own + (warp ? warp_sum[warp - 1] : 0);
-#pragma unroll
-    for (int j = 0; j < kScanPer; ++j) {
-      if (k0 + j < n_words) bases[k0 + j] = base;
-      base += cnt[j];
+    if (lane == 0) {
+      s_base = excl;
+      if (s == q.blocks - 1) *n_surv = excl + agg;
     }
-    carry += warp_sum[n_warps - 1];
-    __syncthreads();  // warp_sum is rewritten by the next chunk
   }
-  if (threadIdx.x == 0) *n_surv = carry;
-}
-
-template <int MAXM>
-__global__ void fused_write(const int* __restrict__ p,
-                            const int* __restrict__ tails,
-                            const int16_t* __restrict__ prmu,
-                            const int* __restrict__ depth,
-                            const int* __restrict__ front, int J, int M,
-                            int B, int TB, int NSB, int n_valid, int W,
-                            int SW, int aux_i16,
-                            const unsigned* __restrict__ words,
-                            const int* __restrict__ bases,
-                            int16_t* __restrict__ children,
-                            void* __restrict__ caux,
-                            int* __restrict__ bounds,
-                            int* __restrict__ sched) {
-  extern __shared__ int smem[];
-  int* sp = smem;                                  // p, (M, J)
-  int* st = sp + M * J;                            // min tails, (M,)
-  unsigned* pre = (unsigned*)(st + M);             // prefix words (SW, BT)
-  for (int t = threadIdx.x; t < M * J; t += blockDim.x) sp[t] = p[t];
-  for (int t = threadIdx.x; t < M; t += blockDim.x) st[t] = tails[t];
   __syncthreads();
 
-  const int g = blockIdx.x / NSB;
-  const int sb = blockIdx.x - g * NSB;
-  const int bb = sb * blockDim.x + threadIdx.x;
-  const int b = g * TB + bb;
-  if (bb >= TB || b >= n_valid) return;
-  const int d = depth[b];
-  if (d < 0 || d + 1 >= J) return;
-  const int NW = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  // write every survivor at its rank (stores stop at W)
+  const int base = s_base;
   const unsigned below = (1u << lane) - 1u;
-
-  int fr[MAXM], rem[MAXM];
-  tts::parent_state<MAXM>(sp, prmu, front, J, M, B, b, d, fr, rem);
-  // the parent's scheduled-set words, in this thread's shared column
-  unsigned* mine = pre + threadIdx.x;
-  for (int w = 0; w < SW; ++w) mine[w * blockDim.x] = 0u;
-  for (int pos = 0; pos < d; ++pos) {
-    const int v = prmu[(long long)pos * B + b];
-    if (v >= 0 && v < 32 * SW) mine[(v >> 5) * blockDim.x] |= 1u << (v & 31);
-  }
-  const int jd = prmu[(long long)d * B + b];
   int16_t* caux16 = (int16_t*)caux;
   int* caux32 = (int*)caux;
-
-  // every lane walks all J slots, so a warp's lanes stand at the same slot
-  // together: one word load for the warp, and its survivors there hold
-  // consecutive ranks, so their stores coalesce
-  for (int i = 0; i < J; ++i) {
-    const long long wi = word_at(g, i, sb, warp, J, NSB, NW);
-    const unsigned word = words[wi];
-    if (!((word >> lane) & 1u)) continue;
-    const long long r = (long long)bases[wi] + __popc(word & below);
-    if (r >= W) continue;
-    const int jv = prmu[(long long)i * B + b];
-    const int lb = tts::child_bound<MAXM>(
-        sp, st, fr, rem, M, J, tts::job_index(jv, J), 1,
-        [&](int k, int cf) {
-          if (aux_i16)
-            caux16[(long long)k * W + r] = (int16_t)cf;
-          else
-            caux32[(long long)k * W + r] = cf;
-        });
-    if (aux_i16)
-      caux16[(long long)M * W + r] = (int16_t)(d + 1);
-    else
-      caux32[(long long)M * W + r] = d + 1;
-    if (bounds) bounds[r] = lb;
-    for (int pos = 0; pos < J; ++pos) {
-      const int16_t v = pos == d ? (int16_t)jv
-                        : pos == i ? (int16_t)jd
-                                   : prmu[(long long)pos * B + b];
-      children[(long long)pos * W + r] = v;
-    }
-    for (int w = 0; w < SW; ++w) {
-      unsigned bits = mine[w * blockDim.x];
-      if (jv >= 32 * w && jv < 32 * (w + 1)) bits |= 1u << (jv - 32 * w);
-      sched[(long long)w * W + r] = (int)bits;  // bit 31 becomes the sign
+  for (int r = 0; r < q.R; ++r) {
+    bool mine = false;
+    for (int kq = 0; kq < kk; ++kq)
+      mine |= (sw[(kq * q.R + r) * q.NW + warp] >> lane) & 1u;
+    if (!mine) continue;
+    const int b = g * TB + r * q.BT + tid;
+    const int d = depth[b];
+    // the parent's permutation, read once into this thread's column of
+    // shared memory with several loads in flight, then read per survivor
+    int16_t* perm = sperm + tid;
+#pragma unroll 8
+    for (int pos = 0; pos < J; ++pos)
+      perm[pos * q.BT] = prmu[(long long)pos * B + b];
+    const int jd = perm[max(d, 0) * q.BT];
+    int fr[MAXM];
+#pragma unroll
+    for (int k = 0; k < MAXM; ++k)
+      fr[k] = k < Mx ? front[(long long)k * B + b] : 0;
+    for (int kq = 0; kq < kk; ++kq) {
+      const int wi = (kq * q.R + r) * q.NW + warp;
+      const unsigned word = sw[wi];
+      if (!((word >> lane) & 1u)) continue;
+      const long long rk = (long long)base + sbase[wi] + __popc(word & below);
+      if (rk >= W) continue;
+      const int i = i0 + kq;
+      const int jv = perm[i * q.BT];
+      // only the front chain survives dead-code elimination here: the
+      // bound is discarded (it came from the first pass)
+      tts::child_bound<MAXM>(
+          sp, st, fr, fr, Mx, J, tts::job_index(jv, J), 1,
+          [&](int k, int cf) {
+            if (aux_i16)
+              caux16[(long long)k * W + rk] = (int16_t)cf;
+            else
+              caux32[(long long)k * W + rk] = cf;
+          });
+      if (aux_i16)
+        caux16[(long long)Mx * W + rk] = (int16_t)(d + 1);
+      else
+        caux32[(long long)Mx * W + rk] = d + 1;
+      if (bounds) bounds[rk] = slb[(kq * q.R + r) * q.BT + tid];
+      for (int pos = 0; pos < J; ++pos) {
+        const int16_t v = pos == d ? (int16_t)jv
+                          : pos == i ? (int16_t)jd
+                                     : perm[pos * q.BT];
+        children[(long long)pos * W + rk] = v;
+      }
+      for (int w = 0; w < SW; ++w) {
+        unsigned bits = pre_in[(long long)w * B + b];
+        if (jv >= 32 * w && jv < 32 * (w + 1)) bits |= 1u << (jv - 32 * w);
+        sched[(long long)w * W + rk] = (int)bits;  // bit 31 becomes the sign
+      }
     }
   }
 }
@@ -264,31 +370,34 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int MAXM>
+template <int MAXM, int MC>
 cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
                    const int* depth, const int* front, const int* cap, int J,
                    int M, int B, int TB, int n_valid, int W, int SW,
                    int bins, int aux_i16, int16_t* children, void* caux,
                    int* bounds, int* sched, int* n_surv,
-                   unsigned long long* hist, unsigned* words, int* bases,
-                   int BT, int NSB, int n_words, cudaStream_t s) {
-  const int blocks = (B / TB) * NSB;
-  const size_t smem_count = sizeof(int) * (size_t)(M * J + M + bins);
-  const size_t smem_write = sizeof(int) * (size_t)(M * J + M + SW * BT);
-  cudaError_t e = allow_smem(fused_count<MAXM>, smem_count);
-  if (e == cudaSuccess) e = allow_smem(fused_write<MAXM>, smem_write);
-  if (e == cudaSuccess && bins)
-    e = cudaMemsetAsync(hist, 0, sizeof(unsigned long long) * bins, s);
+                   unsigned long long* hist, const Geometry& q,
+                   unsigned long long* status, int* rem, unsigned* pre,
+                   cudaStream_t s) {
+  const size_t smem_prep =
+      sizeof(int) * ((size_t)M * J + (size_t)SW * kPrepThreads);
+  const size_t krw = (size_t)q.K * q.R * q.NW;
+  const size_t smem_main =
+      sizeof(int) * ((size_t)M * J + M + bins + 2 * krw +
+                     (bounds ? (size_t)q.K * q.R * q.BT : 0)) +
+      sizeof(int16_t) * (size_t)J * q.BT;
+  cudaError_t e = allow_smem(fused_prep<MAXM, MC>, smem_prep);
+  if (e == cudaSuccess) e = allow_smem(fused_main<MAXM, MC>, smem_main);
   if (e != cudaSuccess) return e;
-  fused_count<MAXM><<<blocks, BT, smem_count, s>>>(
-      p, tails, prmu, depth, front, cap, J, M, B, TB, NSB, n_valid, bins,
-      words, hist);
+  fused_prep<MAXM, MC><<<(B + kPrepThreads - 1) / kPrepThreads,
+                         kPrepThreads, smem_prep, s>>>(
+      p, prmu, depth, front, J, M, B, SW, bins, q.blocks + 1, status, rem,
+      pre, hist);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fused_scan<<<1, kScanThreads, 0, s>>>(words, n_words, bases, n_surv);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fused_write<MAXM><<<blocks, BT, smem_write, s>>>(
-      p, tails, prmu, depth, front, J, M, B, TB, NSB, n_valid, W, SW,
-      aux_i16, words, bases, children, caux, bounds, sched);
+  fused_main<MAXM, MC><<<(unsigned)q.blocks, q.BT, smem_main, s>>>(
+      p, tails, prmu, depth, front, cap, J, M, B, TB, n_valid, W, SW, bins,
+      aux_i16, q, status, rem, pre, children, caux, bounds, sched, n_surv,
+      hist);
   return cudaGetLastError();
 }
 
@@ -299,11 +408,19 @@ cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
 // Outputs: children (J, W) int16; caux (M+1, W) int32, or int16 when
 // aux_i16 != 0; bounds (W,) int32 or null; sched (SW, W) int32 or null
 // (SW = 0); n_surv: one int32; hist (bins,) int64 or null (bins = 0).
-// scratch: 2 * n_words int32 for the ballot words and their bases, with
-// BT = min(128, TB rounded up to 32), NSB = ceil(TB / BT) and
-// n_words = (B / TB) * J * NSB * BT / 32 (ops/kernels.py computes the
-// same). B must be a multiple of TB, 1 <= M <= 32, bins <= 64.
-// Returns the first CUDA error of the three launches, or 0.
+// scratch, in int32 words: 2 * (blocks + 1) for the 64-bit status words
+// of the look-back (one per block, then the ticket counter), then the
+// parents' remain (M * B), then their prefix scheduled-set words (SW * B).
+// blocks = (B / TB) * NG from `geometry`: BT = min(256, TB rounded up to
+// 32), R = ceil(TB / BT), K = max(1, min(8 / R, (B / TB) * J / 512, J)),
+// NG = ceil(J / K); tts_fused_scratch_words gives the total. B must be a
+// multiple of TB, 1 <= M <= 32, bins <= 64, R <= 32.
+// Returns the first CUDA error of the two launches, or 0.
+extern "C" long long tts_fused_scratch_words(int B, int TB, int J, int M,
+                                             int SW) {
+  return scratch_words(B, TB, J, M, SW);
+}
+
 extern "C" int tts_fused_expand(const void* p, const void* tails,
                                 const void* prmu, const void* depth,
                                 const void* front, const void* cap, int J,
@@ -311,29 +428,32 @@ extern "C" int tts_fused_expand(const void* p, const void* tails,
                                 int SW, int bins, int aux_i16,
                                 void* children, void* caux, void* bounds,
                                 void* sched, void* n_surv, void* hist,
-                                void* scratch, long long scratch_words,
+                                void* scratch, long long scratch_len,
                                 void* stream) {
-  if (M < 1 || M > 32 || J < 1 || B < 1 || TB < 1 || B % TB != 0 || W < 1 ||
-      bins < 0 || bins > kMaxBins || SW < 0 ||
-      (SW > 0) != (sched != nullptr) || (bins > 0) != (hist != nullptr))
+  const long long need = scratch_words(B, TB, J, M, SW);
+  if (need < 0 || scratch_len < need || W < 1 || bins < 0 ||
+      bins > kMaxBins || (SW > 0) != (sched != nullptr) ||
+      (bins > 0) != (hist != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int BT = min(128, (TB + 31) / 32 * 32);
-  const int NSB = (TB + BT - 1) / BT;
-  const long long n_words = (long long)(B / TB) * J * NSB * (BT / 32);
-  if (n_words > INT_MAX / 2 || scratch_words < 2 * n_words)
-    return (int)cudaErrorInvalidValue;
+  const Geometry q = geometry(J, B, TB);
   auto s = (cudaStream_t)stream;
-  auto words = (unsigned*)scratch;
-  auto bases = (int*)scratch + n_words;
+  auto status = (unsigned long long*)scratch;
+  auto rem = (int*)(status + q.blocks + 1);
+  auto pre = (unsigned*)(rem + (long long)M * B);
   auto args = [&](auto fn) {
     return fn((const int*)p, (const int*)tails, (const int16_t*)prmu,
               (const int*)depth, (const int*)front, (const int*)cap, J, M, B,
               TB, n_valid, W, SW, bins, aux_i16, (int16_t*)children, caux,
               (int*)bounds, (int*)sched, (int*)n_surv,
-              (unsigned long long*)hist, words, bases, BT, NSB,
-              (int)n_words, s);
+              (unsigned long long*)hist, q, status, rem, pre, s);
   };
-  if (M <= 8) return (int)args(launch<8>);
-  if (M <= 16) return (int)args(launch<16>);
-  return (int)args(launch<32>);
+  // the Taillard machine counts get instances with M fixed at compile time:
+  // at ta021, ta007 and ta091 they ran 1.41x, 1.23x and 1.64x faster than
+  // the generic instances (kernel_times.py --generic-m, H100)
+  if (M == 5) return (int)args(launch<5, 5>);
+  if (M == 10) return (int)args(launch<10, 10>);
+  if (M == 20) return (int)args(launch<20, 20>);
+  if (M <= 8) return (int)args(launch<8, 0>);
+  if (M <= 16) return (int)args(launch<16, 0>);
+  return (int)args(launch<32, 0>);
 }

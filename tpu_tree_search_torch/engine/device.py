@@ -467,16 +467,18 @@ def _leaves_and_push(bounds, mask, depth_c, J: int, best_in: int):
 
 def step(tables: BoundTables, lb_kind: int, chunk: int,
          state: SearchState, tile: int = 1024, limit: int | None = None,
-         route: str | None = None, fused: str = "off") -> SearchState:
+         route: str | None = None,
+         fused: str | None = None) -> SearchState:
     """One pop -> bound -> prune -> branch cycle. The pool tensors are
     updated in place; the returned state carries the new counters.
 
     `route` overrides `lb2_route`'s LB2 choice ('dense' or 'prefilter');
     both push the same children in the same column order. `fused` is a
-    resolved mode of `ops/fused.py` ("off", "hw", "interpret"); where
-    `fused_ok` admits the shape, LB1 and LB2 `prefilter` take the fused
-    route, with the same result (an LB2 step whose survivors outgrow the
-    fused frame falls through to the unfused `prefilter` route)."""
+    mode of `ops/fused.py` ("off", "hw", "interpret"; None: "hw" on CUDA
+    tensors, "off" on the CPU, `fused.resolve_mode`); where `fused_ok`
+    admits the shape, LB1 and LB2 `prefilter` take the fused route, with
+    the same result (an LB2 step whose survivors outgrow the fused frame
+    falls through to the unfused `prefilter` route)."""
     J, capacity = state.prmu.shape
     B = chunk
     if capacity < B:
@@ -497,6 +499,7 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
     if limit is None:
         limit = row_limit(capacity, B, J)
 
+    fused = fz.resolve_mode(fused, on_cuda=state.prmu.is_cuda)
     p_prmu, p_depth, p_aux, n, start, valid = pop_chunk(state, B, M)
     p_aux = p_aux.to(torch.int32)
     if (fz.fused_ok(fused, J, TB, lb_kind, M, device=state.prmu.device)
@@ -582,8 +585,9 @@ def run(tables: BoundTables, state: SearchState, lb_kind: int, chunk: int,
         max_iters: int | None = None, tile: int = 1024,
         fused=None) -> SearchState:
     """Step until the pool is empty, a step overflows, or the cumulative
-    iteration count reaches `max_iters`. `fused` (None: the TTS_FUSED
-    flag) is resolved here, once, on the host (`fused.resolve_mode`)."""
+    iteration count reaches `max_iters`. `fused` (None: "hw" on CUDA
+    tensors, "off" on the CPU) is resolved here, once, on the host
+    (`fused.resolve_mode`)."""
     jobs, capacity = state.prmu.shape
     if state.size > row_limit(capacity, chunk, jobs):
         return state._replace(overflow=True)

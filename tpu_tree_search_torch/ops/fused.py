@@ -1,31 +1,32 @@
 """Fused bound + prune + compact of one popped chunk.
 
-Reproduces `tpu_tree_search/ops/pallas_fused.py`: `store_sub`,
-`FUSED_FLAG`/`FUSED_INTERPRET_FLAG`, `resolve_mode`, `fused_ok`, the plain
-version `fused_expand_plain` and the dispatcher `fused_expand` (the same
-signature and return tuple as the JAX `fused_expand`). One call expands
-the chunk, bounds every child with LB1, prunes against `bound_cap`, and
-returns only the survivors, compacted in the global child column order
-`c = (g*J + i)*TB + b` that `columns.partition` gives; the dense child
-grid, its bound row and the prune mask never reach device memory. The
-engine's fused route (`device._fused_step`) drives it.
+Reproduces `tpu_tree_search/ops/pallas_fused.py`: `store_sub`, the mode
+names, `resolve_mode`, `fused_ok`, the plain version `fused_expand_plain`
+and the dispatcher `fused_expand` (the same signature and return tuple as
+the JAX `fused_expand`). One call expands the chunk, bounds every child
+with LB1, prunes against `bound_cap`, and returns only the survivors,
+compacted in the global child column order `c = (g*J + i)*TB + b` that
+`columns.partition` gives; the dense child grid, its bound row and the
+prune mask never reach device memory. The engine's fused route
+(`device._fused_step`) drives it.
 
 Modes (the JAX names):
 
-- ``off``: the default; the unfused routes run.
 - ``hw``: the Hopper kernel (`csrc/fused_expand.cu` via
   `kernels.fused_expand`), for CUDA tensors only and behind the expand
   kernel's shape rule (`expand.kernel_shape_ok`), as the JAX gate admits
   TPU shapes.
+- ``off``: the unfused routes run.
 - ``interpret``: the plain version, for CPU tensors only, at any shape.
 
-A CUDA tensor with ``interpret`` or a CPU tensor with ``hw`` raises; no
-mode quietly takes another path. `resolve_mode(None)` reads `TTS_FUSED`
-(and, for CPU tensors, `TTS_FUSED_INTERPRET`): `TTS_FUSED=1` on a CUDA
-run resolves to ``hw``. The JAX gate turns the flag off on a TPU because
-its Mosaic lowering was never compiled there; here `chip_smoke.py` builds
-the kernel and holds it against the plain version on every run, so that
-reason does not apply.
+The route is chosen from what the run observes, not from the
+environment: `resolve_mode(None)` gives ``hw`` for a run on CUDA, where
+the fused route gave the same state as the unfused one in less device
+time on every admitted shape measured (PERF.md), and ``off`` on the CPU,
+as the JAX package's default. An explicit mode passes through, so the
+parity tests and `chip_smoke.py`'s unfused phases name ``off`` or
+``interpret``. A CUDA tensor with ``interpret`` or a CPU tensor with
+``hw`` raises; no mode quietly takes another path.
 
 The kernel's survivor frame is exactly `cap_width` columns wide: the JAX
 kernel's store slack (`store_sub`) and the narrowing copy it forces are
@@ -36,12 +37,9 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.config import env_flag
 from . import columns as cols, expand as ex, kernels
 from .batched import BoundTables
 
-FUSED_FLAG = "TTS_FUSED"
-FUSED_INTERPRET_FLAG = "TTS_FUSED_INTERPRET"
 MODES = ("off", "hw", "interpret")
 
 
@@ -54,23 +52,14 @@ def store_sub(n_cols: int) -> int:
     return max(128, (eighth + 127) // 128 * 128)
 
 
-def resolve_mode(flag: bool | str | None = None,
-                 on_cuda: bool = False) -> str:
+def resolve_mode(mode: str | None = None, on_cuda: bool = False) -> str:
     """The fused mode of a run, resolved on the host: a mode string passes
-    through; None reads `TTS_FUSED`; an on flag gives "hw" for a run on
-    CUDA and, on the CPU, "interpret" when `TTS_FUSED_INTERPRET` is on,
-    else "off"."""
-    if isinstance(flag, str):
-        if flag not in MODES:
-            raise ValueError(f"fused mode {flag!r} is not one of {MODES}")
-        return flag
-    if flag is None:
-        flag = env_flag(FUSED_FLAG)
-    if not flag:
-        return "off"
-    if on_cuda:
-        return "hw"
-    return "interpret" if env_flag(FUSED_INTERPRET_FLAG) else "off"
+    through; None gives "hw" for a run on CUDA and "off" on the CPU."""
+    if mode is None:
+        return "hw" if on_cuda else "off"
+    if mode not in MODES:
+        raise ValueError(f"fused mode {mode!r} is not one of {MODES}")
+    return mode
 
 
 def fused_ok(mode: str, jobs: int, eff_tile: int, lb_kind: int,

@@ -26,6 +26,7 @@ only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,14 +46,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# source stem -> (C symbol, argtypes)
+# source stem -> {C symbol: (argtypes, restype)}
 _SOURCES = {
-    "expand_bound": ("tts_expand_bound",
-                     [_vp] * 5 + [_i32] * 6 + [_vp] * 4),
-    "lb2_sweep": ("tts_lb2_sweep",
-                  [_vp, _i64, _vp, _i64, _i32, _i32, _i32] + [_vp] * 4),
-    "fused_expand": ("tts_fused_expand",
-                     [_vp] * 6 + [_i32] * 9 + [_vp] * 7 + [_i64, _vp]),
+    "expand_bound": {"tts_expand_bound": (
+        [_vp] * 5 + [_i32] * 6 + [_vp] * 4, _i32)},
+    "lb2_sweep": {"tts_lb2_sweep": (
+        [_vp, _i64, _vp, _i64, _i32, _i32, _i32] + [_vp] * 4, _i32)},
+    "fused_expand": {
+        "tts_fused_expand": (
+            [_vp] * 6 + [_i32] * 9 + [_vp] * 7 + [_i64, _vp], _i32),
+        "tts_fused_scratch_words": ([_i32] * 5, _i64)},
 }
 
 # launches per kernel entry, counted where each wrapper launches
@@ -86,26 +89,32 @@ def library_path(stem: str) -> Path:
 
 def build(stems=None) -> dict:
     """Compile every missing library, one `nvcc` per source, all started
-    together. Returns {stem: (seconds, compiler output)}; raises on a
-    failed build."""
+    together; the compiler's output is kept beside each library (`.log`),
+    and a library without it is built again. Returns {stem: (seconds,
+    compiler output)}, seconds 0 for a library already built, whose log
+    is the one of the build that made it; raises on a failed build."""
     stems = list(_SOURCES if stems is None else stems)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for stem in stems:
         out = library_path(stem)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[stem] = (tmp, out, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    result = {stem: (0.0, "cached") for stem in stems if stem not in procs}
+    result = {stem: (0.0, library_path(stem).with_suffix(".log").read_text())
+              for stem in stems if stem not in procs}
     for stem, (tmp, out, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {stem}.cu:\n{log}")
+        tmp_log = tmp.with_suffix(".log.tmp")
+        tmp_log.write_text(log)
         os.replace(tmp, out)
+        os.replace(tmp_log, out.with_suffix(".log"))
         result[stem] = (time.perf_counter() - t0, log)
     return result
 
@@ -118,9 +127,9 @@ def _lib(stem: str) -> ctypes.CDLL:
             if not path.exists():
                 build([stem])
             lib = ctypes.CDLL(str(path))
-            sym, argtypes = _SOURCES[stem]
-            getattr(lib, sym).argtypes = argtypes
-            getattr(lib, sym).restype = ctypes.c_int
+            for sym, (argtypes, restype) in _SOURCES[stem].items():
+                getattr(lib, sym).argtypes = argtypes
+                getattr(lib, sym).restype = restype
             _libs[stem] = lib
         return lib
 
@@ -223,13 +232,16 @@ def lb2_sweep(tables: BoundTables, child_front_cols: torch.Tensor,
     return out
 
 
-def _fused_scratch_words(B: int, tile: int, J: int) -> int:
-    """int32 scratch of the fused kernel: a ballot word and its base per
-    (tile, slot, sub-block of <= 128 parents, warp), as `fused_expand.cu`
-    lays them out."""
-    BT = min(128, (tile + 31) // 32 * 32)
-    NSB = -(-tile // BT)
-    return 2 * (B // tile) * J * NSB * (BT // 32)
+@functools.lru_cache(maxsize=64)
+def _fused_scratch_words(B: int, tile: int, J: int, M: int, SW: int) -> int:
+    """int32 scratch of the fused kernel, from `fused_expand.cu` itself
+    (look-back status words, remain and prefix words); raises for a shape
+    the kernel does not take."""
+    words = _lib("fused_expand").tts_fused_scratch_words(B, tile, J, M, SW)
+    if words < 0:
+        raise ValueError(f"fused kernel: B={B} tile={tile} J={J} M={M} "
+                         "is not a shape it takes")
+    return words
 
 
 def fused_expand(tables: BoundTables, prmu_T: torch.Tensor,
@@ -275,7 +287,7 @@ def fused_expand(tables: BoundTables, prmu_T: torch.Tensor,
     n_surv = torch.empty((), dtype=torch.int32, device=dev)
     hist = (torch.empty((tele_bins,), dtype=torch.int64, device=dev)
             if tele_bins else None)
-    scratch = torch.empty(_fused_scratch_words(B, tile, J),
+    scratch = torch.empty(_fused_scratch_words(B, tile, J, M, SW),
                           dtype=torch.int32, device=dev)
     # inputs held in names until the launch is queued: a temporary's
     # memory could be handed to the next allocation before the kernel

@@ -2,13 +2,14 @@
 
     python -m tpu_tree_search_torch.profile_step [-i 21] [-l 2]
         [--chunk 65536] [--capacity 4194304] [--warm 50] [--steps 20]
-        [--fused] [--device cuda]
+        [--device cuda]
 
-Seeds Taillard instance `-i` with ub=opt, runs `--warm` steps (through the
-fused route with `--fused`, else unfused; `TTS_FUSED` is not read), then
-profiles `--steps` more and prints one JSON line: host milliseconds per
-step, the device's busy share of the window (the union of its kernel and
-copy intervals over the window's wall time), the device operations
+For each of the two routes, the default (the fused route where it
+applies on the card, unfused on the CPU) and `fused="off"`: seeds
+Taillard instance `-i` with ub=opt, runs `--warm` steps, then profiles
+`--steps` more and prints one JSON line: host milliseconds per step, the
+device's busy share of the window (the union of its kernel and copy
+intervals over the window's wall time), the device operations
 (kernels and copies) per step, and those that took the most time, by
 name, with their share of the busy time. On a CPU run there is no device
 trace: those fields are null.
@@ -25,7 +26,7 @@ import torch
 from torch.autograd import DeviceType
 
 from .engine import device
-from .ops import batched
+from .ops import batched, fused as fz
 from .problems import taillard
 from .tune.defaults import BENCH_CHUNK_DEFAULT
 
@@ -42,13 +43,15 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
 
 def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
             steps: int, dev: torch.device, top: int = 12,
-            fused: bool = False) -> dict:
+            fused: str | None = None) -> dict:
+    """One profiled window; `fused` is `device.run`'s (None: the
+    default route)."""
     p = taillard.processing_times(inst)
     tables = batched.make_tables(p, device=dev)
     state = device.init_state(p.shape[1], capacity,
                               taillard.optimal_makespan(inst), p_times=p,
                               device=dev)
-    mode = ("hw" if dev.type == "cuda" else "interpret") if fused else "off"
+    mode = fz.resolve_mode(fused, on_cuda=dev.type == "cuda")
     state = device.run_growing(tables, state, lb_kind, chunk, warm,
                                fused=mode)
     on_cuda = dev.type == "cuda"
@@ -99,15 +102,13 @@ def main(argv=None) -> int:
     ap.add_argument("--capacity", type=int, default=1 << 22)
     ap.add_argument("--warm", type=int, default=50)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--fused", action="store_true",
-                    help="take the fused route (hw on CUDA, the plain "
-                         "version on the CPU)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = device.resolve_device(args.device)
-    print(json.dumps(profile(args.inst, args.lb, args.chunk, args.capacity,
-                             args.warm, args.steps, dev,
-                             fused=args.fused)), flush=True)
+    for fused in (None, "off"):
+        print(json.dumps(profile(args.inst, args.lb, args.chunk,
+                                 args.capacity, args.warm, args.steps, dev,
+                                 fused=fused)), flush=True)
     return 0
 
 

@@ -1,9 +1,8 @@
 """Environment flags of the port.
 
-Reproduces `env_flag` of `tpu_tree_search/utils/config.py` for the flags
-the port reads (`TTS_FUSED`, `TTS_FUSED_INTERPRET`,
-`TTS_SEARCH_TELEMETRY`), with the same accepted spellings. Every flag the
-port reads defaults to off, as its row in the JAX package's registry
+Reproduces `env_flag` of `tpu_tree_search/utils/config.py` for the one
+flag the port reads (`TTS_SEARCH_TELEMETRY`), with the same accepted
+spellings. It defaults to off, as its row in the JAX package's registry
 does.
 """
 
