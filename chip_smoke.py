@@ -14,19 +14,24 @@ failed check ends the run with a non-zero exit code and no result line.
 Phases (one line each, then two JSON lines):
   1. the card (`nvidia-smi`), torch and CUDA versions
   2. kernel build, with ptxas's register and spill lines of every kernel
-     instance; a sweep or fused instance with a stack frame or spills fails
+     instance; any instance with a stack frame or spills fails
   3. golden solves with ub=opt through the default route (ta003 LB2
      through the CLI, ta014 LB2 `dense`, 50x20 seed 51 LB2 and ta007 LB1
      fused, ta007 LB1_d, ta002 LB1 fused through the CLI), each path's
-     launch counts read after it; then the dense LB2 route (ta003 at the
+     launch counts read after it (the dense route launches the expand
+     kernel's fronts-only mode); then the dense LB2 route (ta003 at the
      CLI chunk, ta014 at chunk 4096) stepped through the kernels and
      through the plain versions from one state, compared exactly after
-     every step
+     every step; and ta041 (50x10) LB2 ub=opt from the root at chunk
+     65536, dense, until a full chunk is popped and 4 steps more, each
+     step against the plain versions
   4. ta021 LB2 at the bench chunk (65536) / capacity 2^22, 50 warm-up +
      200 timed steps (evals/s), on the default (fused) route and with
      `fused="off"`; then 20 unfused steps through the kernels and through
      the plain versions from one state, compared exactly
-  5. the J > 64 path: ta071 LB2 steps, kernels against plain versions
+  5. the J > 64 paths: ta071 and ta091 LB2 steps (the unfused prefilter
+     route, the bounds-only expand kernel and the J > 64 sweep), kernels
+     against plain versions
   6. the fused route against the others: golden solves with
      `fused="off"` (50x20 seed 51 LB2, ta007 LB1); 20 ta021 steps from one
      state through the fused kernel, through its plain version and
@@ -36,9 +41,12 @@ Phases (one line each, then two JSON lines):
      telemetry on the card (ta014 `dense`, ta021 `prefilter`, fused and
      unfused, kernels and plain versions)
   7. kernel parity and timing at the main path's shapes, and at the
-     edges: sweeps of 1 column, of widths that are no multiple of the
-     kernel's columns per block, of column prefixes of wider frames, at
-     J = 20, 50, 100, 200 and 500; the fused kernel with n_valid < B,
+     edges: the expand kernel's three modes (bounds-only, emit, the dense
+     route's fronts-only launch) at ta021, ta014, ta003, ta041, ta071,
+     ta091 and ta111 (J = 500, TB 32), and with garbage columns past a
+     popped count; sweeps of 1 column, of widths that are no multiple of
+     the kernel's columns per block, of column prefixes of wider frames,
+     at J = 20, 50, 100, 200 and 500; the fused kernel with n_valid < B,
      spilling past its frame, with histogram and int16 aux, at J = 200,
      launched twice on one input and back to back on three
 The last line is `{"ok": true, "device": {...}}`.
@@ -64,7 +72,7 @@ from tpu_tree_search_torch import cli  # noqa: E402
 from tpu_tree_search_torch.engine import device  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
-    cuda_ms, kernel_ms, random_chunk)
+    cuda_ms, kernel_ms, pool_chunk, random_chunk)
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
 from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
@@ -99,7 +107,8 @@ def say(phase: str, **fields) -> None:
 def plain_kernels():
     """Route the engine's kernel calls to the plain versions on the same
     CUDA tensors (for the step-by-step comparison only)."""
-    saved = kernels.expand_bound, kernels.lb2_sweep, kernels.fused_expand
+    saved = (kernels.expand_bound, kernels.expand_fronts, kernels.lb2_sweep,
+             kernels.fused_expand)
 
     def expand_bound(tables, prmu_T, depth2, front_T, lb_kind, tile, emit):
         if emit:
@@ -107,6 +116,9 @@ def plain_kernels():
                                    tile)
         return None, None, ex.expand_bounds_plain(tables, prmu_T, depth2,
                                                   front_T, lb_kind, tile)
+
+    def expand_fronts(tables, prmu_T, depth2, front_T, tile):
+        return ex.expand_fronts_plain(tables, prmu_T, depth2, front_T, tile)
 
     def lb2_sweep(tables, cf, sched):
         return ex.lb2_plain(tables, sched, cf)
@@ -117,12 +129,13 @@ def plain_kernels():
                                      n_valid, cap, 1, tile, width,
                                      with_sched, bins, with_bounds, aux_i16)
 
-    kernels.expand_bound, kernels.lb2_sweep, kernels.fused_expand = (
-        expand_bound, lb2_sweep, fused_expand)
+    (kernels.expand_bound, kernels.expand_fronts, kernels.lb2_sweep,
+     kernels.fused_expand) = (expand_bound, expand_fronts, lb2_sweep,
+                              fused_expand)
     try:
         yield
     finally:
-        (kernels.expand_bound, kernels.lb2_sweep,
+        (kernels.expand_bound, kernels.expand_fronts, kernels.lb2_sweep,
          kernels.fused_expand) = saved
 
 
@@ -201,20 +214,18 @@ for stem, (_, log) in built.items():
     insts = ptxas_instances(log)
     for inst in insts:
         say(f"ptxas {stem}", **inst)
-    if stem in ("lb2_sweep", "fused_expand"):
-        # the log is kept beside the library, so a cached build is checked
-        # too
-        check(bool(insts), f"{stem}: no ptxas lines")
-        for inst in insts:
-            check(inst.get("stack") == 0 and inst.get("spill_stores") == 0
-                  and inst.get("spill_loads") == 0,
-                  f"{stem}: {inst['name']} has a stack frame or spills")
+    # the log is kept beside the library, so a cached build is checked too
+    check(bool(insts), f"{stem}: no ptxas lines")
+    for inst in insts:
+        check(inst.get("stack") == 0 and inst.get("spill_stores") == 0
+              and inst.get("spill_loads") == 0,
+              f"{stem}: {inst['name']} has a stack frame or spills")
 
 # --- phase 3: golden solves through the entry points ----------------------
 LAUNCH_FROM: dict[str, dict] = {}
 with contextlib.redirect_stdout(io.StringIO()) as buf:
     (rc, lines), counts, secs = path_run(
-        "ta003 cli", ("expand_emit", "lb2_sweep"),
+        "ta003 cli", ("expand_emit", "expand_fronts", "lb2_sweep"),
         lambda: (cli.main(["pfsp", "-i", "3", "-l", "2", "-u", "1"]), None))
 text = buf.getvalue()
 check(rc == 0, "cli pfsp -i 3 -l 2 -u 1 exit code")
@@ -232,7 +243,8 @@ matrix = [json.loads(l) for l in (ROOT / "tests" / "golden" /
 m51 = next(r for r in matrix if r["seed"] == 51)
 GOLDENS = [  # name, p, lb, ub, chunk, (tree, sol, best), launched, not
     ("ta014 lb2 (dense)", taillard.processing_times(14), 2, 1377, 4096,
-     (144639, 0, 1377), ("expand_emit", "lb2_sweep"), ("fused_expand",)),
+     (144639, 0, 1377), ("expand_emit", "expand_fronts", "lb2_sweep"),
+     ("fused_expand", "expand_bounds")),
     ("50x20 seed 51 lb2 (fused prefilter, W=2)",
      np.asarray(m51["p"], np.int32).reshape(20, 50), 2, m51["ub"], 256,
      (19481, 0, 3691), ("fused_expand", "lb2_sweep"), ()),
@@ -257,12 +269,36 @@ def golden(name, p, lb, ub, chunk, want, expect, absent, **kw):
     return counts
 
 
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Count the calls of module.name (the original still runs)."""
+    calls = [0]
+    fn = getattr(module, name)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fn(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 # the default route: no `fused` argument, as a user calls it
 for row in GOLDENS:
-    counts = golden(*row)
-    if row[0].startswith("ta014"):
-        # the emit kernel's row is measured at this path's shape
-        LAUNCH_FROM["expand_emit"] = counts
+    if not row[0].startswith("ta014"):
+        golden(*row)
+        continue
+    # on the card the dense step runs the expand kernel's fronts-only
+    # launch, never `sched_mask_cols`, children or a depth row; the emit
+    # kernel's row is measured at this path's shape
+    with counting_calls(ex, "sched_mask_cols") as calls:
+        counts = golden(*row)
+    check(calls[0] == 0 and counts["expand_fronts"] == counts["expand_emit"],
+          f"ta014 dense: {calls[0]} sched_mask_cols calls, launches {counts}")
+    LAUNCH_FROM["expand_emit"] = counts
 
 with contextlib.redirect_stdout(io.StringIO()) as buf:
     (rc, _), counts, secs = path_run(
@@ -310,6 +346,50 @@ for inst, chunk, warm, steps in ((3, CLI_CHUNK_DEFAULT, 10, 30),
                      steps)
     DENSE[inst] = (p, tb, s, chunk)
 
+
+def from_root_vs_plain(tables, state, chunk, max_warm, more):
+    """LB2 steps from `state` through the kernels and through the plain
+    versions, compared after each step, until the pool holds a full chunk
+    (within `max_warm` steps), then the step that pops it and `more` steps
+    after it. Returns the kernel run's state."""
+    a, b = clone(state), clone(state)
+    first = None
+    for k in range(max_warm + 1 + more):
+        if first is None and a.size >= chunk:
+            first = k
+        if first is None and k >= max_warm:
+            break
+        a = device.step(tables, 2, chunk, a)
+        with plain_kernels():
+            b = device.step(tables, 2, chunk, b)
+        check(same_state(a, b) and not a.overflow,
+              f"step {k + 1}: kernels != plain, or the pool overflowed")
+        if first is not None and k - first == more:
+            break
+    check(first is not None and k - first == more,
+          f"no full chunk popped in {max_warm} steps, or fewer than {more} "
+          "steps after it")
+    return a
+
+
+# ta041 (50x10) at the bench chunk: the dense route at its widest (N =
+# 3,276,800 child columns, two scheduled-set words)
+p41 = taillard.processing_times(41)
+t41 = batched.make_tables(p41, device=DEV)
+check(device.lb2_route(50, 10, 45, BENCH_CHUNK_DEFAULT)[0] == "dense",
+      "ta041 route")
+s41, counts, secs = path_run(
+    "ta041 lb2 dense", ("expand_emit", "expand_fronts", "lb2_sweep"),
+    lambda: from_root_vs_plain(t41, device.init_state(
+        50, 1 << 24, taillard.optimal_makespan(41), p_times=p41,
+        device=DEV), BENCH_CHUNK_DEFAULT, 10, 4))
+check(counts["expand_bounds"] == 0 and counts["fused_expand"] == 0,
+      f"ta041 dense launches {counts}")
+LAUNCH_FROM["expand_fronts"] = counts
+say(f"ta041 lb2 dense chunk {BENCH_CHUNK_DEFAULT} from the root, kernels "
+    "vs plain", equal=True, steps=s41.iters, size=s41.size, tree=s41.tree,
+    seconds=round(secs, 3), launches=counts)
+
 # --- phase 4: ta021 at the bench shape ------------------------------------
 CHUNK = BENCH_CHUNK_DEFAULT
 p21 = taillard.processing_times(21)
@@ -353,25 +433,32 @@ for fused, label, expect in (
 kernels_vs_plain("ta021 lb2 prefilter unfused", t21, s21, CHUNK, 20,
                  fused="off")
 
-# --- phase 5: the J > 64 path (ta071, 100x10) -----------------------------
-p71 = taillard.processing_times(71)
-t71 = batched.make_tables(p71, device=DEV)
+# --- phase 5: the J > 64 paths (ta071, 100x10; ta091, 200x10) -------------
+BIGJ = (71, 91)
+for inst in BIGJ:
+    p = taillard.processing_times(inst)
+    M, J = p.shape
+    tb = batched.make_tables(p, device=DEV)
+    route, tile, _ = device.lb2_route(J, M, M * (M - 1) // 2, 4096)
+    # the LB2 kernel lane cap refuses the fused route: unfused prefilter
+    check(route == "prefilter" and not fz.fused_ok(
+        "hw", J, tile, 2, M, device=DEV), f"ta{inst:03d} route")
 
+    def bigj_run(plain=False):
+        s = device.init_state(J, 1 << 21, None, p_times=p, device=DEV)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            return run_steps(tb, s, 2, 4096, 6)
 
-def ta071_run():
-    s = device.init_state(100, 1 << 21, None, p_times=p71, device=DEV)
-    return run_steps(t71, s, 2, 4096, 6)
-
-
-s71, counts, secs = path_run("ta071 lb2", ("expand_bounds", "lb2_sweep_bigj"),
-                             ta071_run)
-LAUNCH_FROM["lb2_sweep_bigj"] = counts
-s71p = device.init_state(100, 1 << 21, None, p_times=p71, device=DEV)
-with plain_kernels():
-    s71p = run_steps(t71, s71p, 2, 4096, 6)
-check(same_state(s71, s71p), "ta071: kernels != plain")
-say("ta071 lb2 6 steps (J > 64)", tree=s71.tree, evals=s71.evals,
-    seconds=round(secs, 3), equal_to_plain=True, launches=counts)
+    s, counts, secs = path_run(f"ta{inst:03d} lb2", (
+        "expand_bounds", "lb2_sweep_bigj"), bigj_run)
+    check(counts["fused_expand"] == 0, f"ta{inst:03d}: fused launches")
+    check(same_state(s, bigj_run(plain=True)),
+          f"ta{inst:03d}: kernels != plain")
+    if inst == 71:
+        LAUNCH_FROM["lb2_sweep_bigj"] = counts
+    say(f"ta{inst:03d} lb2 6 steps (J > 64, unfused prefilter)",
+        tree=s.tree, evals=s.evals, seconds=round(secs, 3),
+        equal_to_plain=True, launches=counts)
 
 # --- phase 6: the fused route against the unfused one --------------------
 UNFUSED_GOLDENS = [
@@ -463,17 +550,23 @@ telemetry_case("ta021 lb2 prefilter", 21, 2, CHUNK, 12)
 RESULTS = []
 
 
-def record(name, replaces, source, launches_key, err, ms, plain_ms,
-           nbytes, nops, shape, ops_per_s=INT32_OPS_PER_S):
+def bound(nbytes, nops, ops_per_s=INT32_OPS_PER_S):
+    """(bound_ms, bound_by): the least time the card could take, from the
+    bytes moved and the operations done."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * nops / ops_per_s
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def record(name, replaces, source, launches_key, err, ms, plain_ms,
+           nbytes, nops, shape, ops_per_s=INT32_OPS_PER_S):
+    bound_ms, bound_by = bound(nbytes, nops, ops_per_s)
     RESULTS.append({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": LAUNCH_FROM[launches_key][launches_key],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": shape})
 
 
@@ -489,10 +582,37 @@ def popcount_cols(words: torch.Tensor) -> torch.Tensor:
     return sum(((w >> k) & 1).sum(dim=0) for k in range(32))
 
 
+def garbage_past(prmu_T, depth2, front_T, n_valid: int, seed: int):
+    """The chunk with its columns past `n_valid` replaced by garbage, as a
+    pool holds past its popped count: job ids anywhere in [0, J) (repeats
+    too), depths anywhere in [0, J], any front."""
+    J, B = prmu_T.shape
+    n = B - n_valid
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    prmu_T, depth2, front_T = prmu_T.clone(), depth2.clone(), front_T.clone()
+    prmu_T[:, n_valid:] = torch.randint(0, J, (J, n), generator=g,
+                                        device=DEV, dtype=torch.int16)
+    depth2[:, n_valid:] = torch.randint(0, J + 1, (1, n), generator=g,
+                                        device=DEV, dtype=torch.int32)
+    front_T[:, n_valid:] = torch.randint(0, 5000, (front_T.shape[0], n),
+                                         generator=g, device=DEV,
+                                         dtype=torch.int32)
+    return prmu_T, depth2, front_T
+
+
+MODES = ("bounds", "emit", "fronts")
+
+
 def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
-                tile=None):
+                tile=None, modes=("bounds", "emit")):
+    """The expand kernel against its plain version on one chunk, in each
+    of `modes`: bounds-only (compared at the real child slots), emit (every
+    output, every column) and the dense route's fronts-only launch (LB1
+    only; fronts and words, every column). Timed when reps > 0. Returns
+    {mode: (err, ms, plain_ms, nbytes, nops)}."""
     J, B = prmu_T.shape
     M = front_T.shape[0]
+    SW = ex.sched_words(J)
     if tile is None:
         tile = ex.effective_tile(J, B, 1024, lb, machines=M)
     G = B // tile
@@ -500,36 +620,48 @@ def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
                                                   device=DEV), G, J, tile)[1]
     n_real = int(real.sum().item())
     nin = J * B * 2 + B * 4 + M * B * 4 + (M * J + M) * 4
-    remain_ops = int((J - depth2).sum().item()) * M
-    out = []
-    for emit in (False, True):
-        k = kernels.expand_bound(tables, prmu_T, depth2, front_T, lb, tile,
-                                 emit)
-        if emit:
-            pl = ex.expand_plain(tables, prmu_T, depth2, front_T, lb, tile)
-            err = max(max_err(x, y) for x, y in zip(k, pl))
-            plain = lambda: ex.expand_plain(  # noqa: E731
-                tables, prmu_T, depth2, front_T, lb, tile)
+    remain_ops = int((J - depth2).clamp(min=0).sum().item()) * M
+    args = (tables, prmu_T, depth2, front_T)
+    out = {}
+    for mode in modes:
+        if mode == "emit":
+            launch = lambda: kernels.expand_bound(  # noqa: E731
+                *args, lb, tile, True)
+            plain = lambda: ex.expand_plain(*args, lb, tile)  # noqa: E731
+            err = max(max_err(x, y) for x, y in zip(launch(), plain()))
             nbytes = nin + B * J * (4 + 2 * J + 4 * (M + 1))
             nops = remain_ops + B * J * 7 * M
-        else:
-            pl = ex.expand_bounds_plain(tables, prmu_T, depth2, front_T, lb,
-                                        tile)
-            err = max_err(k[2], pl, real)
+        elif mode == "bounds":
+            launch = lambda: kernels.expand_bound(  # noqa: E731
+                *args, lb, tile, False)
             plain = lambda: ex.expand_bounds_plain(  # noqa: E731
-                tables, prmu_T, depth2, front_T, lb, tile)
+                *args, lb, tile)
+            err = max_err(launch()[2], plain(), real)
             nbytes = nin + B * J * 4
             nops = remain_ops + n_real * (7 if lb == 1 else 5) * M
-        check(err == 0, f"expand_bound {label} lb{lb} emit={emit}: "
-                        f"max abs err {err}")
-        launch = lambda: kernels.expand_bound(  # noqa: E731
-            tables, prmu_T, depth2, front_T, lb, tile, emit)
-        ms = kernel_ms(launch, reps)
-        event_ms = cuda_ms(launch, reps)
-        plain_ms = cuda_ms(plain, max(2, reps // 10))
-        out.append((emit, err, ms, plain_ms, nbytes, nops))
-        say(f"expand_bound {label} lb{lb} emit={emit}", J=J, B=B, tile=tile,
-            max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms)
+        else:
+            check(lb == 1, "the fronts-only launch runs LB1's chain")
+            launch = lambda: kernels.expand_fronts(  # noqa: E731
+                *args, tile)
+            plain = lambda: ex.expand_fronts_plain(  # noqa: E731
+                *args, tile)
+            err = max(max_err(x, y) for x, y in zip(launch(), plain()))
+            # the prefix words of each parent, then the front chain (a max
+            # and an add a machine) and one word operation per child
+            nbytes = nin - M * 4 + B * J * 4 * (M + SW)
+            nops = (int(depth2.clamp(0, J).sum().item())
+                    + B * J * (2 * M + SW))
+        check(err == 0, f"expand_bound {label} lb{lb} {mode}: max abs err "
+                        f"{err}")
+        ms = event_ms = plain_ms = None
+        if reps:
+            ms = kernel_ms(launch, reps)
+            event_ms = cuda_ms(launch, reps)
+            plain_ms = cuda_ms(plain, max(2, reps // 10))
+        out[mode] = (err, ms, plain_ms, nbytes, nops)
+        say(f"expand_bound {label} lb{lb} {mode}", J=J, B=B, tile=tile,
+            max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+            bound_ms=bound(nbytes, nops)[0] if reps else None)
     return out
 
 
@@ -561,21 +693,39 @@ check(n_pop == CHUNK, "ta021 pool holds a full chunk")
 pa = pa.to(torch.int32).contiguous()
 main_shape = {}
 for lb in (1, 0):
-    for emit, err, ms, plain_ms, nb, no in expand_case("ta021", t21, pp, pd,
-                                                       pa, lb, 50):
-        main_shape[(lb, emit)] = (err, ms, plain_ms, nb, no)
+    main_shape[lb] = expand_case("ta021", t21, pp, pd, pa, lb, 50,
+                                 modes=MODES if lb == 1 else MODES[:2])
+expand_case("ta021, garbage past the popped count", t21,
+            *garbage_past(pp, pd, pa, CHUNK - 12345, 21), 1, 0, modes=MODES)
 for J, M, B, inst in ((50, 20, 16384, 51), (100, 10, 8192, 71),
                       (200, 10, 4096, 91)):
     p = taillard.processing_times(inst)
     tb = batched.make_tables(p, device=DEV)
     expand_case(f"ta{inst:03d}", tb, *random_chunk(p, B, inst, DEV), 1, 10)
+# the J > 64 LB2 pre-prune at its route's tile, on the chunk its path pops
+# after 3 steps from the root (kernel_times.py's); and J = 500 at TB 32,
+# where a warp holds a whole tile
+for inst in BIGJ:
+    tb, *chunk_, tile = pool_chunk(inst, 4096, 3, DEV)
+    expand_case(f"ta{inst:03d} prefilter chunk 4096", tb, *chunk_, 1, 20,
+                tile, modes=MODES)
+    expand_case(f"ta{inst:03d} prefilter chunk 4096, garbage", tb,
+                *garbage_past(*chunk_, 2862, inst), 1, 0, tile, modes=MODES)
+p111 = taillard.processing_times(111)
+t111 = batched.make_tables(p111, device=DEV)
+c111 = random_chunk(p111, 1024, 111, DEV)
+for lb in (1, 0):
+    expand_case("ta111", t111, *c111, lb, 0, 32,
+                modes=MODES if lb == 1 else MODES[:2])
+expand_case("ta111, garbage", t111, *garbage_past(*c111, 700, 111), 1, 0, 32,
+            modes=MODES)
 
-err, ms, plain_ms, nb, no = main_shape[(1, False)]
+err, ms, plain_ms, nb, no = main_shape[1]["bounds"]
 record("expand_bound (bounds-only)", f"{PE}:81", SRC_E, "expand_bounds",
        err, ms, plain_ms, nb, no, f"ta021 chunk {CHUNK}, LB1")
 # the dense route's chunks, popped from the states its parity run began at:
-# the expand kernel at the route's tile (its emit launches are LB1, feeding
-# the pair sweep), and the sweep of every pair over the whole child grid
+# the expand kernel at the route's tile (LB1, feeding the pair sweep), and
+# the sweep of every pair over the whole child grid
 for inst, (p, tb, s, chunk) in DENSE.items():
     M = p.shape[0]
     tile = device.lb2_route(20, M, int(tb.ma0.shape[0]), chunk)[1]
@@ -584,15 +734,30 @@ for inst, (p, tb, s, chunk) in DENSE.items():
     da = da.to(torch.int32).contiguous()
     for lb in (1, 0):
         res = expand_case(f"ta{inst:03d} dense", tb, dp, dd, da, lb, 50,
-                          tile)
+                          tile, modes=MODES if lb == 1 else MODES[:2])
         if inst == 14 and lb == 1:
-            dense_emit = res[1]
+            dense_emit = res["emit"]
+    expand_case(f"ta{inst:03d} dense, garbage", tb,
+                *garbage_past(dp, dd, da, chunk - 100, inst), 1, 0, tile,
+                modes=MODES)
     cf = ex.expand_plain(tb, dp, dd, da, 1, tile)[1][:M]
     lb2_case(f"ta{inst:03d} dense", tb, cf, ex.sched_mask_cols(dp, dd, tile),
              20)
-_, err, ms, plain_ms, nb, no = dense_emit
+err, ms, plain_ms, nb, no = dense_emit
 record("expand_bound (emit)", f"{PE}:73", SRC_E, "expand_emit", err, ms,
-       plain_ms, nb, no, "ta014 dense route, chunk 4096, LB1")
+       plain_ms, nb, no, "ta014 dense route, chunk 4096, LB1, every output")
+# the dense route at its widest: ta041's next chunk (N = 3,276,800)
+tile41 = device.lb2_route(50, 10, 45, CHUNK)[1]
+c41 = device.pop_chunk(s41, CHUNK, 10)
+check(c41[3] == CHUNK, "ta041 pool holds a full chunk")
+c41 = (c41[0], c41[1], c41[2].to(torch.int32).contiguous())
+res41 = expand_case("ta041 dense", t41, *c41, 1, 20, tile41, modes=MODES)
+expand_case("ta041 dense, garbage", t41, *garbage_past(*c41, CHUNK - 4321, 41),
+            1, 0, tile41, modes=MODES)
+err, ms, plain_ms, nb, no = res41["fronts"]
+record("expand_bound (fronts-only)", f"{PE}:73", SRC_E, "expand_fronts", err,
+       ms, plain_ms, nb, no, f"ta041 dense route, chunk {CHUNK}, TB "
+                             f"{tile41}: the child fronts and words only")
 
 # ta021 sweeps on the chunk's real child columns: the 24-pair head and
 # 166-pair tail over the N/4 frame the prefilter route sweeps in its steady

@@ -78,6 +78,45 @@ def test_expand_bounds_plain_matches_xla(jobs, machines, B, tile, lb_kind):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("jobs,machines,B,tile", SHAPES + [
+    (50, 20, 16, 4),    # two scheduled-set words, four tiles
+    (100, 10, 8, 2)])   # four words, four tiles
+def test_expand_fronts_plain_matches_xla(jobs, machines, B, tile):
+    """The dense route's fronts-only launch, plain: the child fronts of
+    `expand_xla` and JAX's `sched_mask_cols`, exactly, in one column
+    order."""
+    p, prmu_T, depth2, front_T = _parents(jobs, machines, B, 5 * jobs + tile)
+    jt, tt = _both(p)
+    aux = jpe.expand_xla(jt, jnp.asarray(prmu_T), jnp.asarray(depth2),
+                         jnp.asarray(front_T), lb_kind=1, tile=tile)[1]
+    words = jpe.sched_mask_cols(jnp.asarray(prmu_T), jnp.asarray(depth2),
+                                tile)
+    fronts, sched = tex.expand_fronts_plain(tt, _t(prmu_T), _t(depth2),
+                                            _t(front_T), tile)
+    assert fronts.dtype == sched.dtype == torch.int32
+    assert sched.shape == (jpe.sched_words(jobs), B * jobs)
+    np.testing.assert_array_equal(fronts.numpy(),
+                                  np.asarray(aux)[:machines])
+    np.testing.assert_array_equal(sched.numpy(), np.asarray(words))
+
+
+@pytest.mark.parametrize("jobs,machines,B,tile", [(10, 5, 16, 4),
+                                                  (20, 10, 16, 8),
+                                                  (40, 5, 8, 2)])
+def test_expand_bounds_lb2_matches_jax_expand(jobs, machines, B, tile):
+    """The dense route's bounds (`expand_bounds(lb_kind=2)`, which the
+    port's dense step calls) equal JAX's `expand(lb_kind=2)[2]`."""
+    p, prmu_T, depth2, front_T = _parents(jobs, machines, B, 7 * jobs + B,
+                                          deep=True)
+    jt, tt = _both(p)
+    want = jpe.expand(jt, jnp.asarray(prmu_T), jnp.asarray(depth2),
+                      jnp.asarray(front_T), lb_kind=2, tile=tile)[2]
+    got = tex.expand_bounds(tt, _t(prmu_T), _t(depth2),
+                            _t(front_T.astype(np.int16)), lb_kind=2,
+                            tile=tile)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("jobs,B,tile", [(8, 16, 8), (20, 12, 4), (40, 8, 8),
                                          (70, 6, 2), (100, 4, 4)])
 def test_sched_mask_cols_matches(jobs, B, tile):
@@ -182,11 +221,53 @@ def test_kernel_paths_never_fall_back_to_plain():
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         tex.expand_bounds(tt, _t(prmu_T).to("meta"), _t(depth2),
                           _t(front_T), lb_kind=1, tile=16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernels.expand_fronts(tt, _t(prmu_T), _t(depth2), _t(front_T), 16)
     p, cf, _, sched = _random_cols(20, 5, 64, 0)
     _, tt = _both(p)
     with pytest.raises(ValueError, match="CUDA device"):
         kernels.lb2_sweep(tt, _t(cf), _t(sched))
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("outputs,match", [
+    (frozenset(), "non-empty subset"),
+    (frozenset(("fronts", "aux")), "non-empty subset"),
+    (frozenset(("children",)), "CUDA device"),
+    (frozenset(("fronts", "sched")), "CUDA device"),
+    (None, "CUDA device")])
+def test_expand_launch_checks_outputs_before_any_launch(outputs, match):
+    """`kernels.expand_launch` checks which outputs it is asked for before
+    it allocates or launches anything: on meta tensors it raises, for a
+    bad set on the set, for a good one on the device; nothing launches."""
+    before = dict(kernels.LAUNCHES)
+    p, prmu_T, depth2, front_T = _parents(40, 5, 16, 1)
+    _, tt = _both(p)
+    meta = [_t(x).to("meta") for x in (prmu_T, depth2, front_T)]
+    with pytest.raises(ValueError, match=match):
+        kernels.expand_launch(tt, *meta, 1, 8, outputs)
+    assert kernels.LAUNCHES == before
+
+
+def test_expand_scratch_words():
+    """The scratch of one launch: remain (M rows) and, when the words are
+    an output, the prefix words (ceil(J/32) rows), B words each; shapes the
+    kernel does not take raise."""
+    full = frozenset(("children", "fronts", "depth", "bounds"))
+    assert kernels.expand_scratch_words(20, 10, 4096, 512, 1, None) == \
+        10 * 4096
+    assert kernels.expand_scratch_words(20, 10, 4096, 512, 0, full) == \
+        10 * 4096
+    assert kernels.expand_scratch_words(
+        50, 10, 65536, 256, 1, frozenset(("fronts", "sched"))) == 12 * 65536
+    assert kernels.expand_scratch_words(
+        100, 5, 64, 32, 1, frozenset(("sched",))) == 9 * 64
+    for args in ((20, 10, 4096, 500, 1, None),      # tile does not divide B
+                 (20, 33, 4096, 512, 1, None),      # M > 32
+                 (20, 10, 4096, 512, 2, None),      # LB2 is the sweep's
+                 (500, 20, 1 << 23, 32, 1, full)):  # B*J >= 2^31
+        with pytest.raises(ValueError):
+            kernels.expand_scratch_words(*args)
 
 
 @pytest.mark.parametrize("jobs,machines,pairs,batch", [

@@ -98,6 +98,20 @@ def test_dense_route_matches_prefilter_state():
     _step_parity(p, 2, chunk=64, tile=32, steps=10, route="dense")
 
 
+@pytest.mark.parametrize("jobs,machines,seed,chunk,tile,steps", [
+    (10, 6, 7, 64, 16, 10),     # four tiles
+    (36, 4, 9, 16, 4, 6)])      # four tiles, two scheduled-set words
+def test_dense_route_step_parity_several_tiles(jobs, machines, seed, chunk,
+                                               tile, steps):
+    """The dense step's bounds come from `expand_bounds(lb_kind=2)` (on the
+    card the expand kernel's fronts-only launch, then the pair sweep): at a
+    tile that gives several tiles its states equal JAX's step by step."""
+    p = _instance(jobs, machines, seed)
+    sizes = _step_parity(p, 2, chunk=chunk, tile=tile, steps=steps,
+                         route="dense")
+    assert max(sizes) > chunk
+
+
 def test_convert_round_trip():
     """Pool, counters and the telemetry vector, off (width 0) and on
     (width 60, after a few JAX steps so that it holds counts)."""

@@ -32,10 +32,12 @@
 // 80GB HBM3 at 700 W (device time, kernel_times.py): too few threads,
 // every survivor bounded twice, and a scan that one block walked alone.
 // This design:
-//  1. prep, one thread per parent: the parent's remain (M int32) and the
-//     scheduled-set words of its prefix (SW) into scratch, computed once
-//     per parent instead of once per child group; it also zeroes the
-//     look-back state and the histogram, so no memset is needed.
+//  1. prep (lb1_chain.cuh's prep_parents, shared with expand_bound.cu):
+//     the parent's remain (M int32) and the scheduled-set words of its
+//     prefix (SW) into scratch, computed once per parent instead of once
+//     per child group, a long permutation split over several threads; it
+//     also zeroes the look-back state and the histogram, so no memset is
+//     needed.
 //  2. main, a single pass with a chained scan and decoupled look-back.
 //     A block owns a contiguous span of the global column order: one tile
 //     g, K consecutive slots, all TB parents (K from the shape, so that
@@ -56,11 +58,15 @@
 //     reading it from device memory once per survivor. Only the child's
 //     front chain, which the output holds, is run again at write time;
 //     the bound is not recomputed.
-// It takes 0.086 ms at ta021's shape and 0.187 ms at ta091's (device
-// time, same card, kernel_times.py). Of what is left, the first pass's
-// loads of the parents' front and remain weigh most (variants timed
-// without each part said so): 80 registers a thread hold a main block to
-// 3 per SM, too few warps to hide their latency.
+// It takes 0.089 ms at ta021's shape and 0.172 ms at ta091's (device
+// time, same card, kernel_times.py; its own pre-pass of one thread per
+// parent took 0.086 and 0.187: the shared one splits a long permutation,
+// and costs some 3 us more where the prefix words are asked for and one
+// thread walks each parent, for reasons variants of it did not show). Of
+// what is left, the first pass's loads of the parents' front and remain
+// weigh most (variants timed without each part said so): 80 registers a
+// thread hold a main block to 3 per SM, too few warps to hide their
+// latency.
 // The bound chain is lb1_chain.cuh's, shared with expand_bound.cu.
 
 #include <cuda_runtime.h>
@@ -75,7 +81,6 @@ constexpr int kMaxBins = 64;
 constexpr int kThreads = 256;    // most threads of a main block
 constexpr int kSlots = 8;        // child slots a thread aims to hold
 constexpr int kSpanFloor = 512;  // spans the grid aims to hold, at least
-constexpr int kPrepThreads = 128;
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kPrefix = 2ull << 32;
 
@@ -133,46 +138,27 @@ __device__ __forceinline__ void store_status(unsigned long long* s,
   *(volatile unsigned long long*)s = v;
 }
 
-// One thread per parent: remain (M, B) and prefix words (SW, B) into
-// scratch; zeroes the status words, the ticket and the histogram.
+// The parent pre-pass (lb1_chain.cuh's, shared with expand_bound.cu):
+// remain (M, B) and prefix words (SW, B) into scratch; it also zeroes the
+// status words, the ticket and the histogram.
 template <int MAXM, int MC>
 __global__ void fused_prep(const int* __restrict__ p,
                            const int16_t* __restrict__ prmu,
-                           const int* __restrict__ depth,
-                           const int* __restrict__ front, int J, int M,
+                           const int* __restrict__ depth, int J, int M,
                            int B, int SW, int bins, long long n_status,
                            unsigned long long* __restrict__ status,
                            int* __restrict__ rem_out,
                            unsigned* __restrict__ pre_out,
                            unsigned long long* __restrict__ hist) {
   extern __shared__ int smem[];
-  const int Mx = MC ? MC : M;
-  int* sp = smem;                                  // p, (M, J)
-  unsigned* spre = (unsigned*)(sp + Mx * J);       // (SW, blockDim)
-  for (int t = threadIdx.x; t < Mx * J; t += blockDim.x) sp[t] = p[t];
-  const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)gridDim.x * blockDim.x;
+  const int nt = blockDim.x * blockDim.y;
+  const long long gt = (long long)blockIdx.x * nt +
+                       threadIdx.y * blockDim.x + threadIdx.x;
+  const long long total = (long long)gridDim.x * nt;
   for (long long t = gt; t < n_status; t += total) status[t] = 0ull;
   for (long long t = gt; t < bins; t += total) hist[t] = 0ull;
-  __syncthreads();
-  if (gt >= B) return;
-  const int b = (int)gt;
-  const int d = depth[b];
-  int fr[MAXM], rem[MAXM];
-  tts::parent_state<MAXM>(sp, prmu, front, J, Mx, B, b, d, fr, rem);
-#pragma unroll
-  for (int k = 0; k < MAXM; ++k)
-    if (k < Mx) rem_out[(long long)k * B + b] = rem[k];
-  if (SW) {
-    unsigned* mine = spre + threadIdx.x;
-    for (int w = 0; w < SW; ++w) mine[w * blockDim.x] = 0u;
-    for (int pos = 0; pos < d && pos < J; ++pos) {
-      const int v = prmu[(long long)pos * B + b];
-      if (v >= 0 && v < 32 * SW) mine[(v >> 5) * blockDim.x] |= 1u << (v & 31);
-    }
-    for (int w = 0; w < SW; ++w)
-      pre_out[(long long)w * B + b] = mine[w * blockDim.x];
-  }
+  tts::prep_parents<MAXM>(smem, p, prmu, depth, J, MC ? MC : M, B, SW, true,
+                          rem_out, pre_out);
 }
 
 template <int MAXM, int MC>
@@ -379,8 +365,9 @@ cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
                    unsigned long long* hist, const Geometry& q,
                    unsigned long long* status, int* rem, unsigned* pre,
                    cudaStream_t s) {
+  const int S = tts::prep_splits(J, B), PX = tts::kPrepThreads / S;
   const size_t smem_prep =
-      sizeof(int) * ((size_t)M * J + (size_t)SW * kPrepThreads);
+      sizeof(int) * tts::prep_smem_words(J, M, SW, S);
   const size_t krw = (size_t)q.K * q.R * q.NW;
   const size_t smem_main =
       sizeof(int) * ((size_t)M * J + M + bins + 2 * krw +
@@ -389,10 +376,9 @@ cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
   cudaError_t e = allow_smem(fused_prep<MAXM, MC>, smem_prep);
   if (e == cudaSuccess) e = allow_smem(fused_main<MAXM, MC>, smem_main);
   if (e != cudaSuccess) return e;
-  fused_prep<MAXM, MC><<<(B + kPrepThreads - 1) / kPrepThreads,
-                         kPrepThreads, smem_prep, s>>>(
-      p, prmu, depth, front, J, M, B, SW, bins, q.blocks + 1, status, rem,
-      pre, hist);
+  fused_prep<MAXM, MC><<<(B + PX - 1) / PX, dim3(PX, S), smem_prep, s>>>(
+      p, prmu, depth, J, M, B, SW, bins, q.blocks + 1, status, rem, pre,
+      hist);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   fused_main<MAXM, MC><<<(unsigned)q.blocks, q.BT, smem_main, s>>>(
       p, tails, prmu, depth, front, cap, J, M, B, TB, n_valid, W, SW, bins,

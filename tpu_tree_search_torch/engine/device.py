@@ -555,13 +555,12 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
         return _commit(state, n_push, best, state.sol + n_leaf, n_eval,
                        limit, start, tele_delta=delta)
 
-    if route == "dense":
-        # one-shot dense LB2 for the few-pair classes
-        bounds = ex.expand(tables, p_prmu, p_depth, p_aux, lb_kind=2,
-                           tile=TB)[2]
-    else:
-        bounds = ex.expand_bounds(tables, p_prmu, p_depth, p_aux,
-                                  lb_kind=lb_kind, tile=TB)
+    # LB1/LB1_d, or the one-shot dense LB2 of the few-pair classes (on
+    # the card the expand kernel writes only the fronts and words the
+    # pair sweep reads)
+    bounds = ex.expand_bounds(tables, p_prmu, p_depth, p_aux,
+                              lb_kind=2 if route == "dense" else lb_kind,
+                              tile=TB)
     n_leaf, best, push, n_push, n_eval = _leaves_and_push(
         bounds, mask, depth_c, J, state.best)
     delta = None

@@ -5,8 +5,10 @@
 Needs one CUDA card. Each row is one kernel at one shape, on the same
 inputs `chip_smoke.py` uses: the chunk popped from the ta021 pool after
 250 LB2 steps at chunk 65536 (the fused kernel at the fused LB2 route's
-shape, the 166-pair tail sweep over the N/4 frame), and seeded random
-chunks of ta007, ta071 and ta091. For every row it prints one JSON line
+shape, the 166-pair tail sweep over the N/4 frame, the bounds-only expand
+kernel), seeded random chunks of ta007, ta071 and ta091, and the expand
+kernel's rows of `expand_rows` (the LB2 pre-prune at J = 100 and 200,
+the dense route at ta014 and ta041). For every row it prints one JSON line
 with
 
 - `ms`: device time per call, the calls run back to back behind a spin
@@ -181,10 +183,75 @@ def rows(dev: torch.device):
     sc71 = ex.sched_mask_cols(prmu, depth2, 2048)
     out.append(("sweep ta071 (J > 64)", "sweep",
                 lambda: kernels.lb2_sweep(t71, cf71, sc71)))
+    out.append(("expand bounds ta021 lb1", "expand",
+                lambda: kernels.expand_bound(t21, pp, pd, pa, 1, 1024,
+                                             False)))
+    out += expand_rows(dev)
     return out
 
 
-def time_row(fn, reps: int = 20) -> dict:
+def pool_chunk(inst: int, chunk: int, steps: int, dev: torch.device,
+               ub: int | None = None):
+    """The tables, the chunk popped after `steps` LB2 steps of Taillard
+    instance `inst` from the root (unfused), and the LB2 route's tile."""
+    p = taillard.processing_times(inst)
+    M, J = p.shape
+    tb = batched.make_tables(p, device=dev)
+    s = device.init_state(J, 1 << 21, ub, p_times=p, device=dev)
+    s = device.run_growing(tb, s, 2, chunk, steps, fused="off")
+    prmu, depth2, front, n_pop, _, _ = device.pop_chunk(s, chunk, M)
+    if n_pop != chunk:
+        raise RuntimeError(f"ta{inst:03d}: popped {n_pop} < {chunk}")
+    tile = device.lb2_route(J, M, M * (M - 1) // 2, chunk)[1]
+    return tb, prmu, depth2, front.to(torch.int32).contiguous(), tile
+
+
+def expand_rows(dev: torch.device):
+    """The expand kernel's rows: bounds-only at the J = 100 and J = 200
+    LB2 pre-prune (chunk 4096, popped after 3 steps from the root with no
+    incumbent), full emit at ta014's dense shape (chunk 4096, popped after
+    8 steps with ub=opt), and ta041's dense stage (chunk 65536, a random
+    chunk): the full emit launch, the full emit launch with
+    `sched_mask_cols` (what a checkout without the fronts-only launch
+    runs there) and, where the checkout has it, the fronts-only launch."""
+    out = []
+    for inst in (71, 91):
+        tb, prmu, depth2, front, tile = pool_chunk(inst, 4096, 3, dev)
+        out.append((f"expand bounds ta{inst:03d} chunk 4096 tile {tile} "
+                    "lb1", "expand",
+                    lambda a=(tb, prmu, depth2, front, 1, tile, False):
+                    kernels.expand_bound(*a)))
+    tb, prmu, depth2, front, tile = pool_chunk(
+        14, 4096, 8, dev, taillard.optimal_makespan(14))
+    out.append((f"expand emit ta014 dense chunk 4096 tile {tile}", "expand",
+                lambda a=(tb, prmu, depth2, front, 1, tile, True):
+                kernels.expand_bound(*a)))
+    p41 = taillard.processing_times(41)
+    t41 = batched.make_tables(p41, device=dev)
+    chunk = BENCH_CHUNK_DEFAULT
+    tile = device.lb2_route(50, 10, 45, chunk)[1]
+    c41 = random_chunk(p41, chunk, 41, dev)
+
+    def emit_and_words():
+        kernels.expand_bound(t41, *c41, 1, tile, True)
+        ex.sched_mask_cols(c41[0], c41[1], tile)
+
+    out.append((f"dense stage ta041 chunk {chunk} tile {tile}: emit",
+                "expand",
+                lambda: kernels.expand_bound(t41, *c41, 1, tile, True)))
+    # "ops": a kernel with torch operations around it, timed over fewer
+    # calls, so that its launches fit the stream's queue behind the spin
+    out.append((f"dense stage ta041 chunk {chunk} tile {tile}: emit + "
+                "sched_mask_cols", "ops", emit_and_words))
+    if hasattr(kernels, "expand_fronts"):
+        out.append((f"dense stage ta041 chunk {chunk} tile {tile}: "
+                    "fronts-only", "expand",
+                    lambda: kernels.expand_fronts(t41, *c41, tile)))
+    return out
+
+
+def time_row(fn, kind: str) -> dict:
+    reps = 3 if kind == "ops" else 20
     host: list[float] = []
     ms = kernel_ms(fn, reps, host)
     return {"ms": ms, "event_ms": cuda_ms(fn, reps), "host_ms": host[0]}
@@ -205,14 +272,14 @@ def main(argv=None) -> int:
     timed = rows(dev)
     for name, kind, fn in timed:
         rec = {"label": args.label, "row": name, "card": smi,
-               **time_row(fn)}
+               **time_row(fn, kind)}
         print(json.dumps(rec), flush=True)
     if args.generic_m:
         with generic_m_library():
             for name, kind, fn in timed:
                 if kind == "fused":
                     rec = {"label": args.label + ", generic M", "row": name,
-                           "card": smi, **time_row(fn)}
+                           "card": smi, **time_row(fn, kind)}
                     print(json.dumps(rec), flush=True)
     return 0
 

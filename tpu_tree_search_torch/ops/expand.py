@@ -11,8 +11,9 @@ Reproduces the rules and plain paths of
   of the per-step parity contract, although Hopper has no lane rule;
 - `sched_words`, `sched_mask_cols`, `_to_cols`;
 - the plain versions `expand_plain` (= `expand_xla`),
-  `expand_bounds_plain` (= `expand_bounds_xla`) and `lb2_plain`
-  (= `lb2_cols`);
+  `expand_bounds_plain` (= `expand_bounds_xla`), `expand_fronts_plain`
+  (the child fronts and scheduled-set words that the dense LB2 route
+  reads) and `lb2_plain` (= `lb2_cols`);
 - the dispatchers `expand`, `expand_bounds` and `lb2_bounds`.
 
 A dispatcher runs the plain version only for tensors on the CPU. For
@@ -280,18 +281,31 @@ def expand_plain(tables: BoundTables, prmu_T, depth2, front_T,
     return children_T, aux_T, bounds
 
 
+def expand_fronts_plain(tables: BoundTables, prmu_T, depth2, front_T,
+                        tile: int | None = None):
+    """Plain version of the expand kernel's fronts-only launch (the dense
+    LB2 route's): the child fronts (M, N) int32 (= `expand_plain(...)[1]
+    [:M]`) and the child's scheduled-set words (W, N) int32
+    (= `sched_mask_cols`), in the column order of `tile`."""
+    J, B = prmu_T.shape
+    TB, G = _grid(B, tile)
+    child_front = batched._child_fronts(tables, prmu_T.T.long(),
+                                        front_T.T.to(torch.int32))[0]
+    return (_to_cols(child_front, G, TB, J),
+            sched_mask_cols(prmu_T, depth2, TB))
+
+
 def expand_bounds_plain(tables: BoundTables, prmu_T, depth2, front_T,
                         lb_kind: int = 1, tile: int | None = None):
     """Plain bounds-only expand (= `expand_bounds_xla`): (1, N) int32,
     the same column order and math as `expand_plain`."""
     J, B = prmu_T.shape
     TB, G = _grid(B, tile)
+    if lb_kind == 2:
+        cf, sched = expand_fronts_plain(tables, prmu_T, depth2, front_T, TB)
+        return lb2_plain(tables, sched, cf)
     prmu, depth, front, remain, child_front, child_p = _parts(
         tables, prmu_T, depth2, front_T)
-    if lb_kind == 2:
-        cf_cols = _to_cols(child_front, G, TB, J)
-        return lb2_plain(tables, sched_mask_cols(prmu_T, depth2, TB),
-                         cf_cols)
     return _to_cols(_bounds_rows(tables, lb_kind, front, remain,
                                  child_front, child_p)[..., None], G, TB, J)
 
@@ -340,8 +354,10 @@ def expand_bounds(tables: BoundTables, prmu_T, depth2, front_T,
                   lb_kind: int = 1, tile: int = 1024):
     """Bounds of every child slot, (1, N) int32, in `expand`'s column
     order. CPU: `expand_bounds_plain`. CUDA: the bounds-only expand
-    kernel (LB2: `expand` then its bounds). Slots below the parent's depth
-    are never real children; the kernel writes I32_MAX there."""
+    kernel; for LB2 (the dense route) the expand kernel's fronts-only
+    launch, then the pair-sweep kernel over its fronts and words. Slots
+    below the parent's depth are never real children; the bounds-only
+    kernel writes I32_MAX there."""
     front_T = front_T.to(torch.int32)
     J, B = prmu_T.shape
     TB = _tile_for(J, B, tile, lb_kind, front_T.shape[0])
@@ -349,7 +365,9 @@ def expand_bounds(tables: BoundTables, prmu_T, depth2, front_T,
         return expand_bounds_plain(tables, prmu_T, depth2, front_T,
                                    lb_kind, TB)
     if lb_kind == 2:
-        return expand(tables, prmu_T, depth2, front_T, 2, TB)[2]
+        fronts, sched = kernels.expand_fronts(tables, prmu_T, depth2,
+                                              front_T, TB)
+        return lb2_bounds(tables, fronts, sched)
     return kernels.expand_bound(tables, prmu_T, depth2, front_T, lb_kind,
                                 TB, emit=False)[2]
 

@@ -5,7 +5,8 @@ five Pallas kernels of `tpu_tree_search/ops/pallas_expand.py` and
 `tpu_tree_search/ops/pallas_fused.py`:
 
 - `expand_bound.cu` (`_expand_kernel` in emit mode, `_bounds_kernel`
-  bounds-only);
+  bounds-only; an emit launch may write any set of its outputs, and the
+  dense LB2 route writes only the child fronts and scheduled-set words);
 - `lb2_sweep.cu` (`_lb2_kernel` for J <= 64, `_lb2_bigj_kernel` for
   J > 64);
 - `fused_expand.cu` (`_fused_kernel`).
@@ -49,7 +50,7 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source stem -> {C symbol: (argtypes, restype)}
 _SOURCES = {
     "expand_bound": {"tts_expand_bound": (
-        [_vp] * 5 + [_i32] * 6 + [_vp] * 4, _i32)},
+        [_vp] * 5 + [_i32] * 7 + [_vp] * 6 + [_i64, _vp], _i32)},
     "lb2_sweep": {"tts_lb2_sweep": (
         [_vp, _i64, _vp, _i64, _i32, _i32, _i32] + [_vp] * 4, _i32)},
     "fused_expand": {
@@ -59,8 +60,10 @@ _SOURCES = {
 }
 
 # launches per kernel entry, counted where each wrapper launches
-LAUNCHES = {"expand_emit": 0, "expand_bounds": 0, "lb2_sweep": 0,
-            "lb2_sweep_bigj": 0, "fused_expand": 0}
+# (an emit launch that writes only the fronts and the scheduled-set words,
+# the dense LB2 route's, counts under "expand_fronts" too)
+LAUNCHES = {"expand_emit": 0, "expand_fronts": 0, "expand_bounds": 0,
+            "lb2_sweep": 0, "lb2_sweep_bigj": 0, "fused_expand": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -150,47 +153,115 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def expand_bound(tables: BoundTables, prmu_T: torch.Tensor,
-                 depth2: torch.Tensor, front_T: torch.Tensor, lb_kind: int,
-                 tile: int, emit: bool):
-    """The expand kernel on (J, B) parents in tiles of `tile`: bounds
-    (1, N) int32 and, with `emit`, children (J, N) int16 and aux (M+1, N)
-    int32 = [child front | depth+1], N = B*J. Returns the three outputs
-    (None for the two not emitted)."""
+# what an emit launch of the expand kernel can write
+EMIT_OUTPUTS = frozenset(("children", "fronts", "depth", "bounds", "sched"))
+_FULL_EMIT = frozenset(("children", "fronts", "depth", "bounds"))
+_FRONTS = frozenset(("fronts", "sched"))
+
+
+def expand_scratch_words(J: int, M: int, B: int, tile: int, lb_kind: int,
+                         outputs) -> int:
+    """Checks one launch of the expand kernel before anything is
+    allocated, and returns its int32 scratch words, (M + SW) * B (the
+    parents' remain, then their prefix scheduled-set words; SW = ceil(J /
+    32) when the words are an output, else 0). `outputs` is None for the
+    bounds-only mode, or a non-empty subset of `EMIT_OUTPUTS`."""
+    if outputs is not None and (not outputs
+                                or not EMIT_OUTPUTS.issuperset(outputs)):
+        raise ValueError(f"expand kernel: outputs {sorted(outputs)} are "
+                         f"not a non-empty subset of {sorted(EMIT_OUTPUTS)}")
+    if lb_kind not in (0, 1):
+        raise ValueError(f"expand kernel bounds LB1/LB1_d, not {lb_kind}")
+    if tile <= 0 or B % tile != 0 or not 1 <= M <= 32 or J < 1 \
+            or B * J >= 2**31:
+        raise ValueError(f"expand kernel: B={B} tile={tile} M={M} J={J}")
+    return (M + _sched_rows(J, outputs)) * B
+
+
+def _sched_rows(J: int, outputs) -> int:
+    return (J + 31) // 32 if outputs is not None and "sched" in outputs else 0
+
+
+def expand_launch(tables: BoundTables, prmu_T: torch.Tensor,
+                  depth2: torch.Tensor, front_T: torch.Tensor, lb_kind: int,
+                  tile: int, outputs=None):
+    """One launch of the expand kernel on (J, B) parents in tiles of
+    `tile` (a pre-pass and the main pass, one C call). `outputs`: None for
+    bounds-only (the bound of every child slot, I32_MAX below the
+    parent's depth), or the emit outputs to write, a subset of
+    `EMIT_OUTPUTS` (every slot computed). Returns (children (J, N) int16,
+    aux, bounds (1, N) int32, sched (SW, N) int32), None for what is not
+    written; aux (int32) holds the child fronts (M rows) when asked for,
+    then the depth+1 row when asked for. N = B*J."""
     J, B = prmu_T.shape
     M = front_T.shape[0]
+    words = expand_scratch_words(J, M, B, tile, lb_kind, outputs)
     _need(prmu_T, torch.int16, "prmu_T")
     _need(depth2, torch.int32, "depth2")
     _need(front_T, torch.int32, "front_T")
     _need(tables.p, torch.int32, "tables.p")
-    if lb_kind not in (0, 1):
-        raise ValueError(f"expand kernel bounds LB1/LB1_d, not {lb_kind}")
-    if depth2.numel() != B or front_T.shape[1] != B or tables.p.shape != (M, J):
+    if (depth2.numel() != B or front_T.shape[1] != B
+            or tables.p.shape != (M, J)):
         raise ValueError("expand kernel: inconsistent shapes "
                          f"{tuple(prmu_T.shape)} {tuple(depth2.shape)} "
                          f"{tuple(front_T.shape)} {tuple(tables.p.shape)}")
-    if B % tile != 0 or not 1 <= M <= 32 or B * J >= 2**31:
-        raise ValueError(f"expand kernel: B={B} tile={tile} M={M} J={J}")
     dev = prmu_T.device
-    prmu = prmu_T.contiguous()
-    depth = depth2.reshape(B).contiguous()
-    front = front_T.contiguous()
     N = B * J
-    bounds = torch.empty((1, N), dtype=torch.int32, device=dev)
-    children = aux = None
-    if emit:
-        children = torch.empty((J, N), dtype=torch.int16, device=dev)
-        aux = torch.empty((M + 1, N), dtype=torch.int32, device=dev)
+    emit = outputs is not None
+    want = outputs if emit else frozenset(("bounds",))
+    children = (torch.empty((J, N), dtype=torch.int16, device=dev)
+                if "children" in want else None)
+    rows = M * ("fronts" in want) + ("depth" in want)
+    aux = torch.empty((rows, N), dtype=torch.int32, device=dev) if rows \
+        else None
+    bounds = (torch.empty((1, N), dtype=torch.int32, device=dev)
+              if "bounds" in want else None)
+    SW = _sched_rows(J, outputs)
+    sched = (torch.empty((SW, N), dtype=torch.int32, device=dev)
+             if "sched" in want else None)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    # inputs held in names until the launch is queued: a temporary's
+    # memory could be handed to the next allocation before the kernel
+    # reads it
+    ins = [x.contiguous() for x in (tables.p, tables.min_tails, prmu_T,
+                                    depth2.reshape(B), front_T)]
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    fronts = aux if "fronts" in want else None
+    depth_row = aux[rows - 1] if "depth" in want else None
     rc = _lib("expand_bound").tts_expand_bound(
-        tables.p.contiguous().data_ptr(),
-        tables.min_tails.contiguous().data_ptr(), prmu.data_ptr(),
-        depth.data_ptr(), front.data_ptr(), J, M, B, tile, lb_kind,
-        int(emit), ptr(children), ptr(aux), bounds.data_ptr(), _stream(dev))
+        *(x.data_ptr() for x in ins), J, M, B, tile, lb_kind, int(emit), SW,
+        ptr(children), ptr(fronts), ptr(depth_row), ptr(bounds), ptr(sched),
+        scratch.data_ptr(), words, _stream(dev))
     _check(rc, "expand_bound")
     if B:
-        LAUNCHES["expand_emit" if emit else "expand_bounds"] += 1
-    return children, aux, bounds
+        if not emit:
+            LAUNCHES["expand_bounds"] += 1
+        else:
+            LAUNCHES["expand_emit"] += 1
+            if outputs == _FRONTS:
+                LAUNCHES["expand_fronts"] += 1
+    return children, aux, bounds, sched
+
+
+def expand_bound(tables: BoundTables, prmu_T: torch.Tensor,
+                 depth2: torch.Tensor, front_T: torch.Tensor, lb_kind: int,
+                 tile: int, emit: bool):
+    """The expand kernel's full contract: bounds (1, N) int32 and, with
+    `emit`, children (J, N) int16 and aux (M+1, N) int32 = [child front |
+    depth+1], N = B*J. Returns the three outputs (None for the two not
+    emitted)."""
+    return expand_launch(tables, prmu_T, depth2, front_T, lb_kind, tile,
+                         _FULL_EMIT if emit else None)[:3]
+
+
+def expand_fronts(tables: BoundTables, prmu_T: torch.Tensor,
+                  depth2: torch.Tensor, front_T: torch.Tensor, tile: int):
+    """The dense LB2 route's launch: only the child fronts (M, N) int32
+    and the child's scheduled-set words (W, N) int32, W = ceil(J / 32)
+    (`ops/expand.expand_fronts_plain`)."""
+    _, fronts, _, sched = expand_launch(tables, prmu_T, depth2, front_T, 1,
+                                        tile, _FRONTS)
+    return fronts, sched
 
 
 def lb2_sweep(tables: BoundTables, child_front_cols: torch.Tensor,
