@@ -4,12 +4,15 @@
 
 Builds the Hopper kernels from `tpu_tree_search_torch/csrc/`, drives the
 port's main path (exact PFSP branch-and-bound through `device.search`, the
-CLI and `device.run`; on the card these take the fused route by default
-where it applies, and the unfused route is driven with `fused="off"`),
-checks every
-kernel bit for bit (tolerance 0: all of it is int32 math) against its
-plain PyTorch version at the main path's shapes, and times both. Any
-failed check ends the run with a non-zero exit code and no result line.
+CLI and `device.run`, which on the card replays a captured CUDA graph of
+`device.GRAPH_STEPS` steps; these take the fused route by default where
+it applies, and the unfused route is driven with `fused="off"`), checks
+every kernel bit for bit (tolerance 0: all of it is int32 math) against
+its plain PyTorch version at the main path's shapes, and times both. On
+every route the graph run is held against the eager `device.step` loop
+and against a graph run of the plain versions, and one eager step runs
+with every synchronizing CUDA call an error. Any failed check ends the
+run with a non-zero exit code and no result line.
 
 Phases (one line each, then two JSON lines):
   1. the card (`nvidia-smi`), torch and CUDA versions
@@ -19,36 +22,43 @@ Phases (one line each, then two JSON lines):
      through the CLI, ta014 LB2 `dense`, 50x20 seed 51 LB2 and ta007 LB1
      fused, ta007 LB1_d, ta002 LB1 fused through the CLI), each path's
      launch counts read after it (the dense route launches the expand
-     kernel's fronts-only mode); then the dense LB2 route (ta003 at the
+     kernel's fronts-only mode), each golden route from the root graph
+     against eager against plain; then the dense LB2 route (ta003 at the
      CLI chunk, ta014 at chunk 4096) stepped through the kernels and
      through the plain versions from one state, compared exactly after
-     every step; and ta041 (50x10) LB2 ub=opt from the root at chunk
-     65536, dense, until a full chunk is popped and 4 steps more, each
-     step against the plain versions
-  4. ta021 LB2 at the bench chunk (65536) / capacity 2^22, 50 warm-up +
-     200 timed steps (evals/s), on the default (fused) route and with
-     `fused="off"`; then 20 unfused steps through the kernels and through
-     the plain versions from one state, compared exactly
+     every step, and graph against eager against plain; and ta041
+     (50x10) LB2 ub=opt from the root at chunk 65536, dense, until a
+     full chunk is popped and 4 steps more, each step against the plain
+     versions, then the same steps graph against eager against plain
+  4. ta021 LB2 at the bench chunk (65536) / capacity 2^22, 64 warm-up +
+     192 timed steps through `device.run` (graph replays) and the same
+     192 eager steps from the same state (ms per step, evals/s, peak
+     memory, the two states equal), on the default (fused) route and
+     with `fused="off"`; 20 unfused steps through the kernels and
+     through the plain versions from one state; the fused LB2 tail
+     timed at frame N against N/4 on one chunk's survivors
   5. the J > 64 paths: ta071 and ta091 LB2 steps (the unfused prefilter
-     route, the bounds-only expand kernel and the J > 64 sweep), kernels
-     against plain versions
+     route, the bounds-only expand kernel and the J > 64 sweep), graph
+     against eager against plain
   6. the fused route against the others: golden solves with
      `fused="off"` (50x20 seed 51 LB2, ta007 LB1); 20 ta021 steps from one
      state through the fused kernel, through its plain version and
-     unfused, compared after every step; a spill case (ta021 ub=inf from
-     the root, whose LB1 survivors outgrow the N/4 frame, so the fused
-     step falls through to the unfused prefilter route); search
-     telemetry on the card (ta014 `dense`, ta021 `prefilter`, fused and
-     unfused, kernels and plain versions)
+     unfused, compared after every step; ta021 ub=inf from the root,
+     whose LB1 survivors outgrow N/4: the fused step keeps them at frame
+     N, launches no bounds-only kernel and equals the unfused step;
+     search telemetry on the card (ta014 `dense`, ta021 `prefilter`,
+     fused and unfused, kernels and plain versions, graph and eager);
+     then every kernel must have launched inside a graph replay
   7. kernel parity and timing at the main path's shapes, and at the
      edges: the expand kernel's three modes (bounds-only, emit, the dense
      route's fronts-only launch) at ta021, ta014, ta003, ta041, ta071,
      ta091 and ta111 (J = 500, TB 32), and with garbage columns past a
      popped count; sweeps of 1 column, of widths that are no multiple of
      the kernel's columns per block, of column prefixes of wider frames,
-     at J = 20, 50, 100, 200 and 500; the fused kernel with n_valid < B,
-     spilling past its frame, with histogram and int16 aux, at J = 200,
-     launched twice on one input and back to back on three
+     at J = 20, 50, 100, 200 and 500; the fused kernel with n_valid < B
+     (read from device memory), spilling past its frame, with histogram
+     and int16 aux, at J = 200, launched twice on one input and back to
+     back on three
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -106,7 +116,9 @@ def say(phase: str, **fields) -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the engine's kernel calls to the plain versions on the same
-    CUDA tensors (for the step-by-step comparison only)."""
+    CUDA tensors (for the comparisons only). The captured graphs are
+    dropped on entry and exit, so that a graph of one kind is never
+    replayed under the other."""
     saved = (kernels.expand_bound, kernels.expand_fronts, kernels.lb2_sweep,
              kernels.fused_expand)
 
@@ -120,8 +132,8 @@ def plain_kernels():
     def expand_fronts(tables, prmu_T, depth2, front_T, tile):
         return ex.expand_fronts_plain(tables, prmu_T, depth2, front_T, tile)
 
-    def lb2_sweep(tables, cf, sched):
-        return ex.lb2_plain(tables, sched, cf)
+    def lb2_sweep(tables, cf, sched, live=None):
+        return ex.mask_live(ex.lb2_plain(tables, sched, cf), live)
 
     def fused_expand(tables, prmu_T, depth2, front_T, n_valid, cap, tile,
                      width, with_sched, bins, with_bounds, aux_i16):
@@ -129,6 +141,7 @@ def plain_kernels():
                                      n_valid, cap, 1, tile, width,
                                      with_sched, bins, with_bounds, aux_i16)
 
+    device.clear_graphs()
     (kernels.expand_bound, kernels.expand_fronts, kernels.lb2_sweep,
      kernels.fused_expand) = (expand_bound, expand_fronts, lb2_sweep,
                               fused_expand)
@@ -137,6 +150,11 @@ def plain_kernels():
     finally:
         (kernels.expand_bound, kernels.expand_fronts, kernels.lb2_sweep,
          kernels.fused_expand) = saved
+        device.clear_graphs()
+
+
+# launches made by graph replays, over the whole run
+IN_GRAPHS = dict.fromkeys(kernels.LAUNCHES, 0)
 
 
 def path_run(name: str, expect: tuple, fn):
@@ -149,6 +167,8 @@ def path_run(name: str, expect: tuple, fn):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
+    for k, v in kernels.REPLAYED.items():
+        IN_GRAPHS[k] += v
     for k in expect:
         check(counts[k] > 0, f"{name}: kernel {k} never launched")
     return out, counts, seconds
@@ -161,19 +181,68 @@ def clone(state: device.SearchState) -> device.SearchState:
 
 def run_steps(tables, state, lb_kind: int, chunk: int, steps: int,
               fused: str | None = None):
+    """`steps` more steps through `device.run` (graph replays), growing
+    the pool on overflow."""
     return device.run_growing(tables, state, lb_kind, chunk,
-                              state.iters + steps, fused=fused)
+                              device.counters(state).iters + steps,
+                              fused=fused)
+
+
+def eager_steps(tables, state, lb_kind: int, chunk: int, steps: int,
+                fused: str | None = None, check_each: bool = True):
+    """`steps` more `device.step` calls from Python; with `check_each`
+    the loop stops where `run` stops (an empty pool or an overflow),
+    reading the counters after every step."""
+    for _ in range(steps):
+        if check_each:
+            c = device.counters(state)
+            if c.size == 0 or c.overflow:
+                break
+        state = device.step(tables, lb_kind, chunk, state, fused=fused)
+    return state
 
 
 def same_state(a: device.SearchState, b: device.SearchState) -> bool:
-    if any(getattr(a, f) != getattr(b, f) for f in
-           ("size", "best", "tree", "sol", "iters", "evals", "overflow")):
+    ca, cb = device.counters(a), device.counters(b)
+    if ca != cb:
         return False
-    n = a.size
+    n = ca.size
     return (torch.equal(a.prmu[:, :n], b.prmu[:, :n])
             and torch.equal(a.depth[:n], b.depth[:n])
             and torch.equal(a.aux[:, :n], b.aux[:, :n])
             and torch.equal(a.telemetry, b.telemetry))
+
+
+def graph_vs_eager(label, tables, state, lb_kind, chunk, steps, fused=None):
+    """`steps` steps from one state three ways: `device.run` (graph
+    replays of the kernels), the eager `device.step` loop, and
+    `device.run` with every kernel replaced by its plain version (graphs
+    of those); all three compared exactly. Returns the graph run's
+    state."""
+    g = run_steps(tables, clone(state), lb_kind, chunk, steps, fused)
+    e = eager_steps(tables, clone(state), lb_kind, chunk, steps, fused)
+    with plain_kernels():
+        pl = run_steps(tables, clone(state), lb_kind, chunk, steps, fused)
+    check(not device.counters(g).overflow,
+          f"{label}: the pool overflowed")
+    check(same_state(g, e), f"{label}: graph run != eager steps")
+    check(same_state(g, pl), f"{label}: graph run != plain-kernel graph run")
+    c = device.counters(g)
+    say(f"{label}: {steps} steps graph run vs eager vs plain kernels",
+        equal=True, iters=c.iters, size=c.size, tree=c.tree)
+    return g
+
+
+def sync_free_step(label, tables, state, lb_kind, chunk, fused=None):
+    """One eager step with every synchronizing CUDA call an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        device.step(tables, lb_kind, chunk, clone(state), fused=fused)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(f"sync-free step {label}", fused=fused, syncs=0)
 
 
 # --- phase 1: the card ----------------------------------------------------
@@ -254,6 +323,9 @@ GOLDENS = [  # name, p, lb, ub, chunk, (tree, sol, best), launched, not
     ("ta007 lb1_d", taillard.processing_times(7), 0, 1234, 4096,
      (271602, 28447, 1234), ("expand_bounds",), ("fused_expand",)),
 ]
+# the bounds-only kernel's main path (it left the default LB2 route when
+# the fused route stopped spilling)
+BOUNDS_PATH = "ta007 lb1_d"
 
 
 def golden(name, p, lb, ub, chunk, want, expect, absent, **kw):
@@ -288,6 +360,8 @@ def counting_calls(module, name: str):
 
 # the default route: no `fused` argument, as a user calls it
 for row in GOLDENS:
+    if row[0] == BOUNDS_PATH:
+        continue                      # run below, its launches recorded
     if not row[0].startswith("ta014"):
         golden(*row)
         continue
@@ -299,6 +373,23 @@ for row in GOLDENS:
     check(calls[0] == 0 and counts["expand_fronts"] == counts["expand_emit"],
           f"ta014 dense: {calls[0]} sched_mask_cols calls, launches {counts}")
     LAUNCH_FROM["expand_emit"] = counts
+for row in GOLDENS:
+    if row[0] == BOUNDS_PATH:
+        LAUNCH_FROM["expand_bounds"] = golden(*row)
+
+# each golden path's route from the root: graph run, eager steps and the
+# plain-kernel graph run, then one step with synchronizing calls refused
+for name, p, lb, ub, chunk, *_ in GOLDENS:
+    if name.startswith("ta014"):
+        continue                      # the dense phase below covers it
+    tb = batched.make_tables(p, device=DEV)
+    s0 = device.init_state(p.shape[1], 1 << 20, ub, p_times=p, device=DEV)
+    graph_vs_eager(f"golden {name}", tb, s0, lb, chunk, 40)
+    sync_free_step(f"golden {name}", tb, s0, lb, chunk)
+    if lb == 1:
+        sync_free_step(f"golden {name} unfused", tb, s0, lb, chunk, "off")
+check(fz.fused_ok("hw", 50, device.lb2_route(50, 20, 190, 256)[1], 2, 20,
+                  device=DEV), "50x20 fused gate")
 
 with contextlib.redirect_stdout(io.StringIO()) as buf:
     (rc, _), counts, secs = path_run(
@@ -324,8 +415,9 @@ def kernels_vs_plain(label, tables, state, chunk, steps, fused=None):
         with plain_kernels():
             b = device.step(tables, 2, chunk, b, fused=fused)
         check(same_state(a, b), f"{label} step {k + 1}: kernels != plain")
-    say(f"{label} {steps} steps kernels vs plain", equal=True, size=a.size,
-        tree=a.tree)
+    c = device.counters(a)
+    say(f"{label} {steps} steps kernels vs plain", equal=True, size=c.size,
+        tree=c.tree)
 
 
 # the dense route, kernels against plain versions at its two shapes: ta003
@@ -341,9 +433,13 @@ for inst, chunk, warm, steps in ((3, CLI_CHUNK_DEFAULT, 10, 30),
     s = device.init_state(20, 1 << 20, taillard.optimal_makespan(inst),
                           p_times=p, device=DEV)
     s = run_steps(tb, s, 2, chunk, warm)
-    check(s.size >= chunk, f"ta{inst:03d}: pool {s.size} < chunk {chunk}")
+    size = device.counters(s).size
+    check(size >= chunk, f"ta{inst:03d}: pool {size} < chunk {chunk}")
     kernels_vs_plain(f"ta{inst:03d} lb2 dense chunk {chunk}", tb, s, chunk,
                      steps)
+    graph_vs_eager(f"ta{inst:03d} lb2 dense chunk {chunk}", tb, s, 2, chunk,
+                   steps + 10)
+    sync_free_step(f"ta{inst:03d} lb2 dense", tb, s, 2, chunk)
     DENSE[inst] = (p, tb, s, chunk)
 
 
@@ -355,14 +451,14 @@ def from_root_vs_plain(tables, state, chunk, max_warm, more):
     a, b = clone(state), clone(state)
     first = None
     for k in range(max_warm + 1 + more):
-        if first is None and a.size >= chunk:
+        if first is None and device.counters(a).size >= chunk:
             first = k
         if first is None and k >= max_warm:
             break
         a = device.step(tables, 2, chunk, a)
         with plain_kernels():
             b = device.step(tables, 2, chunk, b)
-        check(same_state(a, b) and not a.overflow,
+        check(same_state(a, b) and not device.counters(a).overflow,
               f"step {k + 1}: kernels != plain, or the pool overflowed")
         if first is not None and k - first == more:
             break
@@ -386,27 +482,41 @@ s41, counts, secs = path_run(
 check(counts["expand_bounds"] == 0 and counts["fused_expand"] == 0,
       f"ta041 dense launches {counts}")
 LAUNCH_FROM["expand_fronts"] = counts
+k41 = device.counters(s41)
 say(f"ta041 lb2 dense chunk {BENCH_CHUNK_DEFAULT} from the root, kernels "
-    "vs plain", equal=True, steps=s41.iters, size=s41.size, tree=s41.tree,
+    "vs plain", equal=True, steps=k41.iters, size=k41.size, tree=k41.tree,
     seconds=round(secs, 3), launches=counts)
+graph_vs_eager(f"ta041 lb2 dense chunk {BENCH_CHUNK_DEFAULT} from the root",
+               t41, device.init_state(50, 1 << 24,
+                                      taillard.optimal_makespan(41),
+                                      p_times=p41, device=DEV),
+               2, BENCH_CHUNK_DEFAULT, k41.iters)
 
 # --- phase 4: ta021 at the bench shape ------------------------------------
 CHUNK = BENCH_CHUNK_DEFAULT
+N21 = CHUNK * 20
 p21 = taillard.processing_times(21)
 t21 = batched.make_tables(p21, device=DEV)
 check(device.lb2_route(20, 20, 190, CHUNK)[0] == "prefilter", "ta021 route")
+# whole replays: no timed step is a no-op
+TIMED = 6 * device.GRAPH_STEPS
 
 
 def ta021_run(fused):
+    """64 warm-up steps through `device.run` (which captures the graph),
+    then TIMED steps through it, timed; returns the warm state's counters,
+    a copy of the warm state, the timed run's state and its seconds."""
     s = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
                           p_times=p21, device=DEV)
-    s = run_steps(t21, s, 2, CHUNK, 50, fused)
+    s = run_steps(t21, s, 2, CHUNK, 2 * device.GRAPH_STEPS, fused)
+    warm = device.counters(s)
+    start = clone(s)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    # the pool is updated in place: `s` keeps only its counters
-    s2 = run_steps(t21, s, 2, CHUNK, 200, fused)
+    # the pool is updated in place (it is the captured graph's)
+    s2 = run_steps(t21, s, 2, CHUNK, TIMED, fused)
     torch.cuda.synchronize()
-    return s, s2, time.perf_counter() - t
+    return warm, start, s2, time.perf_counter() - t
 
 
 TA021 = {}
@@ -414,24 +524,92 @@ TA021 = {}
 for fused, label, expect in (
         ("off", "ta021 lb2 unfused", ("expand_bounds", "lb2_sweep")),
         (None, "ta021 lb2", ("fused_expand", "lb2_sweep"))):
-    (warm, s21, secs), counts, _ = path_run(label, expect,
-                                            lambda: ta021_run(fused))
-    steps = s21.iters - warm.iters
-    check(steps > 0 and s21.best == 2297, f"{label} bench run")
+    torch.cuda.reset_peak_memory_stats(DEV)
+    (warm, start, s21, secs), counts, _ = path_run(
+        label, expect, lambda: ta021_run(fused))
+    peak = torch.cuda.max_memory_allocated(DEV)
+    c21 = device.counters(s21)
+    steps = c21.iters - warm.iters
+    check(steps == TIMED and c21.best == 2297, f"{label} bench run")
     if fused is None:
-        # the main path's launches: a step whose LB1 survivors outgrow
-        # the fused frame runs the bounds-only kernel
-        LAUNCH_FROM.update(dict.fromkeys(
-            ("expand_bounds", "lb2_sweep", "fused_expand"), counts))
-    TA021[fused] = 1e3 * secs / steps
-    say(f"{label} chunk {CHUNK}", steps=steps, seconds=round(secs, 4),
-        evals_per_s=(s21.evals - warm.evals) / secs,
-        pushed_per_s=(s21.tree - warm.tree) / secs,
-        ms_per_step=TA021[fused], pool=s21.size,
-        capacity=s21.prmu.shape[1], launches=counts)
+        # the main path's launches; the bounds-only kernel is not among
+        # them (the fused LB2 step runs at frame N and never spills)
+        check(counts["expand_bounds"] == 0, f"{label}: bounds-only launches")
+        LAUNCH_FROM.update(dict.fromkeys(("lb2_sweep", "fused_expand"),
+                                         counts))
+    # the same steps from the same state, eagerly, for the time and the
+    # state
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    e21 = eager_steps(t21, start, 2, CHUNK, TIMED, fused, check_each=False)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t
+    check(same_state(s21, e21), f"{label}: graph run != eager steps")
+    TA021[fused] = {"graph": 1e3 * secs / steps,
+                    "eager": 1e3 * eager_secs / steps}
+    say(f"{label} chunk {CHUNK}", steps=steps, graph_seconds=secs,
+        eager_seconds=eager_secs,
+        graph_evals_per_s=(c21.evals - warm.evals) / secs,
+        eager_evals_per_s=(c21.evals - warm.evals) / eager_secs,
+        pushed_per_s=(c21.tree - warm.tree) / secs,
+        graph_ms_per_step=TA021[fused]["graph"],
+        eager_ms_per_step=TA021[fused]["eager"], graph_equals_eager=True,
+        pool=c21.size, capacity=s21.prmu.shape[1], peak_memory_bytes=peak,
+        launches=counts)
+    sync_free_step(label, t21, s21, 2, CHUNK, fused)
 
 kernels_vs_plain("ta021 lb2 prefilter unfused", t21, s21, CHUNK, 20,
                  fused="off")
+
+
+def graph_ms(fn, reps):
+    """Device time of fn's work a call: fn captured once into a CUDA
+    graph (after one eager call), its replays timed by CUDA events, so
+    no host launch time stands between the operations."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, reps)
+
+
+def tail_cost(state, reps=20):
+    """The fused LB2 step's `_lb2_tail` on one popped chunk's survivors at
+    frame N (what the step runs) and at N/4 (the JAX step's steady frame),
+    by device time (`graph_ms`) and by CUDA events around eager calls;
+    both push the same children."""
+    st = clone(state)
+    M = 20
+    pp, pd, pa, n, start, valid = device.pop_chunk(st, CHUNK, M)
+    pa = pa.to(torch.int32)
+    best = torch.minimum(device._leaf_scan(t21, pp, pd, pa, valid)[0],
+                         st.best)
+    tile = device.lb2_route(20, M, 190, CHUNK)[1]
+    kch, kaux, _, ksched, n_surv, _ = fz.fused_expand(
+        t21, pp, pd, pa, n, best, lb_kind=1, tile=tile, cap_width=N21,
+        with_sched=True)
+    W = N21 // 4
+    n_surv_i = int(n_surv.item())
+    check(n_surv_i <= W, f"ta021 tail: {n_surv_i} survivors past N/4")
+    limit = device.row_limit(st.prmu.shape[1], CHUNK, 20)
+
+    def tail(width):
+        return lambda: device._lb2_tail(
+            t21, st, kch[:, :width], kaux[:, :width], ksched[:, :width],
+            n_surv, best, start, limit)[0]
+
+    pushed = [int(tail(w)().item()) for w in (N21, W)]
+    check(pushed[0] == pushed[1], f"ta021 tail: {pushed} pushed")
+    dev_ms = {w: graph_ms(tail(w), reps) for w in (N21, W)}
+    ev_ms = {w: cuda_ms(tail(w), reps) for w in (N21, W)}
+    say("ta021 fused lb2 tail, frame N against N/4", survivors=n_surv_i,
+        pushed=pushed[0], device_ms_frame_n=dev_ms[N21],
+        device_ms_frame_n4=dev_ms[W], extra_device_ms=dev_ms[N21] - dev_ms[W],
+        event_ms_frame_n=ev_ms[N21], event_ms_frame_n4=ev_ms[W])
+
+
+tail_cost(s21)
 
 # --- phase 5: the J > 64 paths (ta071, 100x10; ta091, 200x10) -------------
 BIGJ = (71, 91)
@@ -443,21 +621,20 @@ for inst in BIGJ:
     # the LB2 kernel lane cap refuses the fused route: unfused prefilter
     check(route == "prefilter" and not fz.fused_ok(
         "hw", J, tile, 2, M, device=DEV), f"ta{inst:03d} route")
-
-    def bigj_run(plain=False):
-        s = device.init_state(J, 1 << 21, None, p_times=p, device=DEV)
-        with plain_kernels() if plain else contextlib.nullcontext():
-            return run_steps(tb, s, 2, 4096, 6)
-
+    s0 = device.init_state(J, 1 << 22, None, p_times=p, device=DEV)
     s, counts, secs = path_run(f"ta{inst:03d} lb2", (
-        "expand_bounds", "lb2_sweep_bigj"), bigj_run)
+        "expand_bounds", "lb2_sweep_bigj"),
+        lambda: run_steps(tb, clone(s0), 2, 4096, 6))
     check(counts["fused_expand"] == 0, f"ta{inst:03d}: fused launches")
-    check(same_state(s, bigj_run(plain=True)),
-          f"ta{inst:03d}: kernels != plain")
+    check(same_state(s, graph_vs_eager(f"ta{inst:03d} lb2 chunk 4096", tb,
+                                       s0, 2, 4096, 6)),
+          f"ta{inst:03d}: two graph runs differ")
+    sync_free_step(f"ta{inst:03d} lb2", tb, s0, 2, 4096)
     if inst == 71:
         LAUNCH_FROM["lb2_sweep_bigj"] = counts
+    c = device.counters(s)
     say(f"ta{inst:03d} lb2 6 steps (J > 64, unfused prefilter)",
-        tree=s.tree, evals=s.evals, seconds=round(secs, 3),
+        tree=c.tree, evals=c.evals, seconds=round(secs, 3),
         equal_to_plain=True, launches=counts)
 
 # --- phase 6: the fused route against the unfused one --------------------
@@ -487,8 +664,9 @@ def fused_vs_others(label, tables, state, lb, chunk, steps):
         c = device.step(tables, lb, chunk, c, fused="off")
         check(same_state(a, b), f"{label} step {k + 1}: kernel != plain")
         check(same_state(a, c), f"{label} step {k + 1}: fused != unfused")
+    ca = device.counters(a)
     say(f"{label} {steps} steps fused kernel vs plain vs unfused",
-        equal=True, size=a.size, tree=a.tree)
+        equal=True, size=ca.size, tree=ca.tree)
 
 
 fused_vs_others("ta021 lb2 fused", t21, s21, 2, CHUNK, 20)
@@ -496,55 +674,83 @@ fused_vs_others("ta021 lb2 fused", t21, s21, 2, CHUNK, 20)
 
 def spill_run():
     """ta021 ub=inf from the root: nothing is pruned, so from the fifth
-    step the LB1 survivors outgrow the N/4 frame and the fused step hands
-    the step to the unfused prefilter route (the bounds-only kernel); each
-    step is compared with the unfused step."""
+    step the LB1 survivors outgrow N/4 (where the JAX fused step spills).
+    The fused step keeps them all at frame N: the bounds-only kernel
+    never launches in it, and each step equals the unfused step."""
     a = device.init_state(20, 1 << 22, None, p_times=p21, telemetry=True,
                           device=DEV)
     c = clone(a)
-    spill_launches = 0
-    for k in range(6):
-        before = kernels.LAUNCHES["expand_bounds"]
-        a = device.step(t21, 2, CHUNK, a)
-        spill_launches += kernels.LAUNCHES["expand_bounds"] - before
-        c = device.step(t21, 2, CHUNK, c, fused="off")
-        check(same_state(a, c), f"ta021 spill step {k + 1}: fused != "
-                                "unfused")
-    return a, spill_launches
+    fused_bounds, survivors = 0, []
+    real = fz.fused_expand
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        survivors.append(out[4])
+        return out
+
+    fz.fused_expand = spy
+    try:
+        for k in range(6):
+            before = kernels.LAUNCHES["expand_bounds"]
+            a = device.step(t21, 2, CHUNK, a)
+            fused_bounds += kernels.LAUNCHES["expand_bounds"] - before
+            c = device.step(t21, 2, CHUNK, c, fused="off")
+            check(same_state(a, c), f"ta021 ub=inf step {k + 1}: fused != "
+                                    "unfused")
+    finally:
+        fz.fused_expand = real
+    return a, fused_bounds, [int(x.item()) for x in survivors]
 
 
-(sp, spill_launches), counts, secs = path_run(
-    "ta021 lb2 fused spill", ("fused_expand", "expand_bounds"), spill_run)
-check(spill_launches > 0, "ta021 spill: no fused step fell through")
-say("ta021 lb2 ub=inf 6 steps fused spill", spill_steps=spill_launches,
-    size=sp.size, tree=sp.tree, equal_to_unfused=True,
-    seconds=round(secs, 3), launches=counts)
+(sp, fused_bounds, survivors), counts, secs = path_run(
+    "ta021 lb2 ub=inf", ("fused_expand", "expand_bounds"), spill_run)
+check(fused_bounds == 0, "ta021 ub=inf: a fused step ran the bounds-only "
+                         "kernel")
+check(len(survivors) == 6 and max(survivors) > N21 // 4,
+      f"ta021 ub=inf: survivors {survivors} never pass N/4")
+csp = device.counters(sp)
+say("ta021 lb2 ub=inf 6 steps, fused survivors past N/4 kept at frame N",
+    survivors=survivors, size=csp.size, tree=csp.tree,
+    equal_to_unfused=True, seconds=round(secs, 3), launches=counts)
 
 
 def telemetry_case(label, inst, lb, chunk, steps):
     """Telemetry on the card: fused and unfused, kernels and plain
-    versions, from one seeded state; every vector and counter equal."""
+    versions (graph runs), and the eager steps, from one seeded state;
+    every vector and counter equal."""
     p = taillard.processing_times(inst)
     tb = batched.make_tables(p, device=DEV)
+    s0 = device.init_state(20, 1 << 22, taillard.optimal_makespan(inst),
+                           p_times=p, telemetry=True, device=DEV)
     runs = {}
     for fused in ("off", "hw"):
         for plain in (False, True):
-            s = device.init_state(20, 1 << 22, taillard.optimal_makespan(
-                inst), p_times=p, telemetry=True, device=DEV)
             with plain_kernels() if plain else contextlib.nullcontext():
-                runs[fused, plain] = run_steps(tb, s, lb, chunk, steps,
-                                               fused=fused)
+                runs[fused, plain] = run_steps(tb, clone(s0), lb, chunk,
+                                               steps, fused=fused)
+        runs[fused, "eager"] = eager_steps(tb, clone(s0), lb, chunk, steps,
+                                           fused=fused)
     ref = runs["off", False]
     check(bool(ref.telemetry.any()), f"{label}: telemetry is empty")
     for key, r in runs.items():
         check(same_state(ref, r), f"{label}: {key} != unfused kernels")
+    sync_free_step(f"{label} telemetry", tb, s0, lb, chunk)
+    sync_free_step(f"{label} telemetry", tb, s0, lb, chunk, "off")
     pruned = ref.telemetry[tele.O_PRUNED:tele.O_PRUNED + tele.DEPTH_BUCKETS]
-    say(f"{label} telemetry {steps} steps, fused/unfused x kernel/plain",
-        equal=True, tree=ref.tree, pruned=int(pruned.sum().item()))
+    say(f"{label} telemetry {steps} steps, fused/unfused x kernel/plain "
+        "graph runs and eager steps", equal=True,
+        tree=device.counters(ref).tree,
+        pruned=int(pruned.sum().item()))
 
 
 telemetry_case("ta014 lb2 dense", 14, 2, 4096, 20)
 telemetry_case("ta021 lb2 prefilter", 21, 2, CHUNK, 12)
+
+# every kernel launched inside a captured graph on some phase
+for k in ("expand_bounds", "expand_emit", "expand_fronts", "lb2_sweep",
+          "lb2_sweep_bigj", "fused_expand"):
+    check(IN_GRAPHS[k] > 0, f"kernel {k} never launched in a graph replay")
+say("launches in graph replays", **IN_GRAPHS)
 
 # --- phase 7: each kernel against its plain version -----------------------
 RESULTS = []
@@ -665,21 +871,35 @@ def expand_case(label, tables, prmu_T, depth2, front_T, lb, reps,
     return out
 
 
-def lb2_case(label, tables, cf, sched, reps):
+def lb2_case(label, tables, cf, sched, reps, live=None):
+    """The sweep kernel against its plain version on (M, n) columns, with
+    `live` (None: n) counting the live leading ones, read by the kernel
+    from device memory; timed when reps > 0. Bytes and operations are
+    the live columns' (each reads its fronts and words and writes its
+    bound) plus one write of each dead column."""
     M, n = cf.shape
     P, J = tables.js.shape
-    k = kernels.lb2_sweep(tables, cf, sched)
-    pl = ex.lb2_plain(tables, sched, cf)
+    lv = None if live is None else torch.full((), live, dtype=torch.int32,
+                                              device=DEV)
+    k = kernels.lb2_sweep(tables, cf, sched, lv)
+    pl = ex.mask_live(ex.lb2_plain(tables, sched, cf), lv)
     err = max_err(k, pl)
     check(err == 0, f"lb2_sweep {label}: max abs err {err}")
-    ms = kernel_ms(lambda: kernels.lb2_sweep(tables, cf, sched), reps)
-    event_ms = cuda_ms(lambda: kernels.lb2_sweep(tables, cf, sched), reps)
-    plain_ms = cuda_ms(lambda: ex.lb2_plain(tables, sched, cf), 2)
-    unsched = int((J - popcount_cols(sched)).sum().item())
-    nbytes = n * (M * 4 + sched.shape[0] * 4 + 4) + P * J * 16 + P * 16
-    nops = P * unsched * 4 + P * n * 4
-    say(f"lb2_sweep {label}", J=J, P=P, n=n, max_abs_err=err, ms=ms,
-        event_ms=event_ms, plain_ms=plain_ms)
+    ms = event_ms = plain_ms = None
+    if reps:
+        ms = kernel_ms(lambda: kernels.lb2_sweep(tables, cf, sched, lv),
+                       reps)
+        event_ms = cuda_ms(lambda: kernels.lb2_sweep(tables, cf, sched, lv),
+                           reps)
+        plain_ms = cuda_ms(lambda: ex.mask_live(
+            ex.lb2_plain(tables, sched, cf), lv), 2)
+    nl = n if live is None else max(0, min(live, n))
+    unsched = int((J - popcount_cols(sched[:, :nl])).sum().item())
+    nbytes = (nl * (M * 4 + sched.shape[0] * 4 + 4) + (n - nl) * 4
+              + P * J * 16 + P * 16)
+    nops = P * unsched * 4 + P * nl * 4
+    say(f"lb2_sweep {label}", J=J, P=P, n=n, live=live, max_abs_err=err,
+        ms=ms, event_ms=event_ms, plain_ms=plain_ms)
     return err, ms, plain_ms, nbytes, nops
 
 
@@ -689,7 +909,8 @@ PE = "tpu_tree_search/ops/pallas_expand.py"
 
 # a realistic popped chunk: the top of the ta021 pool after the bench run
 pp, pd, pa, n_pop, _, _ = device.pop_chunk(s21, CHUNK, 20)
-check(n_pop == CHUNK, "ta021 pool holds a full chunk")
+check(int(n_pop) == CHUNK, "ta021 pool holds a full chunk")
+BEST21 = device.counters(s21).best
 pa = pa.to(torch.int32).contiguous()
 main_shape = {}
 for lb in (1, 0):
@@ -730,7 +951,7 @@ for inst, (p, tb, s, chunk) in DENSE.items():
     M = p.shape[0]
     tile = device.lb2_route(20, M, int(tb.ma0.shape[0]), chunk)[1]
     dp, dd, da, n_pop, _, _ = device.pop_chunk(s, chunk, M)
-    check(n_pop == chunk, f"ta{inst:03d} pool holds a full chunk")
+    check(int(n_pop) == chunk, f"ta{inst:03d} pool holds a full chunk")
     da = da.to(torch.int32).contiguous()
     for lb in (1, 0):
         res = expand_case(f"ta{inst:03d} dense", tb, dp, dd, da, lb, 50,
@@ -749,7 +970,7 @@ record("expand_bound (emit)", f"{PE}:73", SRC_E, "expand_emit", err, ms,
 # the dense route at its widest: ta041's next chunk (N = 3,276,800)
 tile41 = device.lb2_route(50, 10, 45, CHUNK)[1]
 c41 = device.pop_chunk(s41, CHUNK, 10)
-check(c41[3] == CHUNK, "ta041 pool holds a full chunk")
+check(int(c41[3]) == CHUNK, "ta041 pool holds a full chunk")
 c41 = (c41[0], c41[1], c41[2].to(torch.int32).contiguous())
 res41 = expand_case("ta041 dense", t41, *c41, 1, 20, tile41, modes=MODES)
 expand_case("ta041 dense, garbage", t41, *garbage_past(*c41, CHUNK - 4321, 41),
@@ -768,8 +989,14 @@ head, tail = batched.pair_split(t21, batched.PAIR_PREFILTER)
 lb2_case("ta021 190 pairs", t21, aux21, sched21, 20)
 W4 = aux21.shape[1] // 4
 lb2_case("ta021 24-pair head", head, aux21[:, :W4], sched21[:, :W4], 20)
-tail_r = lb2_case("ta021 166-pair tail", tail, aux21[:, :W4],
-                  sched21[:, :W4], 20)
+lb2_case("ta021 166-pair tail", tail, aux21[:, :W4], sched21[:, :W4], 20)
+# the main path's launch: the whole frame N, the live count on the device
+# (here N/4, the prefix swept above)
+tail_r = lb2_case("ta021 166-pair tail, frame N, live N/4", tail, aux21,
+                  sched21, 20, live=W4)
+for live in (0, 1, 4321, W4 - 37, N21, N21 + 5):
+    lb2_case(f"ta021 24-pair head, frame N, live {live}", head, aux21,
+             sched21, 0, live=live)
 # edges: one column, widths that are no multiple of a block's columns,
 # and column prefixes of the wider frame (row strides > n), head and tail
 for n in (1, 1000, 12345, W4 - 37):
@@ -779,8 +1006,8 @@ for n in (1, 1000, 12345, W4 - 37):
              sched21[:, :n], 3)
 err, ms, plain_ms, nb, no = tail_r
 record("lb2_sweep (J <= 64)", f"{PE}:488", SRC_L, "lb2_sweep", err, ms,
-       plain_ms, nb, no, f"ta021 166-pair tail over {W4} child columns",
-       FP32_OPS_PER_S)
+       plain_ms, nb, no, f"ta021 166-pair tail over a frame of {N21} child "
+                         f"columns, {W4} of them live", FP32_OPS_PER_S)
 big = None
 for inst, B in ((51, 4096), (71, 2048), (91, 1024), (111, 512)):
     p = taillard.processing_times(inst)
@@ -791,6 +1018,7 @@ for inst, B in ((51, 4096), (71, 2048), (91, 1024), (111, 512)):
     r = lb2_case(f"ta{inst:03d}", tb, cf, sched, 5)
     for n in (1, cf.shape[1] // 3 + 1):
         lb2_case(f"ta{inst:03d} n={n}", tb, cf[:, :n], sched[:, :n], 3)
+        lb2_case(f"ta{inst:03d} live {n}", tb, cf, sched, 0, live=n)
     if inst == 71:
         big = r
 err, ms, plain_ms, nb, no = big
@@ -864,11 +1092,11 @@ def fused_case(label, tables, prmu_T, depth2, front_T, cap, tile, width,
 SRC_F = "tpu_tree_search_torch/csrc/fused_expand.cu"
 PF = "tpu_tree_search/ops/pallas_fused.py"
 # the main-path row: the popped ta021 chunk at the fused LB2 route's shape
-# (TB 512, frame N/4, scheduled-set words, telemetry off), pruned at the
+# (TB 512, frame N, scheduled-set words, telemetry off), pruned at the
 # incumbent
 tb21 = device.lb2_route(20, 20, 190, CHUNK)[1]
-fused_main = fused_case("ta021 prefilter", t21, pp, pd, pa, s21.best, tb21,
-                        CHUNK * 20 // 4, True, 0, False, False, 20)
+fused_main = fused_case("ta021 prefilter", t21, pp, pd, pa, BEST21, tb21,
+                        N21, True, 0, False, False, 20)
 for inst, B, lb, sched, bins, bounds, i16 in (
         (7, 4096, 1, False, 8, True, True),      # LB1 with telemetry
         (51, 16384, 2, True, 0, False, False),   # two scheduled-set words
@@ -887,12 +1115,12 @@ for inst, B, lb, sched, bins, bounds, i16 in (
 # the N/4 frame (n_surv exact past W, stores stop there); three chunks
 # launched back to back on one stream, each against its plain version
 W21 = CHUNK * 20 // 4
-fused_case("ta021 n_valid < B", t21, pp, pd, pa, s21.best, tb21, W21, True,
+fused_case("ta021 n_valid < B", t21, pp, pd, pa, BEST21, tb21, W21, True,
            8, True, False, 5, n_valid=CHUNK - 12345)
 fused_case("ta021 spill", t21, pp, pd, pa, 10 ** 6, tb21, W21, True, 8,
            False, True, 5)
 chunks = [random_chunk(p21, CHUNK, seed, DEV) for seed in (1, 2, 3)]
-capt = torch.full((), s21.best, dtype=torch.int32, device=DEV)
+capt = torch.full((), BEST21, dtype=torch.int32, device=DEV)
 outs = [kernels.fused_expand(t21, *c, CHUNK, capt, tb21, W21, True, 8, False,
                              False) for c in chunks]
 for seed, c, o in zip((1, 2, 3), chunks, outs):
@@ -904,7 +1132,7 @@ say("fused_expand ta021 three chunks back to back", equal_to_plain=True,
 
 err, ms, plain_ms, nb, no = fused_main
 record("fused_expand", f"{PF}:165", SRC_F, "fused_expand", err, ms,
-       plain_ms, nb, no, f"ta021 chunk {CHUNK}, TB {tb21}, W = N/4, "
+       plain_ms, nb, no, f"ta021 chunk {CHUNK}, TB {tb21}, W = N, "
                          "scheduled-set words")
 
 for r in RESULTS:

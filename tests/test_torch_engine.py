@@ -192,13 +192,15 @@ def test_overflow_step_commits_nothing():
     state = tdevice.init_state(8, 128, None, p_times=p, device="cpu")
     state = tdevice.run(tt, state, 1, 8, max_iters=3)
     before = convert.state_to_numpy(state)
+    c = tdevice.counters(state)
     # with ub=inf the next step pushes more than it pops, so a limit at
     # the cursor makes it overflow: only iters and the flag move
-    after = tdevice.step(tt, 1, 8, state, limit=state.size)
-    assert after.overflow
-    assert (after.size, after.tree, after.sol, after.evals, after.best) == \
-        (state.size, state.tree, state.sol, state.evals, state.best)
-    n = state.size
+    after = tdevice.step(tt, 1, 8, state, limit=c.size)
+    a = tdevice.counters(after)
+    assert a.overflow and a.iters == c.iters + 1
+    assert (a.size, a.tree, a.sol, a.evals, a.best) == \
+        (c.size, c.tree, c.sol, c.evals, c.best)
+    n = c.size
     np.testing.assert_array_equal(after.prmu[:, :n].numpy(),
                                   before["prmu"][:, :n])
     grown = tcheckpoint.grow(after, 512)
@@ -214,11 +216,14 @@ def test_max_iters_truncation():
     assert got.iters == 3 and not got.complete
 
 
-def test_profile_step_on_cpu():
-    """The profiling window runs the main path; with no device trace its
-    device fields stay null rather than carry host numbers."""
+@pytest.mark.parametrize("loop", ["graph", "eager"])
+def test_profile_step_on_cpu(loop):
+    """The profiling window runs the main path, through `run` or through
+    `step`; with no device trace its device fields stay null rather than
+    carry host numbers."""
     out = profile_step.profile(2, 1, 64, 1 << 12, warm=2, steps=3,
-                               dev=tdevice.resolve_device("cpu"))
-    assert out["steps"] == 3 and out["evals"] > 0
+                               dev=tdevice.resolve_device("cpu"), loop=loop)
+    assert out["steps"] == 3 and out["evals"] > 0 and out["loop"] == loop
+    assert out["peak_memory_bytes"] is None
     assert out["device_busy_share"] is None and out["top_device_ops"] is None
     assert profile_step._busy_us([(0, 2), (1, 3), (5, 6), (5.5, 5.8)]) == 4

@@ -353,30 +353,28 @@ def test_fused_step_matches_jax_fused_step(jax_fused, lb_kind):
 
 def test_fused_lb2_spill_matches_jax(jax_fused, monkeypatch):
     """ub=inf from the root: the early LB2 steps keep every child, past the
-    N/4 frame, so the fused step hands them to the unfused prefilter route
-    (JAX's spill_tail), which bounds with the bounds-only kernel and
-    compacts at frame N; the state still equals JAX's after every step."""
-    calls, fused_out = [], []
-    real = tdevice._compact_from_parents
-    real_fused = tdevice._fused_step
+    N/4 frame of JAX's fused step, which hands them to its spill branch
+    (`spill_tail`). The port's fused step runs the kernel at frame N, so
+    it keeps them all itself and never needs the unfused route; the state
+    still equals JAX's after every step."""
+    widths, survivors = [], []
+    real = tfused.fused_expand
 
     def spy(*args, **kw):
-        calls.append(kw.get("cap"))
-        return real(*args, **kw)
-
-    def fused_spy(*args, **kw):
-        out = real_fused(*args, **kw)
-        fused_out.append(out is None)
+        out = real(*args, **kw)
+        widths.append(kw["cap_width"])
+        survivors.append(int(out[4]))
         return out
 
-    monkeypatch.setattr(tdevice, "_compact_from_parents", spy)
-    monkeypatch.setattr(tdevice, "_fused_step", fused_spy)
+    monkeypatch.setattr(tfused, "fused_expand", spy)
     p = PFSPInstance.synthetic(jobs=10, machines=8, seed=2).p_times
     _fused_step_parity(p, 2, chunk=64, tile=32, steps=6)
     N = 64 * 10
-    assert N in calls       # the spill branch compacts at frame N
-    # every step entered the fused route; some spilled, some did not
-    assert len(fused_out) == 6 and any(fused_out) and not all(fused_out)
+    # every step ran the fused kernel at frame N; some kept more than N/4
+    # survivors (a JAX spill), some fewer
+    assert widths == [N] * 6
+    assert any(n > N // 4 for n in survivors)
+    assert any(n <= N // 4 for n in survivors)
 
 
 # ---------------------------------------------------- fused equals unfused

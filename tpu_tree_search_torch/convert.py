@@ -14,12 +14,10 @@ import numpy as np
 import torch
 
 from .ops.batched import TABLE_FIELDS, BoundTables, sweep_tables
-from .engine.device import SearchState, resolve_device
+from .engine.device import (COUNTER_DTYPES, SearchState, counter_tensors,
+                            counters, resolve_device)
 
-# the scalar counters of a state, held on the host as Python ints
-_COUNTERS = ("size", "best", "tree", "sol", "iters", "evals", "sent",
-             "recv", "steals")
-# the fields held on the device
+# the fields held as tensors of their own shape
 _DEVICE = ("prmu", "depth", "aux", "telemetry")
 
 
@@ -46,15 +44,15 @@ def state_from_numpy(arrays: dict, device="cuda") -> SearchState:
                                                 np.int64)}
     dev_arrays = {f: torch.as_tensor(np.array(arrays[f], copy=True),
                                      device=dev) for f in _DEVICE}
-    counters = {f: int(np.asarray(arrays[f])) for f in _COUNTERS}
-    return SearchState(**dev_arrays, **counters,
-                       overflow=bool(np.asarray(arrays["overflow"])))
+    counters = {f: np.asarray(arrays[f]).item() for f in COUNTER_DTYPES}
+    return SearchState(**dev_arrays, **counter_tensors(dev, **counters))
 
 
 def state_to_numpy(state: SearchState) -> dict:
     """The state's fields as numpy arrays (pool, telemetry) and numpy
-    scalars."""
+    scalars of the counters' dtypes, the counters read in one
+    transfer."""
     out = {f: getattr(state, f).cpu().numpy() for f in _DEVICE}
-    out.update({f: np.asarray(getattr(state, f)) for f in _COUNTERS})
-    out["overflow"] = np.asarray(state.overflow)
+    for f, v in counters(state)._asdict().items():
+        out[f] = np.asarray(v, dtype=str(COUNTER_DTYPES[f]).split(".")[-1])
     return out

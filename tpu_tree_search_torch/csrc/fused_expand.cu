@@ -5,7 +5,9 @@
 // tpu_tree_search/ops/pallas_fused.py (entered through `fused_expand`):
 // every child slot i of every parent b gets its LB1 bound; a child is a
 // survivor when push = (i >= depth) & (b < n_valid) & (depth + 1 != J)
-// & (lb < bound_cap); survivors are stored compacted in the global column
+// & (lb < bound_cap), both n_valid and bound_cap read from device
+// memory (so a CUDA graph that holds the launch reads them at each
+// replay); survivors are stored compacted in the global column
 // order c = (g*J + i)*TB + b (tiles, then slots, then parents: the order
 // device._partition gives) into a frame of W columns, with the count
 // n_surv exact even past W (stores stop there). Outputs per survivor: the
@@ -166,7 +168,8 @@ __global__ void __launch_bounds__(kThreads)
 fused_main(const int* __restrict__ p, const int* __restrict__ tails,
            const int16_t* __restrict__ prmu, const int* __restrict__ depth,
            const int* __restrict__ front, const int* __restrict__ cap_ptr,
-           int J, int M, int B, int TB, int n_valid, int W, int SW, int bins,
+           const int* __restrict__ n_valid_ptr, int J, int M, int B, int TB,
+           int W, int SW, int bins,
            int aux_i16, Geometry q, unsigned long long* __restrict__ status,
            const int* __restrict__ rem_in, const unsigned* __restrict__ pre_in,
            int16_t* __restrict__ children, void* __restrict__ caux,
@@ -185,12 +188,19 @@ fused_main(const int* __restrict__ p, const int* __restrict__ tails,
   int16_t* sperm = (int16_t*)(slb + (bounds ? q.K * q.R * q.BT : 0));
   __shared__ int s_ticket;
   __shared__ int s_base;
+  // the popped count, read from device memory once a block; read from
+  // shared memory at each use, so that it holds no register across the
+  // bound loop (held in one, it tipped the generic M <= 16 instance into
+  // spills)
+  __shared__ int s_nvalid;
   const int tid = threadIdx.x;
   for (int t = tid; t < Mx * J; t += blockDim.x) sp[t] = p[t];
   for (int t = tid; t < Mx; t += blockDim.x) st[t] = tails[t];
   for (int t = tid; t < bins; t += blockDim.x) sh[t] = 0;
-  if (tid == 0)
+  if (tid == 0) {
     s_ticket = (int)atomicAdd((unsigned*)(status + q.blocks), 1u);
+    s_nvalid = *n_valid_ptr;
+  }
   __syncthreads();
 
   const int s = s_ticket;
@@ -209,7 +219,8 @@ fused_main(const int* __restrict__ p, const int* __restrict__ tails,
     const bool in_tile = bb < TB;
     const int d = in_tile ? depth[b] : 0;
     // leaves (depth + 1 == J) belong to the caller's parent-level scan
-    const bool need = in_tile && b < n_valid && d + 1 < J && i0 + kk > d;
+    const bool need =
+        in_tile && b < *(volatile int*)&s_nvalid && d + 1 < J && i0 + kk > d;
     int fr[MAXM], rem[MAXM];
 #pragma unroll
     for (int k = 0; k < MAXM; ++k) {
@@ -358,9 +369,10 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <int MAXM, int MC>
 cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
-                   const int* depth, const int* front, const int* cap, int J,
-                   int M, int B, int TB, int n_valid, int W, int SW,
-                   int bins, int aux_i16, int16_t* children, void* caux,
+                   const int* depth, const int* front, const int* cap,
+                   const int* n_valid, int J, int M, int B, int TB, int W,
+                   int SW, int bins, int aux_i16, int16_t* children,
+                   void* caux,
                    int* bounds, int* sched, int* n_surv,
                    unsigned long long* hist, const Geometry& q,
                    unsigned long long* status, int* rem, unsigned* pre,
@@ -381,7 +393,7 @@ cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
       hist);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   fused_main<MAXM, MC><<<(unsigned)q.blocks, q.BT, smem_main, s>>>(
-      p, tails, prmu, depth, front, cap, J, M, B, TB, n_valid, W, SW, bins,
+      p, tails, prmu, depth, front, cap, n_valid, J, M, B, TB, W, SW, bins,
       aux_i16, q, status, rem, pre, children, caux, bounds, sched, n_surv,
       hist);
   return cudaGetLastError();
@@ -390,7 +402,8 @@ cudaError_t launch(const int* p, const int* tails, const int16_t* prmu,
 }  // namespace
 
 // p (M, J) int32; tails (M,) int32; prmu (J, B) int16; depth (B,) int32;
-// front (M, B) int32; cap: one int32 on the device; all contiguous.
+// front (M, B) int32; cap and n_valid: one int32 each on the device
+// (n_valid clamped to [0, B]); all contiguous.
 // Outputs: children (J, W) int16; caux (M+1, W) int32, or int16 when
 // aux_i16 != 0; bounds (W,) int32 or null; sched (SW, W) int32 or null
 // (SW = 0); n_surv: one int32; hist (bins,) int64 or null (bins = 0).
@@ -409,9 +422,9 @@ extern "C" long long tts_fused_scratch_words(int B, int TB, int J, int M,
 
 extern "C" int tts_fused_expand(const void* p, const void* tails,
                                 const void* prmu, const void* depth,
-                                const void* front, const void* cap, int J,
-                                int M, int B, int TB, int n_valid, int W,
-                                int SW, int bins, int aux_i16,
+                                const void* front, const void* cap,
+                                const void* n_valid, int J, int M, int B,
+                                int TB, int W, int SW, int bins, int aux_i16,
                                 void* children, void* caux, void* bounds,
                                 void* sched, void* n_surv, void* hist,
                                 void* scratch, long long scratch_len,
@@ -428,8 +441,9 @@ extern "C" int tts_fused_expand(const void* p, const void* tails,
   auto pre = (unsigned*)(rem + (long long)M * B);
   auto args = [&](auto fn) {
     return fn((const int*)p, (const int*)tails, (const int16_t*)prmu,
-              (const int*)depth, (const int*)front, (const int*)cap, J, M, B,
-              TB, n_valid, W, SW, bins, aux_i16, (int16_t*)children, caux,
+              (const int*)depth, (const int*)front, (const int*)cap,
+              (const int*)n_valid, J, M, B, TB, W, SW, bins, aux_i16,
+              (int16_t*)children, caux,
               (int*)bounds, (int*)sched, (int*)n_surv,
               (unsigned long long*)hist, q, status, rem, pre, s);
   };

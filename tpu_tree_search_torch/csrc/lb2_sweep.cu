@@ -53,9 +53,18 @@
 //    staged with the step.
 // Inputs may be a column prefix of a wider frame: both row strides are
 // arguments.
+//
+// Live columns: an optional device pointer holds the count of leading
+// columns that are live (the survivors of a frame compacted on the
+// device, whose count the host never reads). Only those are swept; the
+// columns from the count to n are written I32_MAX. Each round spreads
+// the columns it has left over as few threads as hold them, a multiple
+// of 32, so a count far below n leaves most threads idle instead of
+// sweeping dead columns, and a warp's loads stay coalesced.
 
 #include <cuda_runtime.h>
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -112,8 +121,8 @@ template <int WT, int C>
 __global__ void __launch_bounds__(kThreads)
 lb2_sweep_kernel(const int* __restrict__ cf, long long ldc,
                  const unsigned* __restrict__ sched, long long lds, int n,
-                 int J, int P, int W, int PB, int rounds,
-                 const int4* __restrict__ steps,
+                 const int* __restrict__ live_ptr, int J, int P, int W,
+                 int PB, const int4* __restrict__ steps,
                  const int4* __restrict__ pairs, int* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   int4* spr = (int4*)smem;                 // {ma0, ma1, tail0, tail1 (f32)}
@@ -123,6 +132,8 @@ lb2_sweep_kernel(const int* __restrict__ cf, long long ldc,
   const int tid = threadIdx.x;
   const long long T = (long long)gridDim.x * kThreads;
   const long long g = (long long)blockIdx.x * kThreads + tid;
+  const long long live =
+      live_ptr ? max(0LL, min((long long)*live_ptr, (long long)n)) : n;
 
   for (int q = tid; q < P; q += kThreads) {
     const int4 pr = pairs[q];
@@ -142,15 +153,23 @@ lb2_sweep_kernel(const int* __restrict__ cf, long long ldc,
   if (once) stage(0, P);
   __syncthreads();
 
-  for (int r = 0; r < rounds; ++r) {
-    // a column past n sweeps column n - 1 again and is not stored, so
-    // the chain carries no live-column test
-    const long long c0 = g + (long long)r * C * T;
+  // rounds of C*T columns; the last one, holding `left` columns, runs
+  // on its first S threads. live is the same for every thread of the
+  // block, so every thread takes the same rounds (the staging below
+  // synchronises the block).
+  for (long long base = 0; base < live; base += C * T) {
+    const long long left = live - base;
+    const long long S =
+        left >= C * T ? T : min(T, ((left + C - 1) / C + 31) / 32 * 32);
+    const bool act = g < S;
+    // a column past live sweeps column live - 1 again and is not
+    // stored, so the chain carries no live-column test
+    const long long c0 = base + g;
     long long c[C];
     unsigned w0[C], w1[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      c[k] = min(c0 + k * T, (long long)n - 1);
+      c[k] = min(c0 + k * S, live - 1);
       w0[k] = WT != 0 ? sched[c[k]] : 0u;
       w1[k] = WT == 2 ? sched[lds + c[k]] : 0u;
       if (WT == 0)
@@ -168,7 +187,7 @@ lb2_sweep_kernel(const int* __restrict__ cf, long long ldc,
         stage(p0, np);
         __syncthreads();
       }
-      if (c0 >= n) continue;
+      if (!act) continue;
       for (int q = 0; q < np; ++q) {
         const int4 pr = spr[p0 + q];
         float t0[C], t1[C];
@@ -201,15 +220,16 @@ lb2_sweep_kernel(const int* __restrict__ cf, long long ldc,
     }
 #pragma unroll
     for (int k = 0; k < C; ++k)
-      if (c0 + k * T < n) out[c[k]] = (int)lb[k];
+      if (act && c0 + k * S < live) out[c[k]] = (int)lb[k];
   }
+  for (long long c = live + g; c < n; c += T) out[c] = INT_MAX;
 }
 
 template <int WT, int C>
 cudaError_t launch_cols(const int* cf, long long ldc, const unsigned* sched,
-                        long long lds, int n, int J, int P, int W, int sms,
-                        const int4* steps, const int4* pairs, int* out,
-                        cudaStream_t stream) {
+                        long long lds, int n, const int* live, int J, int P,
+                        int W, int sms, const int4* steps,
+                        const int4* pairs, int* out, cudaStream_t stream) {
   const int PB = std::max(
       1, std::min(P, (int)(kTableBytes / (step_bytes<WT>() * J))));
   const size_t smem = sizeof(int4) * P + step_bytes<WT>() * PB * J +
@@ -226,17 +246,15 @@ cudaError_t launch_cols(const int* cf, long long ldc, const unsigned* sched,
   const long long per_block = (long long)kThreads * C;
   const long long blocks = std::min<long long>(
       (long long)per_sm * sms, (n + per_block - 1) / per_block);
-  const long long span = blocks * per_block;
-  const int rounds = (int)((n + span - 1) / span);
   kernel<<<(int)blocks, kThreads, smem, stream>>>(
-      cf, ldc, sched, lds, n, J, P, W, PB, rounds, steps, pairs, out);
+      cf, ldc, sched, lds, n, live, J, P, W, PB, steps, pairs, out);
   return cudaGetLastError();
 }
 
 template <int WT>
 cudaError_t launch(const int* cf, long long ldc, const unsigned* sched,
-                   long long lds, int n, int J, int P, int W,
-                   const int4* steps, const int4* pairs, int* out,
+                   long long lds, int n, const int* live, int J, int P,
+                   int W, const int4* steps, const int4* pairs, int* out,
                    cudaStream_t stream) {
   constexpr int C = wide_cols<WT>();
   int dev = 0, sms = 0;
@@ -253,28 +271,31 @@ cudaError_t launch(const int* cf, long long ldc, const unsigned* sched,
   auto run = wide_blocks * (WT == 1 ? 1 : 2) >= sms
                  ? launch_cols<WT, C>
                  : launch_cols<WT == 1 ? 1 : 0, 1>;
-  return run(cf, ldc, sched, lds, n, J, P, W, sms, steps, pairs, out,
+  return run(cf, ldc, sched, lds, n, live, J, P, W, sms, steps, pairs, out,
              stream);
 }
 
 }  // namespace
 
 // cf: (M, >= n) int32 rows of stride ldc; sched: (W, >= n) uint32 rows of
-// stride lds, W = ceil(J/32) <= 16; steps: (P, J) int4 {job, pt0, pt1,
-// lag}; pairs: (P,) int4 {ma0, ma1, tail[ma0], tail[ma1]}; out: (n,) int32.
+// stride lds, W = ceil(J/32) <= 16; live: null, or one int32 on the
+// device, the count of live leading columns (clamped to [0, n]; columns
+// past it are written I32_MAX); steps: (P, J) int4 {job, pt0, pt1, lag};
+// pairs: (P,) int4 {ma0, ma1, tail[ma0], tail[ma1]}; out: (n,) int32.
 // Every chain value must lie below 2^24 (make_tables checks it). Returns
 // the first CUDA error of the launch, or 0.
 extern "C" int tts_lb2_sweep(const void* cf, long long ldc, const void* sched,
-                             long long lds, int n, int J, int P,
-                             const void* steps, const void* pairs, void* out,
-                             void* stream) {
+                             long long lds, int n, const void* live, int J,
+                             int P, const void* steps, const void* pairs,
+                             void* out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int W = (J + 31) / 32;
   if (J < 1 || P < 1 || W > 16) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto args = [&](auto fn) {
-    return fn((const int*)cf, ldc, (const unsigned*)sched, lds, n, J, P, W,
-              (const int4*)steps, (const int4*)pairs, (int*)out, s);
+    return fn((const int*)cf, ldc, (const unsigned*)sched, lds, n,
+              (const int*)live, J, P, W, (const int4*)steps,
+              (const int4*)pairs, (int*)out, s);
   };
   if (W == 1) return (int)args(launch<1>);
   if (W == 2) return (int)args(launch<2>);

@@ -16,7 +16,8 @@ from .device import SearchState
 def grow(state: SearchState, new_capacity: int) -> SearchState:
     """Re-home the pool into `new_capacity` rows and clear the overflow
     flag. Rows above the cursor are garbage by the pool invariant, so
-    growth is zero-padding the row axis."""
+    growth is zero-padding the row axis. The new pool tensors are new
+    storage: `device.run` captures a new graph for them."""
     capacity = state.prmu.shape[-1]
     if new_capacity < capacity:
         raise ValueError(f"new_capacity {new_capacity} < current {capacity}")
@@ -28,4 +29,5 @@ def grow(state: SearchState, new_capacity: int) -> SearchState:
 
     return state._replace(prmu=pad_rows(state.prmu),
                           depth=pad_rows(state.depth),
-                          aux=pad_rows(state.aux), overflow=False)
+                          aux=pad_rows(state.aux),
+                          overflow=torch.zeros_like(state.overflow))

@@ -1,24 +1,37 @@
-"""Single-device PFSP branch-and-bound engine: a device-resident pool.
+"""Single-device PFSP branch-and-bound engine: a device-resident pool and
+a device-resident run loop.
 
 Reproduces `tpu_tree_search/engine/device.py` for one device: the pool
-layout, `aux_dtype`, `row_limit`, `SearchState`, `init_state`, the
-compaction (`_compact_tiers`, `_partition_prefix`, `_tiered_compact`,
-`_compact_from_parents`, over the column helpers of `ops/columns.py`
-that the fused kernel's plain version shares), `lb2_route`, `pop_chunk`, `_write_block`,
-`_commit` (the no-commit overflow contract and its scratch margin),
-`_sweep_tiers`, `_lb2_tail`, `_leaf_scan`, all three routes of `step`
-(LB1/LB1_d, LB2 `dense`, LB2 `prefilter`) and the fused route
-(`_fused_step`, `ops/fused.py`), the search-telemetry updates of every
-route (`engine/telemetry.py`), `run`, `search` and `default_capacity`.
+layout, `aux_dtype`, `row_limit`, `SearchState` (every counter a device
+scalar with the JAX dtype), `init_state`, `lb2_route`, `pop_chunk`,
+`_write_block` and `_commit` (the no-commit overflow contract and its
+scratch margin, at a device offset under selects), `_lb2_tail`,
+`_leaf_scan`, all three routes of `step` (LB1/LB1_d, LB2 `dense`, LB2
+`prefilter`) and the fused route (`_fused_step`, `ops/fused.py`), the
+search-telemetry updates of every route (`engine/telemetry.py`), `run`
+(with `drain_min` and a `max_iters` ceiling that needs no new capture),
+`run_growing`, `search` and `default_capacity`.
 
-Where the JAX engine branches on device values inside one compiled
-`while_loop` (`lax.cond`, `lax.switch`), this engine reads the few counts
-it branches on back to the host (`.item()`/`.tolist()`, one to three per
-step) and branches in Python; the state's scalar counters are therefore
-Python ints. The telemetry vector stays on the device and adds no sync.
-A tier choice only changes garbage columns above the pool cursor, never
-the live pool region `[0, size)` nor any counter, so a step here and a
-JAX step from the same state give the same live pool and counters.
+`step` reads nothing back to the host, on any route: the counts it
+branches on stay on the device. Where the JAX step picks a frame or a
+compaction tier with `lax.switch` on a device count, this step runs
+every compaction over its whole frame (`columns.partition` is an O(N)
+scan, and the pair sweep takes the live count as a device scalar and
+sweeps only those columns); where the JAX fused LB2 step takes its
+spill branch, this one runs the fused kernel at frame N, so nothing can
+spill. A frame choice changes only the garbage columns above the pool
+cursor, never the live pool region `[0, size)` nor a counter, so a step
+here and a JAX step from the same state give the same live pool and
+counters.
+
+`run` on a CUDA pool replays a CUDA graph of `GRAPH_STEPS` captured
+steps (cached by shape, route, mode and pool storage) and reads `size`,
+`overflow` and `iters` once per replay; on the CPU it runs the same
+steps eagerly with the same check every `GRAPH_STEPS` steps. A step
+whose loop condition `(size >= drain_min) & ~overflow & (iters <
+max_iters)` fails on the device is a no-op (nothing popped, committed
+or counted), so a block of K steps ends exactly where JAX's
+`while_loop` ends.
 
 Pool layout (feature-major, the node axis last):
     prmu  int16[jobs, capacity]     permutations
@@ -31,18 +44,31 @@ for `cuda` where there is none raises.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import (batched, columns as cols, expand as ex, fused as fz,
-                   reference as ref)
+                   kernels, reference as ref)
 from ..ops.batched import BoundTables
 from . import telemetry as tele
 
 I32_MAX = 2**31 - 1
 _I64_MAX = 2**63 - 1
+# steps in one captured CUDA graph, and between two reads of the counters
+# of a run on the CPU
+GRAPH_STEPS = 32
+# captured graphs kept (each holds its steps' device memory)
+_GRAPH_CACHE = 4
+
+# the state's counters and their dtypes (the JAX package's)
+COUNTER_DTYPES = {"size": torch.int32, "best": torch.int32,
+                  "tree": torch.int64, "sol": torch.int64,
+                  "iters": torch.int64, "evals": torch.int64,
+                  "sent": torch.int64, "recv": torch.int64,
+                  "steals": torch.int64, "overflow": torch.bool}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -74,25 +100,58 @@ def row_limit(capacity: int, chunk: int, jobs: int) -> int:
 
 
 class SearchState(NamedTuple):
-    """Pool tensors and the telemetry vector on the device, the counters
-    on the host."""
+    """Pool tensors, counters and the telemetry vector, all on the
+    pool's device; `counters` reads the counters back."""
 
-    prmu: torch.Tensor   # (jobs, capacity) int16
-    depth: torch.Tensor  # (capacity,) int16
-    aux: torch.Tensor    # (machines, capacity) aux_dtype front vectors
-    size: int            # live-row cursor
-    best: int            # incumbent makespan
-    tree: int            # explored (= pushed) internal nodes
-    sol: int             # evaluated leaf children
-    iters: int           # loop iterations
-    evals: int           # child bound evaluations
-    sent: int = 0        # multi-device balance counters (0 on one device)
-    recv: int = 0
-    steals: int = 0
-    overflow: bool = False
-    telemetry: torch.Tensor | None = None
-                         # (WIDTH,) int64 on the pool's device, or (0,)
-                         # when telemetry is off (engine/telemetry.py)
+    prmu: torch.Tensor       # (jobs, capacity) int16
+    depth: torch.Tensor      # (capacity,) int16
+    aux: torch.Tensor        # (machines, capacity) aux_dtype front vectors
+    size: torch.Tensor       # () int32 live-row cursor
+    best: torch.Tensor       # () int32 incumbent makespan
+    tree: torch.Tensor       # () int64 explored (= pushed) internal nodes
+    sol: torch.Tensor        # () int64 evaluated leaf children
+    iters: torch.Tensor      # () int64 loop iterations
+    evals: torch.Tensor      # () int64 child bound evaluations
+    sent: torch.Tensor       # () int64 multi-device balance counters (0 on
+    recv: torch.Tensor       # () int64 one device)
+    steals: torch.Tensor     # () int64
+    overflow: torch.Tensor   # () bool
+    telemetry: torch.Tensor  # (WIDTH,) int64, or (0,) when telemetry is
+                             # off (engine/telemetry.py)
+
+
+class Counters(NamedTuple):
+    """A state's counters on the host."""
+
+    size: int
+    best: int
+    tree: int
+    sol: int
+    iters: int
+    evals: int
+    sent: int
+    recv: int
+    steals: int
+    overflow: bool
+
+
+def counters(state: SearchState) -> Counters:
+    """Every counter of `state`, read back in one transfer."""
+    vals = torch.stack([getattr(state, f).long()
+                        for f in Counters._fields]).tolist()
+    return Counters(*vals[:-1], overflow=bool(vals[-1]))
+
+
+def counter_tensors(device, size: int, best: int, tree: int = 0,
+                    sol: int = 0, iters: int = 0, evals: int = 0,
+                    sent: int = 0, recv: int = 0, steals: int = 0,
+                    overflow: bool = False) -> dict:
+    """The counter fields of a SearchState, as device scalars."""
+    vals = dict(size=size, best=best, tree=tree, sol=sol, iters=iters,
+                evals=evals, sent=sent, recv=recv, steals=steals,
+                overflow=overflow)
+    return {f: torch.full((), v, dtype=COUNTER_DTYPES[f], device=device)
+            for f, v in vals.items()}
 
 
 def init_state(jobs: int, capacity: int, init_ub: int | None,
@@ -127,70 +186,16 @@ def init_state(jobs: int, capacity: int, init_ub: int | None,
     else:
         aux = torch.zeros((0, capacity), dtype=torch.int32, device=dev)
     on = tele.enabled() if telemetry is None else telemetry
-    return SearchState(prmu=prmu, depth=depth, aux=aux, size=n,
-                       best=I32_MAX if init_ub is None else int(init_ub),
-                       tree=0, sol=0, iters=0, evals=0,
-                       telemetry=torch.zeros(tele.WIDTH if on else 0,
-                                             dtype=torch.int64, device=dev))
+    return SearchState(
+        prmu=prmu, depth=depth, aux=aux,
+        **counter_tensors(dev, size=n,
+                          best=I32_MAX if init_ub is None else int(init_ub)),
+        telemetry=torch.zeros(tele.WIDTH if on else 0, dtype=torch.int64,
+                              device=dev))
 
 
 def _tele_on(state: SearchState) -> bool:
-    return state.telemetry is not None and state.telemetry.shape[-1] > 0
-
-
-def _compact_tiers(N: int, two_phase: bool = False,
-                   cap: int | None = None) -> list[int]:
-    """Compaction tier widths, as the JAX engine's (`_compact_tiers`)."""
-    steps = ((N // 16, 3 * N // 32, N // 4) if two_phase
-             else (N // 16, N // 4))
-    cap = N if cap is None else cap
-    return [t for t in steps if 128 <= t < cap] + [cap]
-
-
-def _tier_for(tiers: list[int], count: int) -> int:
-    """The tier the JAX engine's `_tier_switch` selects for `count`: the
-    smallest covering it (the last covers every count)."""
-    return tiers[sum(count > t for t in tiers[:-1])]
-
-
-def _partition_prefix(push: torch.Tensor, live: int, N: int,
-                      two_phase: bool = False,
-                      cap: int | None = None) -> torch.Tensor:
-    """_partition when every True column sits below `live`: sort only the
-    smallest tier covering `live`; the rest is filled with its own
-    index."""
-    t = _tier_for(_compact_tiers(N, two_phase, cap), live)
-    frame = push.shape[0]
-    srt = cols.partition(push[:t])
-    if t < frame:
-        srt = torch.cat([srt, torch.arange(t, frame, device=push.device)])
-    return srt
-
-
-def _tiered_compact(gather, perm: torch.Tensor, n_keep: int, N: int,
-                    two_phase: bool = False, cap: int | None = None):
-    """Frame-wide compacted blocks: gather the smallest tier's prefix of
-    `perm` that covers the `n_keep` survivors and zero-pad to the frame
-    (the padding lands above the pool cursor and is never read)."""
-    tiers = _compact_tiers(N, two_phase, cap)
-    frame = tiers[-1]
-    t = _tier_for(tiers, n_keep)
-    out = gather(perm[:t])
-    if t < frame:
-        out = tuple(torch.cat([o, o.new_zeros(o.shape[:-1] + (frame - t,))],
-                              dim=-1) for o in out)
-    return out
-
-
-def _compact_from_parents(tables: BoundTables, p_prmu, p_depth2, p_aux,
-                          perm, n_keep: int, TB: int, N: int,
-                          with_sched: bool = False, two_phase: bool = False,
-                          cap: int | None = None):
-    """Compacted child block rebuilt from the popped parents."""
-    def gather(idx):
-        return cols.regather(tables, p_prmu, p_depth2, p_aux, idx, TB,
-                             with_sched)
-    return _tiered_compact(gather, perm, n_keep, N, two_phase, cap)
+    return state.telemetry.shape[-1] > 0
 
 
 def lb2_route(jobs: int, machines: int, pairs: int, chunk: int,
@@ -213,124 +218,124 @@ def lb2_route(jobs: int, machines: int, pairs: int, chunk: int,
     return "prefilter", TB, pair_ok
 
 
-def pop_chunk(state: SearchState, B: int, M: int):
+def pop_chunk(state: SearchState, B: int, M: int,
+              active: torch.Tensor | None = None):
     """Pop window of up to B parents off the stack top (no commit):
     (p_prmu (J, B) int16, p_depth (1, B) int32, p_aux (M, B) in the pool's
-    aux dtype, n, start, valid)."""
-    J, capacity = state.prmu.shape
-    n = min(state.size, B)
+    aux dtype, n, start, valid), with n and start int32 device scalars.
+    `active` (a device bool, None: True) False pops nothing."""
+    dev = state.prmu.device
+    n = state.size.clamp(max=B)
+    if active is not None:
+        n = torch.where(active, n, 0)
     start = state.size - n
-    valid = torch.arange(B, device=state.prmu.device) < n
-    p_prmu = state.prmu[:, start:start + B].contiguous()
-    p_depth = state.depth[start:start + B].to(torch.int32)
+    lanes = torch.arange(B, device=dev)
+    valid = lanes < n
+    at = start.long() + lanes
+    p_prmu = state.prmu.index_select(1, at)
+    p_depth = state.depth.index_select(0, at).to(torch.int32)
     p_depth = torch.where(valid, p_depth, 0)[None, :]
-    p_aux = state.aux[:M, start:start + B]
+    p_aux = state.aux[:M].index_select(1, at)
     return p_prmu, p_depth, p_aux, n, start, valid
 
 
 def _write_block(state: SearchState, children, child_depth, child_aux,
-                 start: int, n_push: int, limit: int) -> None:
+                 start, n_push, limit: int) -> None:
     """Write the compacted block at the cursor, or into the scratch margin
-    at `limit` when the step overflows. Updates the pool in place."""
+    at `limit` when the step overflows (the `start + n_push > limit` of
+    `_commit`). Updates the pool in place, at a device offset."""
     M = child_aux.shape[0] - 1
-    at = limit if start + n_push > limit else start
-    w = children.shape[1]
-    state.prmu[:, at:at + w] = children
-    state.depth[at:at + w] = child_depth
-    state.aux[:, at:at + w] = child_aux[:M].to(state.aux.dtype)
+    at = torch.where(start + n_push > limit, limit, start)
+    cols_at = at.long() + torch.arange(children.shape[1],
+                                       device=children.device)
+    state.prmu.index_copy_(1, cols_at, children)
+    state.depth.index_copy_(0, cols_at, child_depth)
+    state.aux.index_copy_(1, cols_at, child_aux[:M].to(state.aux.dtype))
 
 
-def _commit(state: SearchState, n_push: int, best: int, sol: int,
-            evals: int, limit: int, start: int,
-            tele_delta: torch.Tensor | None = None) -> SearchState:
+def _commit(state: SearchState, n_push, best, sol, evals, limit: int,
+            start, tele_delta: torch.Tensor | None = None,
+            active: torch.Tensor | None = None) -> SearchState:
     """The no-commit overflow contract: an overflowing step leaves every
-    counter and the telemetry vector as they were and only sets the flag
-    (its block went to the scratch margin), so grow + resume continues
-    losslessly. `tele_delta` (telemetry.step_delta, None when telemetry
-    is off) is folded in with the slots `telemetry.commit` owns."""
+    counter and the telemetry vector as they were, counts its iteration
+    and sets the flag (its block went to the scratch margin), so grow +
+    resume continues losslessly. Every counter is guarded with a select.
+    `tele_delta` (telemetry.step_delta, None when telemetry is off) is
+    folded in with the slots `telemetry.commit` owns. A step that is not
+    `active` commits and counts nothing."""
     new_size = start + n_push
-    if new_size > limit:
-        return state._replace(iters=state.iters + 1, overflow=True)
+    over = new_size > limit
+    if active is not None:
+        over = over & active
+    keep = ~over if active is None else active & ~over
+
+    def sel(new, old):
+        return torch.where(keep, new, old)
+
     telem = state.telemetry
     if tele_delta is not None:
-        telem = tele.commit(telem, tele_delta, new_size, best, state.best,
-                            state.iters)
-    return state._replace(size=new_size, best=best,
-                          tree=state.tree + n_push, sol=sol,
-                          iters=state.iters + 1,
-                          evals=state.evals + evals, telemetry=telem)
-
-
-def _sweep_tiers(tbl: BoundTables, cf_cols, sched_cols, count: int, N: int):
-    """Pair sweep over the smallest prefix tier covering `count` live
-    columns; columns past the tier read I32_MAX. The ladder is the JAX
-    engine's with every rung admitted (the Hopper sweep has no tile
-    rule)."""
-    frame = cf_cols.shape[1]
-    tiers = [t for t in (k * N // 64 for k in
-                         (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 20, 24, 32))
-             if 0 < t < frame] + [frame]
-    width = _tier_for(tiers, count)
-    b = ex.lb2_bounds(tbl, cf_cols[:, :width], sched_cols[:, :width])
-    if width < frame:
-        b = torch.cat([b, b.new_full((1, frame - width), I32_MAX)], dim=1)
-    return b
+        telem = sel(tele.commit(telem, tele_delta, new_size, best,
+                                state.best, state.iters), telem)
+    return state._replace(
+        size=sel(new_size, state.size), best=sel(best, state.best),
+        tree=sel(state.tree + n_push, state.tree), sol=sel(sol, state.sol),
+        iters=state.iters + (1 if active is None else active.long()),
+        evals=sel(state.evals + evals, state.evals),
+        overflow=state.overflow | over, telemetry=telem)
 
 
 def _take_block(*rows_arrays):
-    """prefix-gather closure over the given (rows, frame) arrays."""
+    """column-gather closure over the given (rows, frame) arrays."""
     def take(idx):
         return tuple(a[:, idx] for a in rows_arrays)
     return take
 
 
 def _lb2_tail(tables: BoundTables, state: SearchState, children, caux,
-              sched, ncand: int, W_: int, N: int, best: int, start: int,
-              limit: int, TELE: bool = False):
-    """Everything after the LB1 prune of the two-phase LB2 route, in
-    W_-wide frames: the strong-pair head sweep, the mid prune+compact, the
-    tail sweep, the final prune+compact and the pool block write. The
-    unfused prefilter route and the fused route both end here. Returns
-    (n_push, tele_tail): with `TELE`, the (DB + 2*BB,) branched buckets,
+              sched, ncand, best, start, limit: int, TELE: bool = False):
+    """Everything after the LB1 prune of the two-phase LB2 route, over the
+    frame of `children` (its first `ncand` columns live): the strong-pair
+    head sweep, the mid prune+compact, the tail sweep, the final
+    prune+compact and the pool block write. The unfused prefilter route
+    and the fused route both end here. Each sweep takes its live count as
+    a device scalar and sweeps only those columns. Returns (n_push,
+    tele_tail): with `TELE`, the (DB + 2*BB,) branched buckets,
     pruned-bound and surviving-bound histograms of this part, else
     None."""
-    J = children.shape[0]
+    J, W_ = children.shape
     M = tables.p.shape[0]
     P = int(tables.ma0.shape[0])
     KH = batched.PAIR_PREFILTER
-    dev = children.device
-    live_cols = torch.arange(W_, device=dev)
+    live_cols = torch.arange(W_, device=children.device)
     caux = caux.to(torch.int32)
 
     if P <= KH:
-        lb2b = _sweep_tiers(tables, caux[:M], sched, ncand, N)
+        lb2b = ex.lb2_bounds(tables, caux[:M], sched, live=ncand)
         live = ncand
         head_hp = 0
     else:
         SW = ex.sched_words(J)
         head_t, tail_t = batched.pair_split(tables, KH)
-        lb2h = _sweep_tiers(head_t, caux[:M], sched, ncand, N)
+        lb2h = ex.lb2_bounds(head_t, caux[:M], sched, live=ncand)
         keep = (live_cols < ncand) & (lb2h.reshape(-1) < best)
         if TELE:
             # pruned by the head sweep: binned at the partial bound that
             # pruned them (partial max <= LB2)
             head_hp = tele.bound_hist(lb2h, (live_cols < ncand) & ~keep,
                                       best)
-        nkeep = int(keep.sum().item())
-        permh = _partition_prefix(keep, ncand, N, two_phase=True, cap=W_)
+        nkeep = keep.sum(dtype=torch.int32)
         aux_plus = torch.cat([caux, sched, lb2h], dim=0)
-        children, aux_plus = _tiered_compact(
-            _take_block(children, aux_plus), permh, nkeep, N,
-            two_phase=True, cap=W_)
+        children, aux_plus = _take_block(children, aux_plus)(
+            cols.partition(keep))
         caux = aux_plus[:M + 1]
         sched = aux_plus[M + 1:M + 1 + SW]
         lb2h_c = aux_plus[M + 1 + SW:M + 2 + SW]
-        lb2t = _sweep_tiers(tail_t, caux[:M], sched, nkeep, N)
+        lb2t = ex.lb2_bounds(tail_t, caux[:M], sched, live=nkeep)
         lb2b = torch.maximum(lb2h_c, lb2t)
         live = nkeep
 
     push = (live_cols < live) & (lb2b.reshape(-1) < best)
-    n_push = int(push.sum().item())
+    n_push = push.sum(dtype=torch.int32)
     tele_tail = None
     if TELE:
         # computed while caux still aligns column for column with push
@@ -341,10 +346,7 @@ def _lb2_tail(tables: BoundTables, state: SearchState, children, caux,
             tele.bucket_counts(pb, push),
             head_hp + tele.bound_hist(lb2b, live_m & ~push, best),
             tele.bound_hist(lb2b, push, best)])
-    perm2 = _partition_prefix(push, live, N, two_phase=True, cap=W_)
-    children, child_aux = _tiered_compact(
-        _take_block(children, caux), perm2, n_push, N, two_phase=True,
-        cap=W_)
+    children, child_aux = _take_block(children, caux)(cols.partition(push))
     _write_block(state, children, child_aux[M].to(torch.int16), child_aux,
                  start, n_push, limit)
     return n_push, tele_tail
@@ -381,24 +383,21 @@ def _leaf_scan(tables: BoundTables, p_prmu, p_depth, p_aux, valid):
 
 
 def _fused_step(tables: BoundTables, lb_kind: int, route, B: int, TB: int,
-                state: SearchState, p_prmu, p_depth, p_aux, n: int,
-                start: int, valid, limit: int) -> SearchState | None:
+                state: SearchState, p_prmu, p_depth, p_aux, n, start,
+                valid, limit: int, active=None) -> SearchState:
     """The fused bound+prune+compact route (`ops/fused.py`): the dense
     child grid, its bound row, the prune mask and the partition never
     exist. The kernel returns the compacted survivors and their count;
     leaves and evals come from the parent-level `_leaf_scan`. The pruning
-    incumbent `min(best, leaf_best)` stays on the device, so one read
-    brings back leaf best, leaf count, evals and survivor count.
+    incumbent `min(best, leaf_best)` and every count stay on the device.
 
-    LB1 runs uncapped (frame N). LB2 `prefilter` caps the frame at
-    W = max(N/4, 128) and runs `_lb2_tail` on it. A step whose LB1
-    survivors outgrow W (the JAX engine's `spill_tail`) returns None
-    before it has written anything, and `step` redoes it on the unfused
-    `prefilter` route, whose bound math is the same, so the explored set
-    does not depend on the branch. Telemetry: popped and evaluated
-    buckets are parent-level, branched buckets and the surviving-bound
-    histogram come off the compacted block, and the pruned-bound
-    histogram is the kernel's."""
+    The kernel's frame is N on both bounds: LB1 writes it as the block;
+    LB2 `prefilter` runs `_lb2_tail` on it. So no survivor count can
+    outgrow the frame, and the step never needs the unfused spill route
+    (the JAX engine's `spill_tail`, whose explored set is the same).
+    Telemetry: popped and evaluated buckets are parent-level, branched
+    buckets and the surviving-bound histogram come off the compacted
+    block, and the pruned-bound histogram is the kernel's."""
     J = state.prmu.shape[0]
     M = tables.p.shape[0]
     N = B * J
@@ -406,79 +405,73 @@ def _fused_step(tables: BoundTables, lb_kind: int, route, B: int, TB: int,
 
     leaf_best, n_leaf, evals = _leaf_scan(tables, p_prmu, p_depth, p_aux,
                                           valid)
-    cap = leaf_best.clamp(max=state.best)      # int32 scalar on the device
+    best = torch.minimum(leaf_best, state.best)     # int32 device scalar
     if TELE:
         d = p_depth.reshape(-1)
         wb = tele.depth_bucket(d, J)
         popped_b = tele.bucket_counts(wb, valid)
         # J - d evaluated non-leaf children per valid parent below J-1
         evalnl_b = tele.bucket_counts(wb, valid & (d < J - 1), J - d)
-    W = N if lb_kind != 2 else min(max(N // 4, 128), N)
-    kch, kaux, kbnd, ksched, k_surv, khist = fz.fused_expand(
-        tables, p_prmu, p_depth, p_aux, n, cap, lb_kind=1, tile=TB,
-        cap_width=W, with_sched=(route == "prefilter"),
+    kch, kaux, kbnd, ksched, n_surv, khist = fz.fused_expand(
+        tables, p_prmu, p_depth, p_aux, n, best, lb_kind=1, tile=TB,
+        cap_width=N, with_sched=(route == "prefilter"),
         tele_bins=tele.BOUND_BINS if TELE else 0,
         with_bounds=(lb_kind != 2 and TELE),
         aux_i16=(lb_kind != 2 and state.aux.dtype == torch.int16))
-    best, n_leaf, n_eval, n_surv = (int(v) for v in torch.stack(
-        [cap.long(), n_leaf, evals, k_surv.long()]).tolist())
     sol = state.sol + n_leaf
     DB, BB = tele.DEPTH_BUCKETS, tele.BOUND_BINS
 
     if lb_kind != 2:
-        caux = kaux[:, :n_surv]
-        _write_block(state, kch[:, :n_surv], caux[M].to(torch.int16), caux,
-                     start, n_surv, limit)
+        _write_block(state, kch, kaux[M].to(torch.int16), kaux, start,
+                     n_surv, limit)
         delta = None
         if TELE:
-            surv = torch.ones(n_surv, dtype=torch.bool, device=caux.device)
+            surv = torch.arange(N, device=kch.device) < n_surv
             branched_b = tele.bucket_counts(
-                tele.depth_bucket(caux[M] - 1, J), surv)
+                tele.depth_bucket(kaux[M] - 1, J), surv)
             delta = tele.step_delta(
                 popped_b, branched_b, evalnl_b - branched_b, khist,
-                tele.bound_hist(kbnd[:, :n_surv], surv, best))
-        return _commit(state, n_surv, best, sol, n_eval, limit, start,
-                       tele_delta=delta)
+                tele.bound_hist(kbnd, surv, best))
+        return _commit(state, n_surv, best, sol, evals, limit, start,
+                       tele_delta=delta, active=active)
 
-    if n_surv > W:
-        return None
-    n_push, tail = _lb2_tail(tables, state, kch, kaux, ksched, n_surv, W, N,
+    n_push, tail = _lb2_tail(tables, state, kch, kaux, ksched, n_surv,
                              best, start, limit, TELE)
     delta = None
     if TELE:
         delta = tele.step_delta(popped_b, tail[:DB], evalnl_b - tail[:DB],
                                 khist + tail[DB:DB + BB], tail[DB + BB:])
-    return _commit(state, n_push, best, sol, n_eval, limit, start,
-                   tele_delta=delta)
+    return _commit(state, n_push, best, sol, evals, limit, start,
+                   tele_delta=delta, active=active)
 
 
-def _leaves_and_push(bounds, mask, depth_c, J: int, best_in: int):
-    """Leaf count, incumbent and push mask of a dense bound row, read back
-    in one sync: (n_leaf, best, push, n_push, n_eval)."""
+def _leaves_and_push(bounds, mask, depth_c, J: int, best_in):
+    """Leaf count, incumbent and push mask of a dense bound row, as device
+    values: (n_leaf, best, push, n_push, n_eval)."""
     is_leaf = ((depth_c + 1) == J) & mask
     leaf_best = torch.where(is_leaf, bounds, I32_MAX).min()
-    best = torch.clamp(leaf_best, max=best_in)
+    best = torch.minimum(leaf_best, best_in)
     push = (mask & ~is_leaf & (bounds < best)).reshape(-1)
-    counts = torch.stack([is_leaf.sum(), best.long(), push.sum(),
-                          mask.sum()]).tolist()
-    n_leaf, best, n_push, n_eval = (int(v) for v in counts)
-    return n_leaf, best, push, n_push, n_eval
+    return (is_leaf.sum(), best, push, push.sum(dtype=torch.int32),
+            mask.sum())
 
 
 def step(tables: BoundTables, lb_kind: int, chunk: int,
          state: SearchState, tile: int = 1024, limit: int | None = None,
-         route: str | None = None,
-         fused: str | None = None) -> SearchState:
-    """One pop -> bound -> prune -> branch cycle. The pool tensors are
-    updated in place; the returned state carries the new counters.
+         route: str | None = None, fused: str | None = None,
+         active: torch.Tensor | None = None) -> SearchState:
+    """One pop -> bound -> prune -> branch cycle, all on the device: it
+    reads nothing back. The pool tensors are updated in place; the
+    returned state carries the new counters.
 
     `route` overrides `lb2_route`'s LB2 choice ('dense' or 'prefilter');
     both push the same children in the same column order. `fused` is a
     mode of `ops/fused.py` ("off", "hw", "interpret"; None: "hw" on CUDA
     tensors, "off" on the CPU, `fused.resolve_mode`); where `fused_ok`
     admits the shape, LB1 and LB2 `prefilter` take the fused route, with
-    the same result (an LB2 step whose survivors outgrow the fused frame
-    falls through to the unfused `prefilter` route)."""
+    the same result. `active`, a device bool (None: True), makes the
+    step a no-op when False: it pops, commits and counts nothing (`run`'s
+    loop condition)."""
     J, capacity = state.prmu.shape
     B = chunk
     if capacity < B:
@@ -495,19 +488,16 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
         route = None
         TB = ex.effective_tile(J, B, tile, lb_kind, machines=M)
     G = B // TB
-    N = B * J
     if limit is None:
         limit = row_limit(capacity, B, J)
 
     fused = fz.resolve_mode(fused, on_cuda=state.prmu.is_cuda)
-    p_prmu, p_depth, p_aux, n, start, valid = pop_chunk(state, B, M)
+    p_prmu, p_depth, p_aux, n, start, valid = pop_chunk(state, B, M, active)
     p_aux = p_aux.to(torch.int32)
     if (fz.fused_ok(fused, J, TB, lb_kind, M, device=state.prmu.device)
             and (lb_kind == 1 or route == "prefilter")):
-        out = _fused_step(tables, lb_kind, route, B, TB, state, p_prmu,
-                          p_depth, p_aux, n, start, valid, limit)
-        if out is not None:
-            return out
+        return _fused_step(tables, lb_kind, route, B, TB, state, p_prmu,
+                           p_depth, p_aux, n, start, valid, limit, active)
     depth_c, mask = cols.child_masks(p_depth, valid, G, J, TB)
 
     # search telemetry, common to the unfused routes: popped parents and
@@ -530,20 +520,11 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
                                 tile=TB)
         n_leaf, best, cand, ncand, n_eval = _leaves_and_push(
             lb1b, mask, depth_c, J, state.best)
-        perm1 = cols.partition(cand)
-        W = max(N // 4, 128)
-        W2 = 3 * N // 8
-        if W >= N:
-            W_ = N
-        elif W2 <= W or W2 >= N or W2 % 128 != 0:
-            W_ = W if ncand <= W else N
-        else:
-            W_ = W if ncand <= W else (W2 if ncand <= W2 else N)
-        children, caux, sched = _compact_from_parents(
-            tables, p_prmu, p_depth, p_aux, perm1, ncand, TB, N,
-            with_sched=True, two_phase=True, cap=W_)
+        children, caux, sched = cols.regather(
+            tables, p_prmu, p_depth, p_aux, cols.partition(cand), TB,
+            with_sched=True)
         n_push, tail = _lb2_tail(tables, state, children, caux, sched,
-                                 ncand, W_, N, best, start, limit, TELE)
+                                 ncand, best, start, limit, TELE)
         delta = None
         if TELE:
             # the LB1 prefilter's prunes bin at the bound that pruned them
@@ -553,7 +534,7 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
                                     hist_lb1 + tail[DB:DB + BB],
                                     tail[DB + BB:])
         return _commit(state, n_push, best, state.sol + n_leaf, n_eval,
-                       limit, start, tele_delta=delta)
+                       limit, start, tele_delta=delta, active=active)
 
     # LB1/LB1_d, or the one-shot dense LB2 of the few-pair classes (on
     # the card the expand kernel writes only the fronts and words the
@@ -570,31 +551,153 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
                                 tele.bound_hist(bounds, nonleaf & ~push,
                                                 best),
                                 tele.bound_hist(bounds, push, best))
-    perm = cols.partition(push)
-    children, child_aux = _compact_from_parents(
-        tables, p_prmu, p_depth, p_aux, perm, n_push, TB, N,
-        two_phase=(route == "dense"))
+    children, child_aux = cols.regather(tables, p_prmu, p_depth, p_aux,
+                                        cols.partition(push), TB)
     _write_block(state, children, child_aux[M].to(torch.int16), child_aux,
                  start, n_push, limit)
     return _commit(state, n_push, best, state.sol + n_leaf, n_eval, limit,
-                   start, tele_delta=delta)
+                   start, tele_delta=delta, active=active)
+
+
+def _loop_cond(state: SearchState, drain_min, max_iters) -> torch.Tensor:
+    """JAX `_run`'s `while_loop` condition, as a device bool."""
+    return ((state.size >= drain_min) & ~state.overflow
+            & (state.iters < max_iters))
+
+
+class _Graph(NamedTuple):
+    """K captured steps on one pool: the graph, the counters and
+    telemetry vector it reads and writes (its own tensors; the pool is
+    the caller's, held by address only, so a dropped pool is freed), its
+    loop-condition inputs, the (size, overflow, iters) it leaves, and the
+    kernel launches of one replay."""
+
+    graph: torch.cuda.CUDAGraph
+    counters: dict
+    telemetry: torch.Tensor
+    max_iters: torch.Tensor
+    drain_min: torch.Tensor
+    status: torch.Tensor
+    launches: dict
+
+
+_GRAPHS: OrderedDict = OrderedDict()
+
+
+def clear_graphs() -> None:
+    """Drop every captured graph (and the device memory it holds)."""
+    _GRAPHS.clear()
+
+
+def _graph_key(tables, state, lb_kind, chunk, tile, mode, steps):
+    storage = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                    for t in (*tables, state.prmu, state.depth, state.aux))
+    return (lb_kind, chunk, tile, mode, state.telemetry.shape[0], steps,
+            state.prmu.device, storage)
+
+
+def _capture(tables, state, lb_kind, chunk, tile, mode, steps) -> _Graph:
+    """Capture `steps` steps on `state`'s pool (updated in place, at the
+    addresses the graph holds; `_graph_key` replays it only on a pool at
+    those addresses). A failed capture raises. One no-op step runs first
+    on a side stream, so that every kernel's first launch (its
+    attributes) and the allocator's first blocks happen outside the
+    capture."""
+    dev = state.prmu.device
+    static = state._replace(
+        **{f: getattr(state, f).clone() for f in COUNTER_DTYPES},
+        telemetry=state.telemetry.clone())
+    max_iters = torch.zeros((), dtype=torch.int64, device=dev)
+    drain_min = torch.ones((), dtype=torch.int32, device=dev)
+    status = torch.zeros(3, dtype=torch.int64, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(tables, lb_kind, chunk, static, tile=tile, fused=mode,
+             active=torch.zeros((), dtype=torch.bool, device=dev))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    kernels.take_captured()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s = static
+        for _ in range(steps):
+            s = step(tables, lb_kind, chunk, s, tile=tile, fused=mode,
+                     active=_loop_cond(s, drain_min, max_iters))
+        for f in COUNTER_DTYPES:
+            getattr(static, f).copy_(getattr(s, f))
+        static.telemetry.copy_(s.telemetry)
+        status.copy_(torch.stack([s.size.long(), s.overflow.long(),
+                                  s.iters]))
+    return _Graph(graph, {f: getattr(static, f) for f in COUNTER_DTYPES},
+                  static.telemetry, max_iters, drain_min, status,
+                  kernels.take_captured())
+
+
+def _status(state: SearchState) -> list:
+    """(size, overflow, iters) on the host, in one transfer."""
+    return torch.stack([state.size.long(), state.overflow.long(),
+                        state.iters]).tolist()
+
+
+def _run_graph(tables, state, lb_kind, chunk, tile, mode, ceiling, drain,
+               steps, going) -> SearchState:
+    key = _graph_key(tables, state, lb_kind, chunk, tile, mode, steps)
+    g = _GRAPHS.pop(key, None)
+    if g is None:
+        g = _capture(tables, state, lb_kind, chunk, tile, mode, steps)
+    _GRAPHS[key] = g
+    while len(_GRAPHS) > _GRAPH_CACHE:
+        _GRAPHS.popitem(last=False)
+    for f, t in g.counters.items():
+        t.copy_(getattr(state, f))
+    g.telemetry.copy_(state.telemetry)
+    g.max_iters.fill_(ceiling)
+    g.drain_min.fill_(drain)
+    kernels.replay(g.graph, g.launches)
+    while going(g.status.tolist()):
+        kernels.replay(g.graph, g.launches)
+    return state._replace(**{f: t.clone() for f, t in g.counters.items()},
+                          telemetry=g.telemetry.clone())
 
 
 def run(tables: BoundTables, state: SearchState, lb_kind: int, chunk: int,
-        max_iters: int | None = None, tile: int = 1024,
-        fused=None) -> SearchState:
-    """Step until the pool is empty, a step overflows, or the cumulative
-    iteration count reaches `max_iters`. `fused` (None: "hw" on CUDA
-    tensors, "off" on the CPU) is resolved here, once, on the host
-    (`fused.resolve_mode`)."""
+        max_iters: int | None = None, tile: int = 1024, drain_min: int = 1,
+        fused=None, steps_per_check: int = GRAPH_STEPS) -> SearchState:
+    """Step while `size >= drain_min`, no step overflowed and the
+    cumulative iteration count is below `max_iters` (JAX `run`). On a
+    CUDA pool: replays of a captured graph of `steps_per_check` steps,
+    reading `size`, `overflow` and `iters` once a replay (a new ceiling
+    or drain reuses the graph; a capture that fails raises). On the CPU:
+    the same steps, eagerly, with the same check. Each step past the
+    condition is a device no-op, so the result is JAX's. `fused` (None:
+    "hw" on CUDA tensors, "off" on the CPU) is resolved here, once, on
+    the host (`fused.resolve_mode`). `steps_per_check` is for tests."""
     jobs, capacity = state.prmu.shape
-    if state.size > row_limit(capacity, chunk, jobs):
-        return state._replace(overflow=True)
     mode = fz.resolve_mode(fused, on_cuda=state.prmu.is_cuda)
-    ceiling = _I64_MAX if max_iters is None else max_iters
-    while state.size > 0 and not state.overflow and state.iters < ceiling:
-        state = step(tables, lb_kind, chunk, state, tile=tile, fused=mode)
-    return state
+    ceiling = _I64_MAX if max_iters is None else int(max_iters)
+    drain = max(int(drain_min), 1)
+
+    def going(status) -> bool:
+        size, overflow, iters = status
+        return size >= drain and not overflow and iters < ceiling
+
+    status = _status(state)
+    if status[0] > row_limit(capacity, chunk, jobs):
+        return state._replace(overflow=torch.ones_like(state.overflow))
+    if not going(status):
+        return state
+    if state.prmu.is_cuda:
+        return _run_graph(tables, state, lb_kind, chunk, tile, mode,
+                          ceiling, drain, steps_per_check, going)
+    dev = state.prmu.device
+    lim = torch.full((), ceiling, dtype=torch.int64, device=dev)
+    dmin = torch.full((), drain, dtype=torch.int32, device=dev)
+    while True:
+        for _ in range(steps_per_check):
+            state = step(tables, lb_kind, chunk, state, tile=tile,
+                         fused=mode, active=_loop_cond(state, dmin, lim))
+        if not going(_status(state)):
+            return state
 
 
 def run_growing(tables: BoundTables, state: SearchState, lb_kind: int,
@@ -607,7 +710,7 @@ def run_growing(tables: BoundTables, state: SearchState, lb_kind: int,
 
     while True:
         state = run(tables, state, lb_kind, chunk, max_iters, fused=fused)
-        if not state.overflow:
+        if not bool(state.overflow):
             return state
         state = checkpoint.grow(state, 2 * state.prmu.shape[1])
 
@@ -647,7 +750,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     state = init_state(jobs, capacity, init_ub, p_times=p_times,
                        telemetry=telemetry, device=dev)
     out = run_growing(tables, state, lb_kind, chunk, max_iters, fused=fused)
+    c = counters(out)
     return SearchResult(
-        explored_tree=out.tree, explored_sol=out.sol, best=out.best,
-        iters=out.iters, evals=out.evals, overflow=False,
-        complete=out.size == 0, telemetry=tele.summarize(out.telemetry))
+        explored_tree=c.tree, explored_sol=c.sol, best=c.best,
+        iters=c.iters, evals=c.evals, overflow=False,
+        complete=c.size == 0, telemetry=tele.summarize(out.telemetry))

@@ -22,7 +22,8 @@ same no-commit guard as the counters:
 0 and no route runs a telemetry op. Telemetry only observes: tree, sol,
 best and evals are the same on or off.
 
-The update ops are torch ops on the device vector and add no host sync;
+The update ops are torch ops on the device vector and read nothing back
+(a CUDA graph of the step holds them);
 `bound_hist` is `ops/columns.py`'s, which the fused kernel's plain version
 bins with too. `summarize` and `_ring_pairs` are numpy views on the host. `merge`,
 `publish` and `delta_counts` belong to the multi-device and observability
@@ -93,20 +94,26 @@ def step_delta(popped_b, branched_b, pruned_b, hist_pruned=None,
                     device=popped_b.device)])
 
 
-def commit(tele: torch.Tensor, delta: torch.Tensor, new_size: int,
-           best: int, prev_best: int, iters: int) -> torch.Tensor:
+def commit(tele: torch.Tensor, delta: torch.Tensor, new_size, best,
+           prev_best, iters) -> torch.Tensor:
     """Fold one step's delta in: add the counts, max the high-water mark,
     and record (iters + 1, best) in the ring when `best` beat `prev_best`.
-    The ring slot is computed on the device, so no value is read back.
-    The caller applies it only when the step commits."""
+    The scalars are device scalars (or ints); the ring write is masked by
+    `best < prev_best` (`torch.where` on the slot values, as the JAX
+    package's `jnp.where`), so nothing is read back. The caller applies
+    the result only when the step commits."""
+    new_size, best, prev_best, iters = (
+        torch.as_tensor(x, device=tele.device).long()
+        for x in (new_size, best, prev_best, iters))
     t = tele + delta
-    t[O_POOL_HW:O_POOL_HW + 1].clamp_(min=int(new_size))
-    if best < prev_best:
-        at = t[O_IMPROVED:O_IMPROVED + 1] % RING * 2 + O_RING
-        t.index_fill_(0, at, int(iters) + 1)
-        t.index_fill_(0, at + 1, int(best))
-        t[O_IMPROVED:O_IMPROVED + 1] += 1
-    return t
+    slot = torch.arange(t.shape[0], device=t.device)
+    improved = best < prev_best
+    count = t[O_IMPROVED]
+    at = count % RING * 2 + O_RING
+    t = torch.where(slot == O_POOL_HW, torch.maximum(t, new_size), t)
+    t = torch.where(improved & (slot == at), iters + 1, t)
+    t = torch.where(improved & (slot == at + 1), best, t)
+    return torch.where(improved & (slot == O_IMPROVED), count + 1, t)
 
 
 # -------------------------------------------------------- host-side views

@@ -4,10 +4,11 @@ gap-binned bound histogram.
 
 The engine's routes (`engine/device.py`) and the fused kernel's plain
 version (`ops/fused.py`) share these, so both number, select and rebuild
-children the same way. Columns run in the expand order
-`c = (g*J + i)*TB + b`: tiles, then slots, then parents. The JAX package
-keeps the first four in `tpu_tree_search/engine/device.py` (`_col_major`,
-`_child_masks`, `_partition`, `_regather`) and the histogram in its
+children the same way; none of them reads a value back to the host.
+Columns run in the expand order `c = (g*J + i)*TB + b`: tiles, then
+slots, then parents. The JAX package keeps the first four in
+`tpu_tree_search/engine/device.py` (`_col_major`, `_child_masks`,
+`_partition`, `_regather`) and the histogram in its
 `engine/telemetry.py` (`bound_hist`).
 """
 
@@ -38,10 +39,18 @@ def child_masks(p_depth, valid, G: int, J: int, TB: int):
 
 
 def partition(push: torch.Tensor) -> torch.Tensor:
-    """Stable-partition permutation: indices of the True columns first, in
-    order, then the False ones (the same permutation as the JAX packed-key
-    sort)."""
-    return torch.argsort((~push).to(torch.uint8), stable=True)
+    """Stable-partition permutation (int64): indices of the True columns
+    first, in order, then the False ones (the same permutation as the JAX
+    packed-key sort). One exclusive scan ranks the True columns; a False
+    column's rank among the False ones is its index less the True columns
+    before it; each index is scattered to its rank. O(N), and it reads
+    nothing back, so a CUDA graph can hold it."""
+    n = push.shape[0]
+    idx = torch.arange(n, device=push.device)
+    p = push.long()
+    true_before = torch.cumsum(p, 0) - p
+    dest = torch.where(push, true_before, p.sum() + idx - true_before)
+    return torch.empty_like(idx).scatter_(0, dest, idx)
 
 
 def regather(tables: BoundTables, p_prmu, p_depth2, p_aux, idx, TB: int,

@@ -14,7 +14,9 @@ Reproduces the rules and plain paths of
   `expand_bounds_plain` (= `expand_bounds_xla`), `expand_fronts_plain`
   (the child fronts and scheduled-set words that the dense LB2 route
   reads) and `lb2_plain` (= `lb2_cols`);
-- the dispatchers `expand`, `expand_bounds` and `lb2_bounds`.
+- the dispatchers `expand`, `expand_bounds` and `lb2_bounds` (whose
+  optional device count of live columns, `mask_live`, lets a sweep over
+  a fixed frame skip its dead columns without a host read).
 
 A dispatcher runs the plain version only for tensors on the CPU. For
 tensors on a CUDA device it launches the Hopper kernel of `ops/kernels.py`
@@ -33,6 +35,7 @@ import torch
 from . import batched, kernels
 from .batched import BoundTables
 
+I32_MAX = 2**31 - 1
 MIN_PALLAS_TILE = 256
 MAX_TILE_LANES = 1 << 15
 EXPAND_TILE_UNITS = 20 * 20 * 1024
@@ -372,12 +375,26 @@ def expand_bounds(tables: BoundTables, prmu_T, depth2, front_T,
                                 TB, emit=False)[2]
 
 
+def mask_live(bounds: torch.Tensor, live) -> torch.Tensor:
+    """(1, n) bounds with every column at or past `live` (a count, int or
+    scalar tensor; None: none) set to I32_MAX."""
+    if live is None:
+        return bounds
+    cols = torch.arange(bounds.shape[-1], device=bounds.device)
+    return torch.where(cols < live, bounds, I32_MAX)
+
+
 def lb2_bounds(tables: BoundTables, child_front_cols: torch.Tensor,
-               sched_mask: torch.Tensor) -> torch.Tensor:
+               sched_mask: torch.Tensor, live=None) -> torch.Tensor:
     """LB2 over child columns: child_front_cols (M, N) (int32, or the
     pool's int16), sched_mask (W, N) int32 -> (1, N) int32. Either may be
-    a column prefix of a wider frame. CPU: `lb2_plain`. CUDA: the
-    pair-sweep kernel, for any job count."""
+    a column prefix of a wider frame. `live`, an int32 scalar tensor on
+    the tensors' device (None: every column), counts the live leading
+    columns: the rest read I32_MAX and cost the kernel no sweep, so a
+    frame wider than its survivors needs no host-side count. CPU:
+    `lb2_plain`, then `mask_live`. CUDA: the pair-sweep kernel, for any
+    job count."""
     if _on_cpu(child_front_cols, sched_mask, tables.js):
-        return lb2_plain(tables, sched_mask, child_front_cols)
-    return kernels.lb2_sweep(tables, child_front_cols, sched_mask)
+        return mask_live(lb2_plain(tables, sched_mask, child_front_cols),
+                         live)
+    return kernels.lb2_sweep(tables, child_front_cols, sched_mask, live)

@@ -86,7 +86,7 @@ def fused_ok(mode: str, jobs: int, eff_tile: int, lb_kind: int,
 
 
 def fused_expand_plain(tables: BoundTables, prmu_T, depth2, front_T,
-                       n_valid: int, bound_cap, lb_kind: int = 1,
+                       n_valid, bound_cap, lb_kind: int = 1,
                        tile: int = 1024, cap_width: int = 0,
                        with_sched: bool = False, tele_bins: int = 0,
                        with_bounds: bool = True, aux_i16: bool = False):
@@ -115,15 +115,17 @@ def fused_expand_plain(tables: BoundTables, prmu_T, depth2, front_T,
             hist)
 
 
-def fused_expand(tables: BoundTables, prmu_T, depth2, front_T, n_valid: int,
+def fused_expand(tables: BoundTables, prmu_T, depth2, front_T, n_valid,
                  bound_cap, lb_kind: int = 1, tile: int = 1024,
                  cap_width: int = 0, with_sched: bool = False,
                  tele_bins: int = 0, with_bounds: bool = True,
                  aux_i16: bool = False):
     """Fused expand + LB1 + prune + compact over one chunk. prmu_T (J, B)
     int16, depth2 (1, B) int32, front_T (M, B) int32, `n_valid` the popped
-    count, `bound_cap` the pruning incumbent (an int or an int32 scalar
-    tensor on the tensors' device). Returns
+    count and `bound_cap` the pruning incumbent (each an int or an int32
+    scalar tensor on the tensors' device; the kernel reads both from
+    device memory, so the engine passes tensors and reads nothing back).
+    Returns
 
         (children (J, W) int16,
          caux (M+1, W) int32 = [child front | depth+1], int16 under

@@ -19,9 +19,15 @@ shared headers and the flags, so an edit rebuilds),
 loaded with ctypes, and launched on PyTorch's current stream. A wrapper
 checks device, dtype and shape, allocates its outputs with `torch.empty`,
 raises when the launch returns an error, and adds one to its entry of
-`LAUNCHES` per launch. Nothing here runs on the CPU: the dispatchers in
-`ops/expand.py` and `ops/fused.py` call these wrappers for CUDA tensors
-only.
+`LAUNCHES` per launch. A launch made while the stream is captured into a
+CUDA graph runs only when the graph is replayed: it counts in `CAPTURED`,
+and `replay` adds the graph's launches to `LAUNCHES` at each replay.
+Nothing here runs on the CPU: the dispatchers in `ops/expand.py` and
+`ops/fused.py` call these wrappers for CUDA tensors only.
+
+No wrapper reads a value back to the host: counts the kernels depend on
+(the fused kernel's popped count, the sweep's live columns) are passed
+as device scalars, so a captured graph reads them at each replay.
 """
 
 from __future__ import annotations
@@ -52,10 +58,10 @@ _SOURCES = {
     "expand_bound": {"tts_expand_bound": (
         [_vp] * 5 + [_i32] * 7 + [_vp] * 6 + [_i64, _vp], _i32)},
     "lb2_sweep": {"tts_lb2_sweep": (
-        [_vp, _i64, _vp, _i64, _i32, _i32, _i32] + [_vp] * 4, _i32)},
+        [_vp, _i64, _vp, _i64, _i32, _vp, _i32, _i32] + [_vp] * 4, _i32)},
     "fused_expand": {
         "tts_fused_expand": (
-            [_vp] * 6 + [_i32] * 9 + [_vp] * 7 + [_i64, _vp], _i32),
+            [_vp] * 7 + [_i32] * 8 + [_vp] * 7 + [_i64, _vp], _i32),
         "tts_fused_scratch_words": ([_i32] * 5, _i64)},
 }
 
@@ -64,6 +70,11 @@ _SOURCES = {
 # the dense LB2 route's, counts under "expand_fronts" too)
 LAUNCHES = {"expand_emit": 0, "expand_fronts": 0, "expand_bounds": 0,
             "lb2_sweep": 0, "lb2_sweep_bigj": 0, "fused_expand": 0}
+# the part of LAUNCHES made by replays of captured graphs
+REPLAYED = dict.fromkeys(LAUNCHES, 0)
+# launches recorded into a CUDA graph under capture, not yet taken by
+# `take_captured`
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -71,7 +82,34 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = REPLAYED[k] = 0
+
+
+def _count(key: str) -> None:
+    """One launch of `key`: now, or at each replay of the graph the
+    current stream is being captured into."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[key] += 1
+    else:
+        LAUNCHES[key] += 1
+
+
+def take_captured() -> dict:
+    """The launches recorded under capture since the last call, and
+    clear them."""
+    out = {k: v for k, v in CAPTURED.items() if v}
+    for k in CAPTURED:
+        CAPTURED[k] = 0
+    return out
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: dict) -> None:
+    """Replay a captured graph; its kernels launch now, so `launches`
+    (its `take_captured` at capture) count now."""
+    graph.replay()
+    for k, v in launches.items():
+        LAUNCHES[k] += v
+        REPLAYED[k] += v
 
 
 def _nvcc() -> str:
@@ -235,11 +273,11 @@ def expand_launch(tables: BoundTables, prmu_T: torch.Tensor,
     _check(rc, "expand_bound")
     if B:
         if not emit:
-            LAUNCHES["expand_bounds"] += 1
+            _count("expand_bounds")
         else:
-            LAUNCHES["expand_emit"] += 1
+            _count("expand_emit")
             if outputs == _FRONTS:
-                LAUNCHES["expand_fronts"] += 1
+                _count("expand_fronts")
     return children, aux, bounds, sched
 
 
@@ -265,10 +303,13 @@ def expand_fronts(tables: BoundTables, prmu_T: torch.Tensor,
 
 
 def lb2_sweep(tables: BoundTables, child_front_cols: torch.Tensor,
-              sched_mask: torch.Tensor) -> torch.Tensor:
+              sched_mask: torch.Tensor,
+              live: torch.Tensor | None = None) -> torch.Tensor:
     """The pair-sweep kernel: child_front_cols (M, n), sched_mask (W, n)
     int32 (either may be a column prefix of a wider frame) -> (1, n)
-    int32."""
+    int32. `live`, a scalar tensor on the device (None: n), is read by
+    the kernel: columns at or past it are not swept and read I32_MAX
+    (`expand.mask_live`)."""
     M, n = child_front_cols.shape
     P, J = tables.js.shape
     W = (J + 31) // 32
@@ -292,14 +333,21 @@ def lb2_sweep(tables: BoundTables, child_front_cols: torch.Tensor,
         raise ValueError("lb2 sweep: packed pair tables "
                          f"{tuple(steps.shape)} {tuple(pairs.shape)} do not "
                          f"match P={P}, J={J} or are not contiguous")
+    if live is not None:
+        if live.device != dev or live.numel() != 1:
+            raise ValueError(f"lb2 sweep: live count {tuple(live.shape)} on "
+                             f"{live.device}, not one value on {dev}")
+        # held in a name until the launch is queued
+        live = live.to(torch.int32).reshape(())
     out = torch.empty((1, n), dtype=torch.int32, device=dev)
     rc = _lib("lb2_sweep").tts_lb2_sweep(
         cf.data_ptr(), cf.stride(0), sched_mask.data_ptr(),
-        sched_mask.stride(0), n, J, P, steps.data_ptr(), pairs.data_ptr(),
-        out.data_ptr(), _stream(dev))
+        sched_mask.stride(0), n, None if live is None else live.data_ptr(),
+        J, P, steps.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+        _stream(dev))
     _check(rc, "lb2_sweep")
     if n:
-        LAUNCHES["lb2_sweep" if J <= 64 else "lb2_sweep_bigj"] += 1
+        _count("lb2_sweep" if J <= 64 else "lb2_sweep_bigj")
     return out
 
 
@@ -316,12 +364,14 @@ def _fused_scratch_words(B: int, tile: int, J: int, M: int, SW: int) -> int:
 
 
 def fused_expand(tables: BoundTables, prmu_T: torch.Tensor,
-                 depth2: torch.Tensor, front_T: torch.Tensor, n_valid: int,
+                 depth2: torch.Tensor, front_T: torch.Tensor, n_valid,
                  bound_cap, tile: int, cap_width: int, with_sched: bool,
                  tele_bins: int, with_bounds: bool, aux_i16: bool):
     """The fused kernel on (J, B) parents in tiles of `tile`: the
-    survivors of the LB1 prune against `bound_cap` (an int32 scalar tensor
-    on the device, or an int), compacted into a `cap_width`-wide frame.
+    survivors of the LB1 prune against `bound_cap` among the first
+    `n_valid` parents, compacted into a `cap_width`-wide frame. Both
+    are int32 scalar tensors on the device that the kernel reads (an int
+    is put on the device first); the kernel clamps `n_valid` to [0, B].
     Returns (children, caux, bounds | None, sched | None, n_surv,
     hist | None) as `ops/fused.fused_expand` documents."""
     J, B = prmu_T.shape
@@ -335,11 +385,16 @@ def fused_expand(tables: BoundTables, prmu_T: torch.Tensor,
     if not isinstance(bound_cap, torch.Tensor):
         bound_cap = torch.full((), int(bound_cap), dtype=torch.int32,
                                device=dev)
+    if not isinstance(n_valid, torch.Tensor):
+        n_valid = torch.full((), int(n_valid), dtype=torch.int32,
+                             device=dev)
     _need(bound_cap, torch.int32, "bound_cap")
+    _need(n_valid, torch.int32, "n_valid")
     if (depth2.numel() != B or front_T.shape[1] != B
             or tables.p.shape != (M, J) or bound_cap.numel() != 1
+            or n_valid.numel() != 1
             or len({x.device for x in (prmu_T, depth2, front_T, tables.p,
-                                       bound_cap)}) != 1):
+                                       bound_cap, n_valid)}) != 1):
         raise ValueError("fused kernel: inconsistent inputs "
                          f"{tuple(prmu_T.shape)} {tuple(depth2.shape)} "
                          f"{tuple(front_T.shape)} {tuple(tables.p.shape)}")
@@ -364,14 +419,15 @@ def fused_expand(tables: BoundTables, prmu_T: torch.Tensor,
     # memory could be handed to the next allocation before the kernel
     # reads it
     ins = [x.contiguous() for x in (tables.p, tables.min_tails, prmu_T,
-                                    depth2.reshape(B), front_T, bound_cap)]
+                                    depth2.reshape(B), front_T, bound_cap,
+                                    n_valid)]
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = _lib("fused_expand").tts_fused_expand(
         *(x.data_ptr() for x in ins),
-        J, M, B, tile, max(0, min(int(n_valid), B)), W, SW, tele_bins,
+        J, M, B, tile, W, SW, tele_bins,
         int(aux_i16), children.data_ptr(), caux.data_ptr(), ptr(bounds),
         ptr(sched), n_surv.data_ptr(), ptr(hist), scratch.data_ptr(),
         scratch.numel(), _stream(dev))
     _check(rc, "fused_expand")
-    LAUNCHES["fused_expand"] += 1
+    _count("fused_expand")
     return children, caux, bounds, sched, n_surv, hist

@@ -1,18 +1,23 @@
-"""Where a step's time goes: a `torch.profiler` window over `device.run`.
+"""Where a step's time goes: a `torch.profiler` window over the loop.
 
     python -m tpu_tree_search_torch.profile_step [-i 21] [-l 2]
-        [--chunk 65536] [--capacity 4194304] [--warm 50] [--steps 20]
+        [--chunk 65536] [--capacity 4194304] [--warm 64] [--steps 64]
         [--device cuda]
 
 For each of the two routes, the default (the fused route where it
-applies on the card, unfused on the CPU) and `fused="off"`: seeds
-Taillard instance `-i` with ub=opt, runs `--warm` steps, then profiles
-`--steps` more and prints one JSON line: host milliseconds per step, the
-device's busy share of the window (the union of its kernel and copy
-intervals over the window's wall time), the device operations
-(kernels and copies) per step, and those that took the most time, by
-name, with their share of the busy time. On a CPU run there is no device
-trace: those fields are null.
+applies on the card, unfused on the CPU) and `fused="off"`, and for each
+of the two loops, eager (`device.step` called `--steps` times from
+Python) and graph (`device.run`: on the card, replays of the captured
+graph of `device.GRAPH_STEPS` steps; keep `--steps` a multiple of it, so
+that no replay ends in no-op steps): seeds Taillard instance `-i` with
+ub=opt, runs `--warm` steps through `device.run` (which captures the
+graph), then profiles `--steps` more and prints one JSON line: host
+milliseconds per step, the device's busy share of the window (the union
+of its kernel and copy intervals over the window's wall time), device
+milliseconds and operations (kernels and copies) per step, those that
+took the most time, by name, with their share of the busy time, and the
+peak device memory allocated since the state was made. On a CPU run
+there is no device trace: those fields are null.
 """
 
 from __future__ import annotations
@@ -43,18 +48,22 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
 
 def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
             steps: int, dev: torch.device, top: int = 12,
-            fused: str | None = None) -> dict:
+            fused: str | None = None, loop: str = "graph") -> dict:
     """One profiled window; `fused` is `device.run`'s (None: the
-    default route)."""
+    default route); `loop` is "graph" (`device.run`) or "eager"
+    (`device.step` from Python)."""
+    on_cuda = dev.type == "cuda"
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     p = taillard.processing_times(inst)
     tables = batched.make_tables(p, device=dev)
     state = device.init_state(p.shape[1], capacity,
                               taillard.optimal_makespan(inst), p_times=p,
                               device=dev)
-    mode = fz.resolve_mode(fused, on_cuda=dev.type == "cuda")
+    mode = fz.resolve_mode(fused, on_cuda=on_cuda)
     state = device.run_growing(tables, state, lb_kind, chunk, warm,
                                fused=mode)
-    on_cuda = dev.type == "cuda"
+    before = device.counters(state)
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_cuda:
@@ -62,17 +71,26 @@ def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
     sync()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        out = device.run_growing(tables, state, lb_kind, chunk,
-                                 state.iters + steps, fused=mode)
+        if loop == "graph":
+            out = device.run(tables, state, lb_kind, chunk,
+                             before.iters + steps, fused=mode)
+        else:
+            out = state
+            for _ in range(steps):
+                out = device.step(tables, lb_kind, chunk, out, fused=mode)
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    done = out.iters - state.iters
+    after = device.counters(out)
+    done = after.iters - before.iters
     res = {"instance": f"ta{inst:03d}", "lb": lb_kind, "chunk": chunk,
-           "fused": mode,
-           "steps": done, "ms_per_step": wall_us / 1e3 / max(done, 1),
-           "evals": out.evals - state.evals, "device_busy_share": None,
+           "fused": mode, "loop": loop, "steps": done,
+           "overflow": after.overflow,
+           "ms_per_step": wall_us / 1e3 / max(done, 1),
+           "evals": after.evals - before.evals, "device_busy_share": None,
            "device_ms_per_step": None, "device_ops_per_step": None,
-           "top_device_ops": None}
+           "top_device_ops": None,
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                 if on_cuda else None)}
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if on_cuda and kern:
         busy = _busy_us([(e.time_range.start, e.time_range.end)
@@ -100,15 +118,17 @@ def main(argv=None) -> int:
     ap.add_argument("-l", dest="lb", type=int, choices=(0, 1, 2), default=2)
     ap.add_argument("--chunk", type=int, default=BENCH_CHUNK_DEFAULT)
     ap.add_argument("--capacity", type=int, default=1 << 22)
-    ap.add_argument("--warm", type=int, default=50)
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--warm", type=int, default=2 * device.GRAPH_STEPS)
+    ap.add_argument("--steps", type=int, default=2 * device.GRAPH_STEPS)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = device.resolve_device(args.device)
     for fused in (None, "off"):
-        print(json.dumps(profile(args.inst, args.lb, args.chunk,
-                                 args.capacity, args.warm, args.steps, dev,
-                                 fused=fused)), flush=True)
+        for loop in ("eager", "graph"):
+            print(json.dumps(profile(args.inst, args.lb, args.chunk,
+                                     args.capacity, args.warm, args.steps,
+                                     dev, fused=fused, loop=loop)),
+                  flush=True)
     return 0
 
 
