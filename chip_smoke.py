@@ -47,9 +47,22 @@ Phases (one line each, then two JSON lines):
      whose LB1 survivors outgrow N/4: the fused step keeps them at frame
      N, launches no bounds-only kernel and equals the unfused step;
      search telemetry on the card (ta014 `dense`, ta021 `prefilter`,
-     fused and unfused, kernels and plain versions, graph and eager);
-     then every kernel must have launched inside a graph replay
-  7. kernel parity and timing at the main path's shapes, and at the
+     fused and unfused, kernels and plain versions, graph and eager)
+  7. segmented, checkpointed runs (`checkpoint.run_segmented`, this
+     slice's main path): ta021 LB2 ub=opt at chunk 65536 / capacity 2^22
+     with telemetry, 64-step segments with a checkpoint every 4 to 256
+     steps,
+     `load_resilient`, `grow` into 2^23 rows, segments on to 512, against
+     one `device.run` to 512 (counters, live rows and telemetry equal; the
+     fused kernel and the sweeps launched in graph replays; save and load
+     seconds and bytes, segment gaps, ms per step, the device copy that
+     makes a retry safe, peak memory); a segment that stepped and then
+     failed with an injected fault, retried to the same state; and the
+     CLI's drills on ta014 LB2 (stop at 16 steps and resume, a corrupted
+     snapshot rolled back, an overflow then `--grow-capacity`), each to
+     the golden; then every kernel must have launched inside a graph
+     replay
+  8. kernel parity and timing at the main path's shapes, and at the
      edges: the expand kernel's three modes (bounds-only, emit, the dense
      route's fronts-only launch) at ta021, ta014, ta003, ta041, ta071,
      ta091 and ta111 (J = 500, TB 32), and with garbage columns past a
@@ -67,8 +80,10 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,16 +94,18 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
 
 from tpu_tree_search_torch import cli  # noqa: E402
-from tpu_tree_search_torch.engine import device  # noqa: E402
+from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
+from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
 from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
 from tpu_tree_search_torch.problems import taillard  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
+from tpu_tree_search_torch.utils import faults  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEV = torch.device("cuda", 0)
@@ -746,13 +763,241 @@ def telemetry_case(label, inst, lb, chunk, steps):
 telemetry_case("ta014 lb2 dense", 14, 2, 4096, 20)
 telemetry_case("ta021 lb2 prefilter", 21, 2, CHUNK, 12)
 
+# --- phase 7: segmented, checkpointed runs --------------------------------
+SEG_DIR = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_"))
+SEG_ITERS, SEG_EVERY, SEG_HALF, SEG_END = 64, 4, 256, 512
+
+
+def run21(state, target):
+    return device.run(t21, state, 2, CHUNK, max_iters=target)
+
+
+def mib(nbytes: int) -> float:
+    return nbytes / (1 << 20)
+
+
+def segmented_case(s0):
+    """run_segmented from `s0` to SEG_HALF steps (a checkpoint every
+    SEG_EVERY segments),
+    load_resilient, grow into twice the capacity, run_segmented on to
+    SEG_END. Returns the final state, the loaded state and the seconds of
+    the load and of the grow."""
+    ck = SEG_DIR / "ta021.npz"
+    checkpoint.run_segmented(run21, clone(s0), segment_iters=SEG_ITERS,
+                             checkpoint_path=ck, checkpoint_every=SEG_EVERY,
+                             max_total_iters=SEG_HALF, heartbeat=None)
+    t = time.perf_counter()
+    loaded, meta, used = checkpoint.load_resilient(ck, device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    check(used == ck and int(meta["segment"]) == SEG_HALF // SEG_ITERS,
+          f"ta021 segmented: loaded {used}, meta {meta}")
+    t = time.perf_counter()
+    grown = checkpoint.grow(loaded, 2 * loaded.prmu.shape[1])
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t
+    out = checkpoint.run_segmented(
+        run21, grown, segment_iters=SEG_ITERS, checkpoint_path=ck,
+        checkpoint_every=SEG_EVERY, max_total_iters=SEG_END - SEG_HALF,
+        heartbeat=None)
+    return out, loaded, load_s, grow_s
+
+
+def plain_run(telemetry: bool):
+    """The plain loop from the root: one run to SEG_END, timed from step
+    SEG_ITERS on (after its graph's capture). Returns the root state, the
+    final state and its ms per step."""
+    root = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
+                             p_times=p21, telemetry=telemetry, device=DEV)
+    s = device.run(t21, clone(root), 2, CHUNK, max_iters=SEG_ITERS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s = device.run(t21, s, 2, CHUNK, max_iters=SEG_END)
+    torch.cuda.synchronize()
+    return root, s, 1e3 * (time.perf_counter() - t) / (SEG_END - SEG_ITERS)
+
+
+# the telemetry vector's cost, then the reference with it on
+_, off, plain_off_ms = plain_run(False)
+del off
+device.clear_graphs()
+s0, ref, plain_ms = plain_run(True)
+REG = obs_metrics.Registry("tts")
+base_mem = torch.cuda.memory_allocated(DEV)
+prev_reg = obs_metrics.install(REG)
+torch.cuda.reset_peak_memory_stats(DEV)
+(seg_out, seg_loaded, load_s, grow_s), counts, secs = path_run(
+    "ta021 segmented", ("fused_expand", "lb2_sweep"),
+    lambda: segmented_case(s0))
+seg_peak = torch.cuda.max_memory_allocated(DEV)
+in_graph = {k: kernels.REPLAYED[k] for k in ("fused_expand", "lb2_sweep")}
+obs_metrics.install(prev_reg)
+check(counts["expand_bounds"] == 0, "ta021 segmented: bounds-only launches")
+check(all(v > 0 for v in in_graph.values()),
+      f"ta021 segmented: kernels outside graph replays {in_graph}")
+rc_ = device.counters(ref)
+check(rc_.iters == SEG_END and rc_.size > 0 and rc_.best == 2297,
+      f"ta021 plain run {rc_}")
+check(same_state(seg_out, ref), "ta021 segmented + checkpoint + load + grow "
+                                "!= one device.run (counters, live rows or "
+                                "telemetry)")
+check(seg_out.prmu.shape[1] == 1 << 23, "ta021 segmented: grown capacity")
+LAUNCH_FROM.update(dict.fromkeys(("lb2_sweep", "fused_expand"), counts))
+saves = REG.histogram("tts_checkpoint_save_seconds").snapshot()
+nbytes = REG.histogram("tts_checkpoint_bytes").snapshot()
+segs = REG.histogram("tts_segment_seconds").snapshot()
+gaps = REG.histogram("tts_segment_gap_seconds").snapshot()
+check(saves["count"] * SEG_EVERY == SEG_END // SEG_ITERS == segs["count"],
+      f"ta021 segmented: {saves['count']} saves, {segs['count']} segments")
+mem_after = torch.cuda.memory_allocated(DEV)
+res_after = torch.cuda.memory_reserved(DEV)
+graphs = len(device._GRAPHS)
+device.clear_graphs()
+torch.cuda.empty_cache()
+say("ta021 segmented vs one run (telemetry on)", equal=True,
+    segments=segs["count"], segment_iters=SEG_ITERS, steps=SEG_END,
+    size=rc_.size, tree=rc_.tree, seconds=secs,
+    segment_seconds_mean=segs["sum"] / segs["count"],
+    segment_ms_per_step=1e3 * segs["sum"] / SEG_END,
+    plain_run_ms_per_step=plain_ms,
+    plain_run_ms_per_step_telemetry_off=plain_off_ms,
+    saves=saves["count"], save_seconds_mean=saves["sum"] / saves["count"],
+    save_bytes_mean=nbytes["sum"] / nbytes["count"],
+    gap_seconds_mean=gaps["sum"] / max(gaps["count"], 1),
+    gaps=gaps["count"], load_seconds=load_s, grow_seconds=grow_s,
+    loaded_rows=device.counters(seg_loaded).size,
+    peak_memory_bytes=seg_peak, allocated_at_start=base_mem,
+    peak_over_start_bytes=seg_peak - base_mem, allocated_after=mem_after,
+    reserved_after=res_after, graphs_cached=graphs,
+    allocated_after_clear_graphs=torch.cuda.memory_allocated(DEV),
+    reserved_after_clear_graphs=torch.cuda.memory_reserved(DEV),
+    launches=counts, in_graph=in_graph)
+del seg_loaded
+
+# save and load of the 512-step pool, timed alone; the device copy that
+# makes a retry safe, at its live rows and at the pool's whole usable
+# height
+live = device.counters(seg_out).size
+ck = SEG_DIR / "alone.npz"
+t = time.perf_counter()
+checkpoint.save(ck, seg_out)
+save_s = time.perf_counter() - t
+t = time.perf_counter()
+back, _ = checkpoint.load(ck, device=DEV)
+torch.cuda.synchronize()
+load1_s = time.perf_counter() - t
+check(same_state(back, seg_out), "ta021 save + load != the state saved")
+del back
+limit21 = device.row_limit(1 << 22, CHUNK, 20)
+copy_ms = {n: cuda_ms(lambda n=n: checkpoint._segment_copy(seg_out, n), 10)
+           for n in (live, limit21)}
+saved = checkpoint._segment_copy(seg_out, live)
+restore_ms = cuda_ms(lambda: checkpoint._restore(seg_out, saved), 10)
+check(same_state(seg_out, ref), "ta021: the restore changed the state")
+row_bytes = 2 * 20 + 2 + 2 * 20
+say("ta021 checkpoint of the 512-step pool", live_rows=live,
+    live_bytes=live * row_bytes, file_bytes=ck.stat().st_size,
+    save_seconds=save_s, load_seconds=load1_s,
+    device_copy_ms=copy_ms[live], device_copy_bytes=live * row_bytes,
+    restore_ms=restore_ms, device_copy_ms_row_limit=copy_ms[limit21],
+    row_limit=limit21, device_copy_bytes_row_limit=limit21 * row_bytes)
+del saved
+
+
+def retry_drill():
+    """64-step segments to SEG_END; segment 3 runs (in place) and then
+    raises an injected fault once: run_segmented copies the state it kept
+    back into the same tensors and retries, replaying the same graph."""
+    failed = []
+
+    def flaky(state, target):
+        out = run21(state, target)
+        if target == 3 * SEG_ITERS and not failed:
+            failed.append(device.counters(out).iters)
+            raise faults.InjectedFault("injected after segment 3 stepped")
+        return out
+
+    out = checkpoint.run_segmented(flaky, clone(s0), segment_iters=SEG_ITERS,
+                                   max_total_iters=SEG_END, heartbeat=None,
+                                   retry_attempts=2, retry_base_s=0.0)
+    return out, failed
+
+
+(r_out, failed), counts, secs = path_run("ta021 segment retry",
+                                         ("fused_expand", "lb2_sweep"),
+                                         retry_drill)
+check(failed == [3 * SEG_ITERS], f"ta021 retry drill: failed at {failed}")
+check(same_state(r_out, ref), "ta021 retried segment != one device.run")
+say("ta021 segment retried after it stepped in place", equal=True,
+    failed_at_iters=failed[0], seconds=secs, launches=counts)
+del r_out, seg_out, ref
+device.clear_graphs()
+
+# the CLI's drills (ta014 LB2, dense): the golden capacity (2^20) and chunk
+T14 = ["pfsp", "-i", "14", "-l", "2", "-u", "1", "--chunk", "4096",
+       "--segment-iters", "8"]
+GOLDEN14 = ("Size of the explored tree: 144639",
+            "Number of explored solutions: 0", "Optimal makespan: 1377")
+
+
+def cli_run(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def cli_golden(label, rc, text):
+    check(rc == 0, f"{label}: exit code {rc}")
+    for want in GOLDEN14:
+        check(want in text, f"{label}: output lacks {want!r}")
+
+
+def stop_and_resume():
+    ck = str(SEG_DIR / "t14.npz")
+    args = T14 + ["--capacity", "1048576", "--checkpoint", ck]
+    first = cli_run(args + ["--max-iters", "16"])
+    return first, cli_run(args)
+
+
+(first, second), counts, secs = path_run(
+    "ta014 cli stop/resume", ("expand_fronts", "lb2_sweep"), stop_and_resume)
+check(first[0] == 0 and "truncated run" in first[1]
+      and "[segment 2] iters=16 " in first[1], "ta014 cli stop at 16")
+check("Resumed from" in second[1] and "(segment 2, iters 16," in second[1],
+      "ta014 cli resume")
+cli_golden("ta014 cli resume", second[0], second[1])
+say("ta014 lb2 cli: stop at 16 steps, resume", golden=True, seconds=secs,
+    launches=counts, segment_lines=[ln for ln in (first[1] + second[1])
+                                    .splitlines() if ln.startswith("[")])
+
+ck = str(SEG_DIR / "t14c.npz")
+args = T14 + ["--capacity", "1048576", "--checkpoint", ck]
+rc, _, _ = cli_run(args + ["--max-iters", "16", "--faults",
+                           "corrupt_checkpoint=2"])
+check(rc == 0 and faults.active() is None, "ta014 cli corrupt drill")
+rc, text, err = cli_run(args)
+check("(segment 1, iters 8," in text and "last-good" in err,
+      "ta014 cli: no rollback to the last-good snapshot")
+cli_golden("ta014 cli rollback", rc, text)
+say("ta014 lb2 cli: snapshot corrupted at segment 2, rolled back", golden=True)
+
+ck = str(SEG_DIR / "t14o.npz")
+rc, _, err = cli_run(T14 + ["--capacity", "86016", "--checkpoint", ck])
+check(rc == 1 and "error: pool overflow" in err, f"ta014 cli overflow: {rc}")
+rc, text, _ = cli_run(T14 + ["--capacity", "86016", "--checkpoint", ck,
+                             "--grow-capacity", "1048576"])
+cli_golden("ta014 cli grow", rc, text)
+say("ta014 lb2 cli: overflow (exit 1), then --grow-capacity", golden=True)
+shutil.rmtree(SEG_DIR)
+
 # every kernel launched inside a captured graph on some phase
 for k in ("expand_bounds", "expand_emit", "expand_fronts", "lb2_sweep",
           "lb2_sweep_bigj", "fused_expand"):
     check(IN_GRAPHS[k] > 0, f"kernel {k} never launched in a graph replay")
 say("launches in graph replays", **IN_GRAPHS)
 
-# --- phase 7: each kernel against its plain version -----------------------
+# --- phase 8: each kernel against its plain version -----------------------
 RESULTS = []
 
 

@@ -25,9 +25,9 @@ best and evals are the same on or off.
 The update ops are torch ops on the device vector and read nothing back
 (a CUDA graph of the step holds them);
 `bound_hist` is `ops/columns.py`'s, which the fused kernel's plain version
-bins with too. `summarize` and `_ring_pairs` are numpy views on the host. `merge`,
-`publish` and `delta_counts` belong to the multi-device and observability
-layers, which are not ported yet.
+bins with too. `summarize`, `merge` (the checkpoint and reshard folding
+rule), `delta_counts` and `frontier_depth` are numpy views on the host.
+`publish` belongs to the observability layer, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,6 +62,12 @@ def enabled() -> bool:
     """The flag `init_state` reads when it is not told: a state keeps the
     width it was made with."""
     return env_flag(ENV_FLAG)
+
+
+def enabled_width() -> int:
+    """The vector's width for a state made now: WIDTH when the flag is
+    on, else 0."""
+    return WIDTH if enabled() else 0
 
 
 # ------------------------------------------------------------ update ops
@@ -128,18 +134,56 @@ def _ring_pairs(vec: np.ndarray) -> list[list[int]]:
     return [list(p) for p in pairs]
 
 
-def _improving(pairs: list[list[int]]) -> list[list[int]]:
-    """The strictly improving run of iteration-ordered pairs, as the JAX
-    package's `merge` replays the ring before `summarize` reads it (on one
-    device every recorded pair improves, so it keeps them all)."""
-    out: list[list[int]] = []
+def merge(stacked: np.ndarray) -> np.ndarray:
+    """Fold a (D, WIDTH) per-worker block into one (WIDTH,) vector: counts
+    sum, the pool high-water is the max, and the incumbent ring is rebuilt
+    by replaying every worker's improvements in iteration order and
+    keeping the strictly improving tail, laid out to end at slot
+    (total - 1) % RING, where `commit`'s write cursor expects it."""
+    stacked = np.atleast_2d(np.asarray(stacked, np.int64))
+    if stacked.shape[-1] == 0:
+        return np.zeros(0, np.int64)
+    out = stacked.sum(axis=0)
+    out[O_POOL_HW] = stacked[:, O_POOL_HW].max()
+    pairs: list[tuple[int, int]] = []
+    for d in range(stacked.shape[0]):
+        pairs.extend((p[0], p[1]) for p in _ring_pairs(stacked[d]))
+    pairs.sort(key=lambda p: p[0])
+    replay: list[tuple[int, int]] = []
     for it, val in pairs:
-        if not out or val < out[-1][1]:
-            out.append([it, val])
-    return out[-RING:]
+        if not replay or val < replay[-1][1]:
+            replay.append((it, val))
+    replay = replay[-RING:]
+    out[O_RING:] = 0
+    start = (int(out[O_IMPROVED]) - len(replay)) % RING
+    for k, (it, val) in enumerate(replay):
+        slot = (start + k) % RING
+        out[O_RING + 2 * slot] = it
+        out[O_RING + 2 * slot + 1] = val
+    return out
 
 
-def _frontier_depth(popped) -> float:
+def delta_counts(now_vec, prev_vec) -> dict:
+    """Window-scoped counts between two merged (WIDTH,) snapshots (the
+    per-segment `search.telemetry` event of `checkpoint.run_segmented`);
+    only the additive slots are read."""
+    d = (np.asarray(now_vec, np.int64)
+         - np.asarray(prev_vec, np.int64))
+    popped = d[O_POPPED:O_POPPED + DEPTH_BUCKETS]
+    branched = int(d[O_BRANCHED:O_BRANCHED + DEPTH_BUCKETS].sum())
+    pruned = int(d[O_PRUNED:O_PRUNED + DEPTH_BUCKETS].sum())
+    return {
+        "popped": int(popped.sum()),
+        "branched": branched,
+        "pruned": pruned,
+        "pruning_rate": round(pruned / max(branched + pruned, 1), 6),
+        "frontier_depth": frontier_depth(popped),
+        "steal_sent": int(d[O_STEAL_SENT]),
+        "steal_recv": int(d[O_STEAL_RECV]),
+    }
+
+
+def frontier_depth(popped) -> float:
     """Mean relative depth of the popped nodes in [0, 1]: the weighted
     mean bucket midpoint."""
     popped = np.asarray(popped, np.float64)
@@ -151,14 +195,15 @@ def _frontier_depth(popped) -> float:
 
 
 def summarize(arr) -> dict | None:
-    """JSON-safe summary of one device's (WIDTH,) block (a tensor or an
+    """JSON-safe summary of a (WIDTH,) or (D, WIDTH) block (a tensor or an
     array); None for a zero-width block. The JAX package's `summarize`
-    schema for a single block."""
+    schema."""
     if isinstance(arr, torch.Tensor):
         arr = arr.cpu().numpy()
-    m = np.asarray(arr, np.int64).reshape(-1)
-    if m.shape[0] == 0:
+    arr = np.asarray(arr, np.int64)
+    if arr.shape[-1] == 0:
         return None
+    m = merge(arr)
     popped = m[O_POPPED:O_POPPED + DEPTH_BUCKETS]
     branched = m[O_BRANCHED:O_BRANCHED + DEPTH_BUCKETS]
     pruned = m[O_PRUNED:O_PRUNED + DEPTH_BUCKETS]
@@ -175,7 +220,7 @@ def summarize(arr) -> dict | None:
         "steal_sent": int(m[O_STEAL_SENT]),
         "steal_recv": int(m[O_STEAL_RECV]),
         "improvements": int(m[O_IMPROVED]),
-        "incumbent_ring": _improving(_ring_pairs(m)),
+        "incumbent_ring": _ring_pairs(m),
         "pruning_rate": round(float(pruned.sum()) / max(evaluated, 1), 6),
-        "frontier_depth": _frontier_depth(popped),
+        "frontier_depth": frontier_depth(popped),
     }
