@@ -72,6 +72,22 @@ Phases (one line each, then two JSON lines):
      (read from device memory), spilling past its frame, with histogram
      and int16 aux, at J = 200, launched twice on one input and back to
      back on three
+  9. the problem-plugin engine (`device.solve`, `run_problem`,
+     `generic_step`): N-Queens N = 15, g = 1, chunk 65536 through the
+     `nqueens` command (2,279,184 solutions, OEIS A000170, and the JAX
+     package's tree, 171,129,071), N = 10 on the card against the same
+     solve on the host and the sequential oracle; knapsack
+     `synthetic(1000, 0)` at LB1 and LB2 against the DP optimum; TSP
+     `synthetic(10, 0)` at both bounds against brute force,
+     `synthetic(TSP_N, 0)`, the largest n whose LB2 solve ends within about
+     10 s, and `synthetic(TSP_AGREE, 0)`, LB1's, at both bounds (equal
+     optima); each with wall time, steps, ms
+     per step, peak memory and no kernel launched; each plugin's graph
+     run (capture timed) against the same steps taken eagerly, and one
+     step with synchronizing calls refused; ta014 LB2 through `solve
+     --problem pfsp` at chunk 64 (the fused `prefilter` route) and 4096
+     (the dense route), each to the golden with its launches and equal to
+     the `pfsp` command
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -93,8 +109,9 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
 
-from tpu_tree_search_torch import cli  # noqa: E402
+from tpu_tree_search_torch import cli, problems  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
+from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
@@ -102,7 +119,8 @@ from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
 from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
-from tpu_tree_search_torch.problems import taillard  # noqa: E402
+from tpu_tree_search_torch.problems import knapsack, nqueens  # noqa: E402
+from tpu_tree_search_torch.problems import taillard, tsp  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
 from tpu_tree_search_torch.utils import faults  # noqa: E402
@@ -359,18 +377,19 @@ def golden(name, p, lb, ub, chunk, want, expect, absent, **kw):
 
 
 @contextlib.contextmanager
-def counting_calls(module, name: str):
-    """Count the calls of module.name (the original still runs)."""
-    calls = [0]
+def recording(module, name: str):
+    """Keep what each call of module.name returns (the original still
+    runs); the list's length counts the calls."""
+    out = []
     fn = getattr(module, name)
 
-    def counted(*args, **kw):
-        calls[0] += 1
-        return fn(*args, **kw)
+    def recorded(*args, **kw):
+        out.append(fn(*args, **kw))
+        return out[-1]
 
-    setattr(module, name, counted)
+    setattr(module, name, recorded)
     try:
-        yield calls
+        yield out
     finally:
         setattr(module, name, fn)
 
@@ -385,10 +404,11 @@ for row in GOLDENS:
     # on the card the dense step runs the expand kernel's fronts-only
     # launch, never `sched_mask_cols`, children or a depth row; the emit
     # kernel's row is measured at this path's shape
-    with counting_calls(ex, "sched_mask_cols") as calls:
+    with recording(ex, "sched_mask_cols") as calls:
         counts = golden(*row)
-    check(calls[0] == 0 and counts["expand_fronts"] == counts["expand_emit"],
-          f"ta014 dense: {calls[0]} sched_mask_cols calls, launches {counts}")
+    check(not calls and counts["expand_fronts"] == counts["expand_emit"],
+          f"ta014 dense: {len(calls)} sched_mask_cols calls, launches "
+          f"{counts}")
     LAUNCH_FROM["expand_emit"] = counts
 for row in GOLDENS:
     if row[0] == BOUNDS_PATH:
@@ -1379,6 +1399,183 @@ err, ms, plain_ms, nb, no = fused_main
 record("fused_expand", f"{PF}:165", SRC_F, "fused_expand", err, ms,
        plain_ms, nb, no, f"ta021 chunk {CHUNK}, TB {tb21}, W = N, "
                          "scheduled-set words")
+
+# --- phase 9: the problem-plugin engine -----------------------------------
+device.clear_graphs()
+CARD = smi.splitlines()[0]
+PLUGIN_MS = {}
+
+
+def plugin_solve(label, name, table, lb, chunk, capacity, want=None,
+                 argv=None):
+    """One `device.solve` on the card (through the command `argv` when
+    given), its launches read around it; a generic plugin launches none
+    of the five kernels. Reports wall time, steps, ms per step (growth
+    and captures included) and peak memory."""
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with recording(device, "solve") as got:
+        if argv is None:
+            _, counts, secs = path_run(label, (), lambda: device.solve(
+                name, table, lb_kind=lb, chunk=chunk, capacity=capacity,
+                device=DEV))
+        else:
+            (rc, text, _), counts, secs = path_run(
+                label, (), lambda: cli_run(argv))
+            check(rc == 0, f"{label}: exit code {rc}")
+    res = got[-1]
+    check(res.complete and not res.overflow, f"{label}: incomplete")
+    if name != "pfsp":
+        check(not any(counts.values()), f"{label}: kernels {counts}")
+    if want is not None:
+        check(res[:len(want)] == want, f"{label}: {res[:3]} != {want}")
+    say(label, tree=res.explored_tree, sol=res.explored_sol, best=res.best,
+        steps=res.iters, seconds=secs, ms_per_step=1e3 * secs / res.iters,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(DEV), card=CARD,
+        launches=counts)
+    return res
+
+
+def plugin_graph_vs_eager(label, name, table, lb, chunk, capacity,
+                          warm=4, steps=2 * device.GRAPH_STEPS):
+    """From the root: `warm` steps through `run_problem` (one replay of its
+    capture), then up to `steps` more timed (graph replays, no capture;
+    fewer where the search ends), against the same
+    steps taken eagerly from the warm state; then one step with every
+    synchronizing CUDA call an error. Returns the graph loop's ms per
+    step."""
+    prob = problems.get(name)
+    tb = prob.make_tables(table, device=DEV)
+    p0, d0 = prob.root(table)
+    s = device.init_state(prob.slots(table), capacity, None, prmu0=p0,
+                          depth0=d0, aux0=prob.seed_aux(table, p0, d0),
+                          aux_dtype=prob.aux_dtype(table), device=DEV)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s = device.run_problem(prob, tb, s, lb, chunk, max_iters=warm)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    e = clone(s)
+    k0 = device.counters(s)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    g = device.run_problem(prob, tb, s, lb, chunk, max_iters=warm + steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    kg = device.counters(g)
+    fn = prob.make_step(tb, lb, chunk, 1024, None)
+    for _ in range(kg.iters - k0.iters):
+        e = fn(e)
+    check(not kg.overflow and kg.iters > k0.iters,
+          f"{label}: overflow or no step")
+    check(same_state(g, e), f"{label}: graph run != eager steps")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(clone(g))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = 1e3 * secs / (kg.iters - k0.iters)
+    PLUGIN_MS[label] = ms
+    say(f"{label}: graph vs eager", equal=True, steps=kg.iters - k0.iters,
+        graph_ms_per_step=ms, capture_and_first_replay_seconds=capture_s,
+        size=kg.size, tree=kg.tree, syncs=0, card=CARD)
+    device.clear_graphs()
+    return ms
+
+
+# N-Queens: N = 15 through the command (the published count, OEIS A000170,
+# and the JAX package's recorded tree, BENCHMARKS.md), N = 10 on the card
+# against the plain run on the host
+NQ15 = (171_129_071, 2_279_184)
+plugin_solve("nqueens N=15 g=1 chunk 65536 (cli)", "nqueens", None, 0, None,
+             None, want=NQ15, argv=["nqueens", "-N", "15", "--chunk",
+                                    "65536"])
+plugin_graph_vs_eager("nqueens N=15 chunk 65536", "nqueens",
+                      nqueens.table(15), 0, 65536, 1 << 22)
+on_cpu = device.solve("nqueens", nqueens.table(10), chunk=256,
+                      capacity=1 << 16, device="cpu")
+oracle = sequential.nqueens_search(10)
+plugin_solve("nqueens N=10 chunk 256", "nqueens", nqueens.table(10), 0,
+             256, 1 << 16, want=(oracle.explored_tree, 724))
+check(on_cpu[:2] == (oracle.explored_tree, 724), "nqueens 10 on the host")
+
+# knapsack: 1000 items, both bounds, against the DP optimum
+KS = knapsack.KnapsackInstance.synthetic(1000, seed=0)
+KS_OPT = KS.optimum()
+for lb in (1, 2):
+    res = plugin_solve(f"knapsack n=1000 lb{lb} chunk 4096", "knapsack",
+                       KS.table, lb, 4096, 1 << 20)
+    check(res.best == -KS_OPT, f"knapsack lb{lb}: {-res.best} != {KS_OPT}")
+    plugin_graph_vs_eager(f"knapsack n=1000 lb{lb} chunk 4096", "knapsack",
+                          KS.table, lb, 4096, 1 << 20)
+
+# TSP: n = 10 at both bounds against brute force; TSP_N, the largest n whose
+# LB2 solve ends within about 10 s on the card (`solve --problem tsp
+# --size n -l 2` swept over n; PERF.md), at LB2; and TSP_AGREE, the largest
+# n whose LB1 solve ends within about 10 s, at both bounds (equal optima;
+# LB1's tree grows some tenfold every two cities past it)
+TSP10 = tsp.TSPInstance.synthetic(10, seed=0)
+TSP10_OPT = TSP10.brute_force_optimum()
+for lb in (1, 2):
+    res = plugin_solve(f"tsp n=10 lb{lb} chunk 4096", "tsp", TSP10.d, lb,
+                       4096, 1 << 20)
+    check(res.best == TSP10_OPT, f"tsp 10 lb{lb}: {res.best}")
+TSP_N, TSP_CHUNK = 36, 4096
+TSP_AGREE, AGREE_CHUNK = 24, {1: 65536, 2: 4096}
+TSPN = tsp.TSPInstance.synthetic(TSP_N, seed=0)
+plugin_solve(f"tsp n={TSP_N} lb2 chunk {TSP_CHUNK}", "tsp", TSPN.d, 2,
+             TSP_CHUNK, 1 << 22)
+plugin_graph_vs_eager(f"tsp n={TSP_N} lb2 chunk {TSP_CHUNK}", "tsp", TSPN.d,
+                      2, TSP_CHUNK, 1 << 22)
+TSPA = tsp.TSPInstance.synthetic(TSP_AGREE, seed=0)
+best = {}
+for lb, chunk in AGREE_CHUNK.items():
+    best[lb] = plugin_solve(f"tsp n={TSP_AGREE} lb{lb} chunk {chunk}", "tsp",
+                            TSPA.d, lb, chunk, 1 << 22).best
+    # the chunk-65536 LB1 pool passes 2^22 rows within these steps
+    plugin_graph_vs_eager(f"tsp n={TSP_AGREE} lb{lb} chunk {chunk}", "tsp",
+                          TSPA.d, lb, chunk, 1 << 24)
+check(best[1] == best[2], f"tsp n={TSP_AGREE}: lb1 {best[1]} != lb2 "
+      f"{best[2]}")
+
+# PFSP through the plugin: ta014's golden through `solve`, at the command's
+# default chunk (64: the fused `prefilter` route on the card) and at 4096
+# (the dense route, the phase 3 golden's), each against the `pfsp` command
+# at that chunk
+G14 = next(json.loads(l) for l in (ROOT / "tests" / "golden" /
+                                   "pfsp_lb2_ub1.jsonl").read_text()
+           .splitlines() if json.loads(l)["inst"] == 14)
+for chunk, route, expect in (
+        (64, "prefilter", ("lb2_sweep",)),
+        (4096, "dense", ("expand_emit", "expand_fronts", "lb2_sweep"))):
+    check(device.lb2_route(20, 10, 45, chunk)[0] == route,
+          f"ta014 route at chunk {chunk}")
+    argv = ["solve", "--problem", "pfsp", "-i", "14", "-l", "2", "-u",
+            "1377"] + ([] if chunk == 64 else ["--chunk", str(chunk)])
+    (rc, text, _), counts, secs = path_run(
+        f"ta014 solve chunk {chunk} (plugin)", expect,
+        lambda: cli_run(argv))
+    out = json.loads(text.strip().splitlines()[-1])
+    check(rc == 0 and (out["explored_tree"], out["explored_sol"],
+                       out["best"]) == (G14["tree"], G14["sol"], G14["best"])
+          and out["complete"], f"{' '.join(argv)}: {out}")
+    if route == "dense":
+        check(counts["fused_expand"] == 0 and counts["expand_bounds"] == 0
+              and counts["expand_fronts"] == counts["expand_emit"],
+              f"ta014 solve dense: launches {counts}")
+    else:
+        check(counts["fused_expand"] + counts["expand_bounds"] > 0,
+              f"ta014 solve prefilter: launches {counts}")
+    rc, text, _ = cli_run(["pfsp", "-i", "14", "-l", "2", "-u", "1",
+                           "--chunk", str(chunk)])
+    check(rc == 0 and f"Size of the explored tree: {G14['tree']}" in text
+          and "Optimal makespan: 1377" in text, f"pfsp -i 14 --chunk {chunk}")
+    say(f"ta014 lb2 solve --problem pfsp ({route}, chunk {chunk})",
+        tree=G14["tree"], sol=G14["sol"], best=G14["best"], seconds=secs,
+        launches=counts, same_as_pfsp_command=True, card=CARD)
+plugin_graph_vs_eager("ta014 lb2 pfsp plugin chunk 4096", "pfsp",
+                      taillard.processing_times(14), 2, 4096, 1 << 20)
 
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")

@@ -3,7 +3,10 @@
 `expand_plain`/`expand_bounds_plain`/`lb2_plain` (the plain versions of
 the Hopper kernels) against `expand_xla`/`expand_bounds_xla`/`lb2_cols`
 (the plain references of the Pallas kernels) and against the streaming
-big-J Pallas kernel in interpret mode. Inputs come from numpy seeds; every
+big-J Pallas kernel in interpret mode; the row-major
+`lb1_children`/`lb1d_children`/`lb2_children` (with `parent_tables`,
+`child_mask`, `bounds_from_parts`) against JAX's at the shapes of
+`tests/test_bounds.py`. Inputs come from numpy seeds; every
 comparison is exact (tolerance 0: integer math)."""
 
 import jax.numpy as jnp
@@ -293,3 +296,78 @@ def test_tile_rules_match(jobs, machines, pairs, batch):
             jpe.lb2_bigj_tile(jobs, machines, width)
         assert tex.lb2_sweep_tile(jobs, pairs, machines, width) == \
             jpe.lb2_sweep_tile(jobs, pairs, machines, width)
+
+
+# ------------------------------------------------- row-major *_children
+
+def _random_parents(jobs, batch, rng):
+    prmu = np.stack([rng.permutation(jobs)
+                     for _ in range(batch)]).astype(np.int16)
+    return prmu, rng.integers(0, jobs, size=batch).astype(np.int32)
+
+
+@pytest.mark.parametrize("lb_kind", [0, 1, 2])
+@pytest.mark.parametrize("jobs,machines,seed,B", [
+    (8, 4, 0, 16), (12, 6, 1, 16), (20, 5, 2, 16), (20, 10, 14, 8),
+    (40, 8, 48, 8), (50, 10, 60, 8), (50, 20, 70, 8)])
+def test_children_bounds_match_jax(jobs, machines, seed, B, lb_kind):
+    """`children_bounds(lb)` and `bounds_from_parts` equal JAX's, with
+    some parents invalid (their slots I32_MAX)."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(1, 100, size=(machines, jobs)).astype(np.int32)
+    jt, tt = _both(p)
+    prmu, depth = _random_parents(jobs, B, rng)
+    valid = rng.random(B) < 0.75
+    want = np.asarray(jbatched.children_bounds(lb_kind)(jt, prmu, depth,
+                                                        valid))
+    got = tbatched.children_bounds(lb_kind)(tt, _t(prmu), _t(depth),
+                                            _t(valid))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[~valid] == tex.I32_MAX).all()
+
+    front, remain = tbatched.parent_tables(tt, _t(prmu), _t(depth))
+    jf, jr = jbatched.parent_tables(jt, prmu, depth)
+    np.testing.assert_array_equal(front.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(remain.numpy(), np.asarray(jr))
+    child_front, child_p = tbatched._child_fronts(tt, _t(prmu), front)
+    mask = tbatched.child_mask(_t(prmu), _t(depth), _t(valid))
+    np.testing.assert_array_equal(
+        mask.numpy(), np.asarray(jbatched.child_mask(prmu, depth, valid)))
+    via_parts = tbatched.bounds_from_parts(
+        lb_kind, tt, _t(prmu), _t(depth), _t(valid), front, remain,
+        child_front, child_p, mask)
+    np.testing.assert_array_equal(via_parts.numpy(), want)
+
+
+@pytest.mark.parametrize("lb_kind", [0, 1, 2])
+def test_children_bounds_match_scalar_oracle(lb_kind):
+    """ta014's children against the port's own scalar oracle; a parent at
+    depth J-1 has one child, a leaf, whose LB1 is its makespan."""
+    from tpu_tree_search_torch.ops import reference as tref
+    from tpu_tree_search_torch.problems.pfsp import PFSPInstance
+
+    inst = PFSPInstance.from_taillard(14)
+    rng = np.random.default_rng(14)
+    prmu, depth = _random_parents(inst.jobs, 8, rng)
+    depth[0] = inst.jobs - 1
+    tt = tbatched.make_tables(inst.p_times, device="cpu")
+    got = tbatched.children_bounds(lb_kind)(tt, _t(prmu), _t(depth),
+                                            _t(np.ones(8, bool))).numpy()
+    lb1 = tref.make_lb1_data(inst.p_times)
+    lb2 = tref.make_lb2_data(lb1)
+    J = inst.jobs
+    for b in range(8):
+        d = int(depth[b])
+        if lb_kind == 0:
+            begin = tref.lb1_children_bounds(lb1, prmu[b], d - 1, J)
+        for i in range(d, J):
+            child = prmu[b].copy()
+            child[d], child[i] = child[i], child[d]
+            want = (int(begin[int(prmu[b][i])]) if lb_kind == 0 else
+                    tref.lb1_bound(lb1, child, d, J) if lb_kind == 1 else
+                    tref.lb2_bound(lb1, lb2, child, d, J, 2**31 - 1))
+            assert got[b, i] == want, (b, i)
+    if lb_kind == 1:
+        leaf = prmu[0].copy()
+        assert got[0, J - 1] == inst.makespan(leaf)

@@ -131,28 +131,41 @@ def test_ceiling_check_matches():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (found by walking the package, so a new
+    one is covered) imports no `jax` and nothing of `tpu_tree_search`;
+    `chip_smoke.py`, which exits where there is no card, names neither."""
     code = (
-        "import sys\n"
-        "import tpu_tree_search_torch, tpu_tree_search_torch.cli\n"
-        "import tpu_tree_search_torch.convert\n"
-        "import tpu_tree_search_torch.engine.device\n"
-        "import tpu_tree_search_torch.engine.checkpoint\n"
-        "import tpu_tree_search_torch.engine.telemetry\n"
-        "import tpu_tree_search_torch.ops.columns\n"
-        "import tpu_tree_search_torch.ops.expand\n"
-        "import tpu_tree_search_torch.ops.fused\n"
-        "import tpu_tree_search_torch.ops.kernels\n"
-        "import tpu_tree_search_torch.profile_step\n"
-        "import tpu_tree_search_torch.tune.defaults\n"
-        "import tpu_tree_search_torch.utils.config\n"
+        "import importlib, pkgutil, sys\n"
+        "import tpu_tree_search_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpu_tree_search' or m.startswith('tpu_tree_search.')]\n"
         "assert not bad, bad\n"
-        "print('clean')\n")
+        "print(' '.join(sorted(names)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "clean"
+    names = set(out.stdout.split())
+    for want in ("cli", "convert", "engine.checkpoint", "engine.device",
+                 "engine.sequential", "engine.telemetry", "kernel_times",
+                 "obs.audit", "obs.metrics", "obs.tracelog", "ops.batched",
+                 "ops.columns", "ops.expand", "ops.fused", "ops.kernels",
+                 "ops.nqueens_ops", "ops.reference", "parallel.balance",
+                 "problems.base", "problems.knapsack", "problems.nqueens",
+                 "problems.pfsp", "problems.taillard", "problems.tsp",
+                 "profile_step", "tune.defaults", "utils.config",
+                 "utils.faults", "utils.retry"):
+        assert f"tpu_tree_search_torch.{want}" in names, want
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    for line in smoke.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            mod = words[1]
+            assert mod != "jax" and not mod.startswith("jax."), line
+            assert mod.split(".")[0] != "tpu_tree_search", line
 
 
 def test_cli_cpu_ta002_lb1():

@@ -1,4 +1,5 @@
-"""Command line of the port: the `pfsp` subcommand on one device.
+"""Command line of the port: the `pfsp`, `nqueens` and `solve`
+subcommands on one device.
 
 Reproduces the single-device paths of `tpu_tree_search/cli.py`:
 `run_pfsp` -> `device.search`, and with `--segment-iters` or
@@ -15,7 +16,15 @@ search-telemetry vector (`engine/telemetry.py`) and prints its summary as
 one JSON line after the results; the other output lines are the same
 either way.
 
+`nqueens` (`run_nqueens` -> `problems.nqueens.search`) and `solve`
+(`run_solve` -> `device.solve`, any registered problem, an instance from
+`-i`, `--size`/`--seed` or `--instance-json`) print the JAX CLI's lines
+and JSON fields, with "GPU" for "TPU". The port runs on one device: a
+`-D` above 1 exits with an error (the multi-device tier is ROADMAP A5).
+
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1
+    python -m tpu_tree_search_torch nqueens -N 15 --chunk 65536
+    python -m tpu_tree_search_torch solve --problem knapsack --size 1000 -l 2
     python -m tpu_tree_search_torch pfsp -i 14 -l 2 --segment-iters 8 \\
         --checkpoint c.npz --max-iters 16     # then again, to resume
 """
@@ -158,6 +167,142 @@ def _run_pfsp_segmented(args, p, init_ub, dev):
     return out, warm_tree, warm_sol
 
 
+def _one_device(D: int, dev) -> int | None:
+    """The device count `-D` asks for (0: every visible device), or None
+    after printing why more than one cannot run."""
+    import torch
+
+    n = D if D > 0 else (torch.cuda.device_count() if dev.type == "cuda"
+                         else 1)
+    if n == 1:
+        return n
+    print(f"error: -D {D} asks for {n} devices; the port runs on one "
+          "device (the multi-device search is ROADMAP A5)", file=sys.stderr)
+    return None
+
+
+def run_nqueens(args) -> int:
+    from .engine import device
+    from .problems import nqueens as nq
+
+    dev = device.resolve_device(args.device)
+    n_dev = _one_device(args.D, dev)
+    if n_dev is None:
+        return 2
+    print("=" * 49)
+    print(f"GPU N-Queens ({n_dev} device(s))")
+    print(f"Resolution of the {args.N}-Queens instance")
+    print(f"  with {args.g} safety check(s) per evaluation")
+    print("=" * 49)
+    t0 = time.perf_counter()
+    out = nq.search(args.N, g=args.g, chunk=args.chunk,
+                    capacity=args.capacity, device=dev)
+    elapsed = time.perf_counter() - t0
+    print("=" * 49)
+    print(f"Size of the explored tree: {out.explored_tree}")
+    print(f"Number of explored solutions: {out.explored_sol}")
+    print(f"Elapsed time: {elapsed:.4f} [s]")
+    print("=" * 49)
+    return 0
+
+
+def _problem_instance_args(p) -> None:
+    """Instance flags of `solve`: a problem name and one instance
+    source, a Taillard id (PFSP only), a synthetic --size/--seed, or a
+    table from a JSON file."""
+    p.add_argument("--problem", type=str, default="pfsp",
+                   help="workload plugin (problems/base.py): pfsp | "
+                        "nqueens | tsp | knapsack")
+    p.add_argument("-i", "--inst", type=int, default=None,
+                   help="Taillard instance id (PFSP only)")
+    p.add_argument("--size", type=int, default=None,
+                   help="synthetic instance size: jobs (pfsp), board "
+                        "n (nqueens), cities (tsp), items (knapsack)")
+    p.add_argument("--machines", type=int, default=5,
+                   help="machines for a synthetic PFSP --size instance")
+    p.add_argument("--seed", type=int, default=0,
+                   help="synthetic instance seed")
+    p.add_argument("--instance-json", type=str, default=None,
+                   help="path to a JSON 2-D instance table (the "
+                        "problem's table format, problems/base.py)")
+
+
+def _solve_instance_table(args) -> np.ndarray:
+    """The instance table from the flags (--inst, else --instance-json,
+    else a --size synthetic)."""
+    if args.inst is not None:
+        if args.problem != "pfsp":
+            raise SystemExit("--inst (a Taillard id) is PFSP-only; "
+                             "use --size or --instance-json")
+        from .problems import taillard
+        return taillard.processing_times(args.inst)
+    if args.instance_json:
+        with open(args.instance_json) as f:
+            return np.asarray(json.load(f), np.int32)
+    if args.size is None:
+        raise SystemExit("pick an instance: -i (pfsp), --size or "
+                         "--instance-json")
+    n, seed = args.size, args.seed
+    if args.problem == "pfsp":
+        from .problems.pfsp import PFSPInstance
+        return PFSPInstance.synthetic(jobs=n, machines=args.machines,
+                                      seed=seed).p_times
+    if args.problem == "nqueens":
+        from .problems import nqueens as nq
+        return nq.table(n)
+    if args.problem == "tsp":
+        from .problems.tsp import TSPInstance
+        return TSPInstance.synthetic(n, seed).d
+    if args.problem == "knapsack":
+        from .problems.knapsack import KnapsackInstance
+        return KnapsackInstance.synthetic(n, seed).table
+    raise SystemExit(f"no synthetic builder for problem "
+                     f"{args.problem!r}; use --instance-json")
+
+
+def run_solve(args) -> int:
+    from . import problems
+    from .engine import device
+
+    try:
+        prob = problems.get(args.problem)
+    except KeyError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    dev = device.resolve_device(args.device)
+    if _one_device(args.D, dev) is None:
+        return 2
+    table = _solve_instance_table(args)
+    reason = prob.validate(table)
+    if reason is not None:
+        print(f"error: invalid instance: {reason}", file=sys.stderr)
+        return 2
+    lb = prob.default_lb if args.lb is None else args.lb
+    # -u is in objective units; the engine minimizes (knapsack: -value)
+    init_ub = None if args.ub is None else prob.engine_objective(args.ub)
+    print("=" * 49)
+    print(f"GPU B&B problem={prob.name} shape="
+          f"{'x'.join(map(str, table.shape))} lb={lb} D={args.D}")
+    print("=" * 49)
+    t0 = time.perf_counter()
+    out = device.solve(prob, table, lb_kind=lb, init_ub=init_ub,
+                       chunk=args.chunk, capacity=args.capacity,
+                       max_iters=args.max_iters, device=dev)
+    elapsed = time.perf_counter() - t0
+    print(json.dumps({
+        "problem": prob.name, "explored_tree": out.explored_tree,
+        "explored_sol": out.explored_sol, "best": int(out.best),
+        "objective": prob.display_objective(out.best),
+        "complete": bool(out.complete), "elapsed_s": round(elapsed, 4)}))
+    return 0
+
+
+def _device_arg(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "versions)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tpu_tree_search_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -207,10 +352,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep the on-device search-telemetry vector "
                         "(engine/telemetry.py; also TTS_SEARCH_TELEMETRY=1)"
                         " and print its summary; the counts stay the same")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "versions)")
+    _device_arg(p)
     p.set_defaults(fn=run_pfsp)
+
+    p = sub.add_parser("nqueens", help="N-Queens backtracking")
+    p.add_argument("-N", type=int, default=14, help="board size")
+    p.add_argument("-g", type=int, default=1,
+                   help="safety-check repetitions (work scaling)")
+    p.add_argument("-D", type=int, default=1,
+                   help="devices (0: every visible one); the port runs "
+                        "on one")
+    p.add_argument("--chunk", type=int, default=CLI_CHUNK_DEFAULT)
+    p.add_argument("--capacity", type=int, default=1 << 20)
+    _device_arg(p)
+    p.set_defaults(fn=run_nqueens)
+
+    p = sub.add_parser(
+        "solve", help="one-shot solve of any registered problem through "
+                      "the plugin engine")
+    _problem_instance_args(p)
+    p.add_argument("-l", "--lb", type=int, default=None,
+                   help="bound kind (default: the problem's default)")
+    p.add_argument("-u", "--ub", type=int, default=None,
+                   help="seed incumbent value (objective units)")
+    p.add_argument("-D", type=int, default=1,
+                   help="devices (1 = the single-device engine)")
+    p.add_argument("--chunk", type=int, default=64)
+    p.add_argument("--capacity", type=int, default=None)
+    p.add_argument("--max-iters", type=int, default=None,
+                   help="truncate the search (debugging)")
+    _device_arg(p)
+    p.set_defaults(fn=run_solve)
     return ap
 
 

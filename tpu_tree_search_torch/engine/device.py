@@ -10,7 +10,12 @@ scratch margin, at a device offset under selects), `_lb2_tail`,
 `prefilter`) and the fused route (`_fused_step`, `ops/fused.py`), the
 search-telemetry updates of every route (`engine/telemetry.py`), `run`
 (with `drain_min` and a `max_iters` ceiling that needs no new capture),
-`run_growing`, `search` and `default_capacity`.
+`run_growing`, `search` and `default_capacity`; and the problem-plugin
+engine (`problems/base.py`): `make_children`, `generic_step` (pop,
+the plugin's `branch` and `bound`, incumbent and solution accounting,
+the stable partition, the block write under the overflow contract,
+telemetry), `run_problem` (the plugin's step on the same graph loop as
+`run`) and `solve` (with grow-on-overflow).
 
 `step` reads nothing back to the host, on any route: the counts it
 branches on stay on the device. Where the JAX step picks a frame or a
@@ -34,9 +39,10 @@ or counted), so a block of K steps ends exactly where JAX's
 `while_loop` ends.
 
 Pool layout (feature-major, the node axis last):
-    prmu  int16[jobs, capacity]     permutations
+    prmu  int16[jobs, capacity]     permutations (a plugin's node rows)
     depth int16[capacity]           scheduled-prefix length
     aux   int16|int32[M, capacity]  machine-completion front of the prefix
+                                    (a plugin's A aux rows, A may be 0)
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
 for `cuda` where there is none raises.
@@ -44,6 +50,7 @@ for `cuda` where there is none raises.
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -90,6 +97,9 @@ def aux_dtype(p_times: np.ndarray | None) -> torch.dtype:
     m, j = p_times.shape
     bound = (j + m - 1) * int(np.max(p_times))
     return torch.int16 if bound <= 2**15 - 1 else torch.int32
+
+
+_front_dtype = aux_dtype     # `init_state`'s parameter shadows the name
 
 
 def row_limit(capacity: int, chunk: int, jobs: int) -> int:
@@ -159,11 +169,14 @@ def init_state(jobs: int, capacity: int, init_ub: int | None,
                depth0: np.ndarray | None = None,
                p_times: np.ndarray | None = None,
                telemetry: bool | None = None,
-               device="cuda") -> SearchState:
+               device="cuda", aux0: np.ndarray | None = None,
+               aux_dtype: torch.dtype | None = None) -> SearchState:
     """Pool with the given seed nodes (default: the root at depth 0);
-    `p_times` sizes and fills the front vectors. `telemetry` gives the
-    state the search-telemetry vector (None: the TTS_SEARCH_TELEMETRY
-    flag)."""
+    `p_times` (PFSP) sizes and fills the front vectors; `aux0` ((n, A)
+    host rows, any plugin: `Problem.seed_aux`) fills A aux rows of
+    `aux_dtype` (None: aux0's dtype). Without either the aux width is 0.
+    `telemetry` gives the state the search-telemetry vector (None: the
+    TTS_SEARCH_TELEMETRY flag)."""
     dev = resolve_device(device)
     if prmu0 is None:
         prmu0 = np.arange(jobs, dtype=np.int16)[None, :]
@@ -179,10 +192,15 @@ def init_state(jobs: int, capacity: int, init_ub: int | None,
     depth[:n] = torch.as_tensor(depth0, device=dev)
     if p_times is not None:
         m = p_times.shape[0]
-        aux = torch.zeros((m, capacity), dtype=aux_dtype(p_times),
+        aux = torch.zeros((m, capacity), dtype=_front_dtype(p_times),
                           device=dev)
         fr = ref.prefix_front_remain(p_times, prmu0, depth0)[:, :m].T
         aux[:, :n] = torch.as_tensor(fr.copy(), device=dev).to(aux.dtype)
+    elif aux0 is not None and np.asarray(aux0).shape[-1] > 0:
+        rows = torch.as_tensor(np.asarray(aux0).reshape(n, -1).T.copy())
+        aux = torch.zeros((rows.shape[0], capacity),
+                          dtype=aux_dtype or rows.dtype, device=dev)
+        aux[:, :n] = rows.to(device=dev, dtype=aux.dtype)
     else:
         aux = torch.zeros((0, capacity), dtype=torch.int32, device=dev)
     on = tele.enabled() if telemetry is None else telemetry
@@ -559,6 +577,92 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
                    start, tele_delta=delta, active=active)
 
 
+# the dense (B, J, J) prefix-swap child grid of a popped block (JAX
+# `device.make_children`), which the permutation plugins branch with; a
+# slot that is no real child (below the depth, or of a complete node) is
+# garbage, written above the pool cursor and never read
+make_children = ex.make_children
+
+
+def generic_step(problem, tables, lb_kind: int, chunk: int,
+                 state: SearchState, tile: int = 1024,
+                 limit: int | None = None,
+                 active: torch.Tensor | None = None) -> SearchState:
+    """One problem-generic pop -> branch -> bound -> prune -> compact
+    cycle (JAX `generic_step`), all on the device: it reads nothing back.
+    The plugin (`problems/base.Problem`) gives the dense child grid
+    (`branch`) and the child bounds (`bound`); the pop, the incumbent and
+    solution accounting, the stable partition (`columns.partition`, the
+    permutation of JAX's stable argsort of `~push`), the block write at
+    the cursor or into the scratch margin, the no-commit overflow
+    contract and the telemetry block are shared. The pool is updated in
+    place; the returned state carries the new counters. `limit` (None:
+    `problem.usable_rows`) is the overflow line. `active` (a device bool,
+    None: True) False makes the step a no-op, as `step`'s. `tile` is
+    taken for the fast-path hook's signature and ignored."""
+    del tile
+    J, capacity = state.prmu.shape
+    A = state.aux.shape[0]
+    B = chunk
+    if limit is None:
+        limit = problem.usable_rows(capacity, B, J)
+    p_prmu, p_depth, p_aux, n, start, valid = pop_chunk(state, B, A, active)
+    depth = p_depth.reshape(-1)
+    p_aux = p_aux.to(torch.int32)
+
+    sol = state.sol
+    if not problem.leaf_in_evals:
+        # N-Queens style: a popped complete node is a solution
+        # (nqueens_c.c:104-106); complete children are pushed like any
+        sol = sol + ((depth == J) & valid).sum()
+
+    br = problem.branch(tables, p_prmu, depth, p_aux, valid)
+    C = br.children.shape[1]
+    if C > B * (problem.branch_factor or J):
+        raise ValueError(
+            f"branch grid {C} wider than the chunk*branching scratch "
+            f"margin {B * (problem.branch_factor or J)}")
+    bounds = problem.bound(tables, lb_kind, br, state.best).reshape(-1)
+    evaluated = br.evaluated.reshape(-1)
+    if problem.leaf_in_evals:
+        # PFSP style: every evaluated leaf counts, the incumbent tightens
+        # from leaf bounds (bound == objective there), leaves never push
+        is_leaf = evaluated & problem.is_leaf_cols(tables, br).reshape(-1)
+        sol = sol + is_leaf.sum()
+        leaf_best = torch.where(is_leaf, bounds, I32_MAX).min()
+        best = torch.minimum(state.best, leaf_best)
+        push = evaluated & ~is_leaf & (bounds < best)
+    else:
+        is_leaf = torch.zeros_like(evaluated)
+        best = state.best
+        push = evaluated & (bounds < best)
+    n_push = push.sum(dtype=torch.int32)
+
+    order = cols.partition(push)
+    at = torch.where(start + n_push > limit, limit, start)
+    cols_at = at.long() + torch.arange(C, device=state.prmu.device)
+    state.prmu.index_copy_(1, cols_at, br.children[:, order])
+    state.depth.index_copy_(0, cols_at, br.child_depth[order])
+    if A:
+        state.aux.index_copy_(1, cols_at,
+                              br.child_aux[:, order].to(state.aux.dtype))
+
+    delta = None
+    if _tele_on(state):
+        # child buckets bin by parent depth (child_depth - 1), as `step`;
+        # the histograms bin every pruned and surviving child, unbounded
+        # problems' 0 / I32_MAX bounds in fixed bins
+        cb = tele.depth_bucket(br.child_depth.long() - 1, J)
+        pruned_m = evaluated & ~is_leaf & ~push
+        delta = tele.step_delta(
+            tele.bucket_counts(tele.depth_bucket(depth, J), valid),
+            tele.bucket_counts(cb, push), tele.bucket_counts(cb, pruned_m),
+            tele.bound_hist(bounds, pruned_m, best),
+            tele.bound_hist(bounds, push, best))
+    return _commit(state, n_push, best, sol, evaluated.sum(), limit, start,
+                   tele_delta=delta, active=active)
+
+
 def _loop_cond(state: SearchState, drain_min, max_iters) -> torch.Tensor:
     """JAX `_run`'s `while_loop` condition, as a device bool."""
     return ((state.size >= drain_min) & ~state.overflow
@@ -589,20 +693,26 @@ def clear_graphs() -> None:
     _GRAPHS.clear()
 
 
-def _graph_key(tables, state, lb_kind, chunk, tile, mode, steps):
+def _graph_key(tables, state, lb_kind, chunk, tile, mode, steps,
+               name: str = "pfsp"):
+    """A graph's cache key: the problem, its step's static arguments and
+    the storage of every tensor the graph reads (the plugin's tables, a
+    NamedTuple of tensors or one tensor, and the pool)."""
+    tensors = ((tables,) if isinstance(tables, torch.Tensor)
+               else tuple(t for t in tables if isinstance(t, torch.Tensor)))
     storage = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                    for t in (*tables, state.prmu, state.depth, state.aux))
-    return (lb_kind, chunk, tile, mode, state.telemetry.shape[0], steps,
-            state.prmu.device, storage)
+                    for t in (*tensors, state.prmu, state.depth, state.aux))
+    return (name, lb_kind, chunk, tile, mode, state.telemetry.shape[0],
+            steps, state.prmu.device, storage)
 
 
-def _capture(tables, state, lb_kind, chunk, tile, mode, steps) -> _Graph:
-    """Capture `steps` steps on `state`'s pool (updated in place, at the
-    addresses the graph holds; `_graph_key` replays it only on a pool at
-    those addresses). A failed capture raises. One no-op step runs first
-    on a side stream, so that every kernel's first launch (its
-    attributes) and the allocator's first blocks happen outside the
-    capture."""
+def _capture(step_fn, state, steps) -> _Graph:
+    """Capture `steps` calls of `step_fn(state, active=...)` on `state`'s
+    pool (updated in place, at the addresses the graph holds;
+    `_graph_key` replays it only on a pool at those addresses). A failed
+    capture raises. One no-op step runs first on a side stream, so that
+    every kernel's first launch (its attributes) and the allocator's
+    first blocks happen outside the capture."""
     dev = state.prmu.device
     static = state._replace(
         **{f: getattr(state, f).clone() for f in COUNTER_DTYPES},
@@ -613,16 +723,14 @@ def _capture(tables, state, lb_kind, chunk, tile, mode, steps) -> _Graph:
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        step(tables, lb_kind, chunk, static, tile=tile, fused=mode,
-             active=torch.zeros((), dtype=torch.bool, device=dev))
+        step_fn(static, active=torch.zeros((), dtype=torch.bool, device=dev))
     torch.cuda.current_stream(dev).wait_stream(side)
     kernels.take_captured()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         s = static
         for _ in range(steps):
-            s = step(tables, lb_kind, chunk, s, tile=tile, fused=mode,
-                     active=_loop_cond(s, drain_min, max_iters))
+            s = step_fn(s, active=_loop_cond(s, drain_min, max_iters))
         for f in COUNTER_DTYPES:
             getattr(static, f).copy_(getattr(s, f))
         static.telemetry.copy_(s.telemetry)
@@ -639,12 +747,11 @@ def _status(state: SearchState) -> list:
                         state.iters]).tolist()
 
 
-def _run_graph(tables, state, lb_kind, chunk, tile, mode, ceiling, drain,
-               steps, going) -> SearchState:
-    key = _graph_key(tables, state, lb_kind, chunk, tile, mode, steps)
+def _run_graph(step_fn, key, state, ceiling, drain, steps,
+               going) -> SearchState:
     g = _GRAPHS.pop(key, None)
     if g is None:
-        g = _capture(tables, state, lb_kind, chunk, tile, mode, steps)
+        g = _capture(step_fn, state, steps)
     _GRAPHS[key] = g
     while len(_GRAPHS) > _GRAPH_CACHE:
         _GRAPHS.popitem(last=False)
@@ -658,6 +765,39 @@ def _run_graph(tables, state, lb_kind, chunk, tile, mode, ceiling, drain,
         kernels.replay(g.graph, g.launches)
     return state._replace(**{f: t.clone() for f, t in g.counters.items()},
                           telemetry=g.telemetry.clone())
+
+
+def _drive(step_fn, key, state: SearchState, usable: int,
+           max_iters: int | None, drain_min: int,
+           steps: int) -> SearchState:
+    """The loop `run` and `run_problem` share: step while `size >=
+    drain_min`, no step overflowed and `iters < max_iters`, reading
+    (size, overflow, iters) once every `steps` steps; a pool already
+    above `usable` rows reports overflow untouched. On a CUDA pool the
+    steps are replays of a graph cached under `key`; on the CPU they run
+    eagerly."""
+    ceiling = _I64_MAX if max_iters is None else int(max_iters)
+    drain = max(int(drain_min), 1)
+
+    def going(status) -> bool:
+        size, overflow, iters = status
+        return size >= drain and not overflow and iters < ceiling
+
+    status = _status(state)
+    if status[0] > usable:
+        return state._replace(overflow=torch.ones_like(state.overflow))
+    if not going(status):
+        return state
+    if state.prmu.is_cuda:
+        return _run_graph(step_fn, key, state, ceiling, drain, steps, going)
+    dev = state.prmu.device
+    lim = torch.full((), ceiling, dtype=torch.int64, device=dev)
+    dmin = torch.full((), drain, dtype=torch.int32, device=dev)
+    while True:
+        for _ in range(steps):
+            state = step_fn(state, active=_loop_cond(state, dmin, lim))
+        if not going(_status(state)):
+            return state
 
 
 def run(tables: BoundTables, state: SearchState, lb_kind: int, chunk: int,
@@ -674,30 +814,35 @@ def run(tables: BoundTables, state: SearchState, lb_kind: int, chunk: int,
     the host (`fused.resolve_mode`). `steps_per_check` is for tests."""
     jobs, capacity = state.prmu.shape
     mode = fz.resolve_mode(fused, on_cuda=state.prmu.is_cuda)
-    ceiling = _I64_MAX if max_iters is None else int(max_iters)
-    drain = max(int(drain_min), 1)
+    step_fn = functools.partial(step, tables, lb_kind, chunk, tile=tile,
+                                fused=mode)
+    key = _graph_key(tables, state, lb_kind, chunk, tile, mode,
+                     steps_per_check)
+    return _drive(step_fn, key, state, row_limit(capacity, chunk, jobs),
+                  max_iters, drain_min, steps_per_check)
 
-    def going(status) -> bool:
-        size, overflow, iters = status
-        return size >= drain and not overflow and iters < ceiling
 
-    status = _status(state)
-    if status[0] > row_limit(capacity, chunk, jobs):
-        return state._replace(overflow=torch.ones_like(state.overflow))
-    if not going(status):
-        return state
-    if state.prmu.is_cuda:
-        return _run_graph(tables, state, lb_kind, chunk, tile, mode,
-                          ceiling, drain, steps_per_check, going)
-    dev = state.prmu.device
-    lim = torch.full((), ceiling, dtype=torch.int64, device=dev)
-    dmin = torch.full((), drain, dtype=torch.int32, device=dev)
-    while True:
-        for _ in range(steps_per_check):
-            state = step(tables, lb_kind, chunk, state, tile=tile,
-                         fused=mode, active=_loop_cond(state, dmin, lim))
-        if not going(_status(state)):
-            return state
+def run_problem(problem, tables, state: SearchState, lb_kind: int,
+                chunk: int, max_iters: int | None = None, tile: int = 1024,
+                drain_min: int = 1, fused=None,
+                steps_per_check: int = GRAPH_STEPS) -> SearchState:
+    """`run` for any plugin (JAX `run_problem`): the plugin's step
+    (`make_step`: PFSP's `step`, else `generic_step`) on the same loop,
+    with the plugin's overflow line `usable_rows` (its branching, not the
+    node width, sizes the scratch margin). The graph key carries the
+    problem's name; PFSP's is `run`'s, so the two share graphs. `fused`
+    is resolved as `run` does for a plugin that uses it
+    (`supports_fused`), else the mode is "off"."""
+    jobs, capacity = state.prmu.shape
+    mode = (fz.resolve_mode(fused, on_cuda=state.prmu.is_cuda)
+            if problem.supports_fused else "off")
+    step_fn = problem.make_step(tables, lb_kind, chunk, tile, None,
+                                fused=mode)
+    key = _graph_key(tables, state, lb_kind, chunk, tile, mode,
+                     steps_per_check, problem.name)
+    return _drive(step_fn, key, state,
+                  problem.usable_rows(capacity, chunk, jobs), max_iters,
+                  drain_min, steps_per_check)
 
 
 def run_growing(tables: BoundTables, state: SearchState, lb_kind: int,
@@ -755,3 +900,44 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
         explored_tree=c.tree, explored_sol=c.sol, best=c.best,
         iters=c.iters, evals=c.evals, overflow=False,
         complete=c.size == 0, telemetry=tele.summarize(out.telemetry))
+
+
+def solve(problem, table: np.ndarray, lb_kind: int | None = None,
+          init_ub: int | None = None, chunk: int = 64,
+          capacity: int | None = None, max_iters: int | None = None,
+          device="cuda", telemetry: bool | None = None) -> SearchResult:
+    """Host entry point for any registered problem (JAX `solve`): the
+    plugin's tables on `device`, the pool seeded from its root, then
+    `run_problem` to exhaustion; on overflow the pool is re-homed into
+    double the capacity (`checkpoint.grow`, lossless) and the run resumes
+    where it stopped. `problem` is a plugin or a registry name; `init_ub`
+    is in the engine's minimized domain (`Problem.engine_objective`);
+    `telemetry`: see `init_state`."""
+    from . import checkpoint
+
+    if isinstance(problem, str):
+        from .. import problems as problems_pkg
+        problem = problems_pkg.get(problem)
+    dev = resolve_device(device)
+    table = np.asarray(table)
+    if lb_kind is None:
+        lb_kind = problem.default_lb
+    tables = problem.make_tables(table, device=dev)
+    jobs = problem.slots(table)
+    if capacity is None:
+        capacity = problem.default_capacity(table)
+    prmu0, depth0 = problem.root(table)
+    state = init_state(jobs, capacity, init_ub, prmu0=prmu0, depth0=depth0,
+                       aux0=problem.seed_aux(table, prmu0, depth0),
+                       aux_dtype=problem.aux_dtype(table),
+                       telemetry=telemetry, device=dev)
+    while True:
+        out = run_problem(problem, tables, state, lb_kind, chunk, max_iters)
+        c = counters(out)
+        if not c.overflow:
+            return SearchResult(
+                explored_tree=c.tree, explored_sol=c.sol, best=c.best,
+                iters=c.iters, evals=c.evals, overflow=False,
+                complete=c.size == 0, telemetry=tele.summarize(out.telemetry))
+        capacity *= 2
+        state = checkpoint.grow(out, capacity)

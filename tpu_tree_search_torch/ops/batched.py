@@ -2,10 +2,18 @@
 
 Reproduces `tpu_tree_search/ops/batched.py`: `BoundTables`, `make_tables`
 (with `_calibrate_pair_order` and the 2^24 ceiling check), `pair_split`,
-`PAIR_PREFILTER`, `_child_fronts`, `lb1_from_parts` and
-`lb1d_from_parts`. The tables hold the same values in the same order
-(pairs strongest-first), so a bound computed here equals the JAX one
-exactly: all of it is int32 arithmetic.
+`PAIR_PREFILTER`, `parent_tables`, `_child_fronts`, `child_mask`, the
+`*_from_parts` chains, `lb1_children`, `lb1d_children`, `lb2_children`,
+`children_bounds` and `bounds_from_parts`. The tables hold the same values
+in the same order (pairs strongest-first), so a bound computed here equals
+the JAX one exactly: all of it is int32 arithmetic.
+
+The `*_children` functions recompute each parent's prefix tables and
+bound its dense (B, J) child grid in row-major torch operations, the
+reference's per-child semantics; the engine's routes carry the fronts in
+the pool and call the kernels' dispatchers (`ops/expand.py`) instead, so
+these stay off the main path (the tests hold them to the JAX ones and to
+the scalar oracle).
 
 Dtypes: permutations int16, bound arithmetic int32.
 """
@@ -18,6 +26,8 @@ import numpy as np
 import torch
 
 from . import reference as ref
+
+I32_MAX = 2**31 - 1
 
 
 class BoundTables(NamedTuple):
@@ -196,3 +206,112 @@ def lb1d_from_parts(t: BoundTables, front, remain, child_p):
         lb = torch.maximum(lb, tmp1 + remain[:, None, k] + back[k])
         tmp0 = tmp1 + child_p[..., k]
     return lb
+
+
+def parent_tables(t: BoundTables, prmu: torch.Tensor, depth: torch.Tensor):
+    """front and remain (B, M) int32 of each parent's prefix: positions
+    j < depth(b) scheduled (schedule_front + sum_unscheduled,
+    c_bound_simple.c:51-69, 108-124)."""
+    B, J = prmu.shape
+    M = t.p.shape[0]
+    depth = depth.reshape(B)
+    front = torch.zeros((B, M), dtype=torch.int32, device=prmu.device)
+    sched_sum = torch.zeros_like(front)
+    for j in range(J):
+        pj = t.p_t[prmu[:, j].long()]                      # (B, M)
+        active = (j < depth)[:, None]
+        chain = front[:, 0] + pj[:, 0]
+        cols = [chain]
+        for k in range(1, M):
+            chain = torch.maximum(chain, front[:, k]) + pj[:, k]
+            cols.append(chain)
+        front = torch.where(active, torch.stack(cols, dim=1), front)
+        sched_sum = sched_sum + torch.where(active, pj, 0)
+    return front, t.total_work[None, :] - sched_sum
+
+
+def child_mask(prmu: torch.Tensor, depth: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """(B, J) mask of real children: slot i exists iff depth <= i < J."""
+    B, J = prmu.shape
+    slots = torch.arange(J, device=prmu.device)
+    return (slots[None, :] >= depth.reshape(B, 1)) & valid.reshape(B, 1)
+
+
+def lb2_from_parts(t: BoundTables, prmu: torch.Tensor, depth: torch.Tensor,
+                   child_front: torch.Tensor) -> torch.Tensor:
+    """LB2 Johnson bound of every dense child from its front (lb2_bound,
+    c_bound_johnson.c:239-254), a full max over the pairs (the
+    reference's early exit fires only on a pruned child). (B, J) int32."""
+    B, J = prmu.shape
+    ar = torch.arange(J, dtype=torch.int32, device=prmu.device)
+    # slot_of_job[b, job] = the job's position in prmu[b]
+    slot_of_job = torch.zeros((B, J), dtype=torch.int32,
+                              device=prmu.device).scatter_(
+        1, prmu.long(), ar.expand(B, J).contiguous())
+    tmp0 = child_front[..., t.ma0.long()]                  # (B, J, P)
+    tmp1 = child_front[..., t.ma1.long()]
+    depth_b = depth.reshape(B, 1, 1)
+    for j in range(J):
+        slot = slot_of_job[:, t.js[:, j].long()][:, None, :]   # (B, 1, P)
+        # the job is unscheduled in the child unless it is the appended
+        # one (at slot i of the dense grid)
+        active = (slot >= depth_b) & (slot != ar[None, :, None])
+        new0 = tmp0 + t.ptm0_js[:, j]
+        new1 = torch.maximum(tmp1, new0 + t.lag_js[:, j]) + t.ptm1_js[:, j]
+        tmp0 = torch.where(active, new0, tmp0)
+        tmp1 = torch.where(active, new1, tmp1)
+    back0 = t.min_tails[t.ma0.long()]
+    back1 = t.min_tails[t.ma1.long()]
+    return torch.maximum(tmp1 + back1, tmp0 + back0).amax(dim=-1)
+
+
+def lb1_children(t: BoundTables, prmu, depth, valid) -> torch.Tensor:
+    """LB1 bound of every child (lb1_bound of the child permutation,
+    c_bound_simple.c:143-158, per child as evaluate_gpu_lb1,
+    PFSP_gpu_lib.cu:43-65). (B, J) int32; masked slots hold I32_MAX."""
+    front, remain = parent_tables(t, prmu, depth)
+    child_front, child_p = _child_fronts(t, prmu, front)
+    lb = lb1_from_parts(t, child_front, remain[:, None, :] - child_p)
+    return torch.where(child_mask(prmu, depth, valid), lb, I32_MAX)
+
+
+def lb1d_children(t: BoundTables, prmu, depth, valid) -> torch.Tensor:
+    """LB1_d bound of every child (per parent as evaluate_gpu_lb1_d,
+    PFSP_gpu_lib.cu:73-102). (B, J) int32; masked slots hold I32_MAX."""
+    front, remain = parent_tables(t, prmu, depth)
+    _, child_p = _child_fronts(t, prmu, front)
+    lb = lb1d_from_parts(t, front, remain, child_p)
+    return torch.where(child_mask(prmu, depth, valid), lb, I32_MAX)
+
+
+def lb2_children(t: BoundTables, prmu, depth, valid) -> torch.Tensor:
+    """LB2 bound of every child (per child as evaluate_gpu_lb2,
+    PFSP_gpu_lib.cu:105-127). (B, J) int32; masked slots hold I32_MAX."""
+    front, _ = parent_tables(t, prmu, depth)
+    child_front, _ = _child_fronts(t, prmu, front)
+    lb = lb2_from_parts(t, prmu, depth, child_front)
+    return torch.where(child_mask(prmu, depth, valid), lb, I32_MAX)
+
+
+def children_bounds(lb_kind: int):
+    """0 = LB1_d, 1 = LB1, 2 = LB2, as the reference's `decompose`
+    dispatches (PFSP_lib.h:30-48, PFSP_gpu_lib.cu:129-152)."""
+    return {0: lb1d_children, 1: lb1_children, 2: lb2_children}[lb_kind]
+
+
+def bounds_from_parts(lb_kind: int, t: BoundTables, prmu, depth, valid,
+                      front, remain, child_front, child_p,
+                      mask) -> torch.Tensor:
+    """The bound dispatch for callers that carry front and remain (no
+    prefix rescan); `valid` is folded into `mask` by the caller, as in
+    the JAX package. (B, J) int32; masked slots hold I32_MAX."""
+    if lb_kind == 0:
+        lb = lb1d_from_parts(t, front, remain, child_p)
+    elif lb_kind == 1:
+        lb = lb1_from_parts(t, child_front, remain[:, None, :] - child_p)
+    elif lb_kind == 2:
+        lb = lb2_from_parts(t, prmu, depth, child_front)
+    else:
+        raise ValueError(f"unknown lb_kind {lb_kind}")
+    return torch.where(mask, lb, I32_MAX)
