@@ -17,7 +17,8 @@ run with a non-zero exit code and no result line.
 Phases (one line each, then two JSON lines):
   1. the card (`nvidia-smi`), torch and CUDA versions
   2. kernel build, with ptxas's register and spill lines of every kernel
-     instance; any instance with a stack frame or spills fails
+     instance; any instance with a stack frame or spills fails; the
+     native host runtime (`g++`) builds beside it
   3. golden solves with ub=opt through the default route (ta003 LB2
      through the CLI, ta014 LB2 `dense`, 50x20 seed 51 LB2 and ta007 LB1
      fused, ta007 LB1_d, ta002 LB1 fused through the CLI), each path's
@@ -88,6 +89,23 @@ Phases (one line each, then two JSON lines):
      --problem pfsp` at chunk 64 (the fused `prefilter` route) and 4096
      (the dense route), each to the golden with its launches and equal to
      the `pfsp` command
+ 10. the multi-worker search (`distributed.search`, this slice's main
+     path), D = 4 workers on the one card (`mesh.worker_devices(devices=
+     [card] * 4)`): (a) ta014 LB2 ub=opt at chunk 4096 (dense) to the
+     golden, with balance rounds that moved nodes; (b) ta007 LB1_d ub=opt
+     to its golden; (c) case (a) under the plain versions, every worker's
+     counters equal to (a)'s; (d) ta021 LB2 ub=opt at chunk 65536,
+     capacity 2^22 per worker, fused, balance period 4: every worker's
+     live rows and counters after 2 macro-iterations (graph replays)
+     equal to a plain-kernel run's and to the same macro-iterations taken
+     eagerly, then 64 macro-iterations timed (ms each, evals/s
+     over the workers, host reads each, the balance round's device ms by
+     graph replays, per-worker sizes and steals, peak memory); (e) N-Queens
+     15 at chunk 65536 to its counts; (f) case (a) stopped after 2
+     segments with a stacked checkpoint and resumed on 2 workers, to (a)'s
+     totals; (g) `pfsp -i 14 -l 2 -u 1 -D 4` through the command, refused
+     with the device count when fewer than 4 cards are visible. The
+     `kernels` line's `dist_launches` are this phase's launches
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -101,6 +119,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -109,8 +129,9 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
 
-from tpu_tree_search_torch import cli, problems  # noqa: E402
+from tpu_tree_search_torch import cli, native, problems  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
+from tpu_tree_search_torch.engine import distributed  # noqa: E402
 from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
@@ -119,6 +140,7 @@ from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
 from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
+from tpu_tree_search_torch.parallel import mesh  # noqa: E402
 from tpu_tree_search_torch.problems import knapsack, nqueens  # noqa: E402
 from tpu_tree_search_torch.problems import taillard, tsp  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
@@ -310,10 +332,22 @@ def ptxas_instances(log: str) -> list[dict]:
     return out
 
 
+def timed_native_build() -> float:
+    t = time.perf_counter()
+    native.build()
+    return time.perf_counter() - t
+
+
+# the native host runtime (g++, the multi-worker warm-up's) builds beside
+# the kernels, so no timed phase below pays for it
 t0 = time.perf_counter()
-built = kernels.build()
+with ThreadPoolExecutor(1) as pool:
+    native_built = pool.submit(timed_native_build)
+    built = kernels.build()
+    native_s = native_built.result()
 say("build", seconds=round(time.perf_counter() - t0, 3),
-    per_source={k: round(v[0], 3) for k, v in built.items()})
+    per_source={k: round(v[0], 3) for k, v in built.items()},
+    native_host_runtime=round(native_s, 3))
 for stem, (_, log) in built.items():
     insts = ptxas_instances(log)
     for inst in insts:
@@ -1036,6 +1070,7 @@ def record(name, replaces, source, launches_key, err, ms, plain_ms,
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": LAUNCH_FROM[launches_key][launches_key],
+        "launches_key": launches_key,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": shape})
@@ -1577,8 +1612,189 @@ for chunk, route, expect in (
 plugin_graph_vs_eager("ta014 lb2 pfsp plugin chunk 4096", "pfsp",
                       taillard.processing_times(14), 2, 4096, 1 << 20)
 
+# --- phase 10: the multi-worker search ------------------------------------
+device.clear_graphs()
+W4 = mesh.worker_devices(devices=[DEV] * 4)
+W2 = mesh.worker_devices(devices=[DEV] * 2)
+P14 = taillard.processing_times(14)
+# the golden's chunk (dense route) and capacity; a surplus of 512 rows
+# donates, so the rounds move nodes on this small tree
+DIST14 = dict(lb_kind=2, init_ub=1377, chunk=4096, capacity=1 << 20,
+              min_transfer=512)
+DENSE = ("expand_emit", "expand_fronts", "lb2_sweep")
+DIST_FIELDS = ("tree", "sol", "evals", "iters", "steals", "sent", "recv")
+DIST_FROM: dict[str, dict] = {}
+t_phase10 = time.perf_counter()
+
+
+def dist_golden(label, res, want):
+    got = (res.explored_tree, res.explored_sol, res.best)
+    check(got == want and res.complete, f"{label}: {got} != {want}")
+
+
+# (a) ta014 LB2 ub=opt, dense, on four workers
+res_a, counts, secs = path_run("dist ta014 D=4", DENSE, lambda: (
+    distributed.search(P14, devices=W4, **DIST14)))
+dist_golden("dist ta014 D=4", res_a, (144639, 0, 1377))
+check(int(res_a.per_device["sent"].sum()) > 0,
+      "dist ta014: no balance round moved nodes")
+check(counts["fused_expand"] == 0 and counts["expand_bounds"] == 0
+      and counts["expand_fronts"] == counts["expand_emit"],
+      f"dist ta014 dense: launches {counts}")
+DIST_FROM.update(dict.fromkeys(DENSE, counts))
+say("dist ta014 lb2 D=4 (dense, chunk 4096)",
+    explored_tree=res_a.explored_tree, seconds=secs, launches=counts,
+    card=CARD, **{f: res_a.per_device[f].tolist() for f in DIST_FIELDS})
+
+# (b) ta007 LB1_d ub=opt at the golden's chunk
+res_b, counts, secs = path_run("dist ta007 lb1_d D=4", ("expand_bounds",),
+                               lambda: distributed.search(
+    taillard.processing_times(7), lb_kind=0, init_ub=1234, devices=W4,
+    chunk=4096, capacity=1 << 20))
+dist_golden("dist ta007 lb1_d D=4", res_b, (271602, 28447, 1234))
+DIST_FROM["expand_bounds"] = counts
+say("dist ta007 lb1_d D=4 (chunk 4096)", tree=res_b.explored_tree,
+    seconds=secs, launches=counts, card=CARD,
+    sent=res_b.per_device["sent"].tolist())
+
+# (c) case (a) through the plain versions: every worker's counters equal
+with plain_kernels():
+    res_c, counts, secs_c = path_run("dist ta014 D=4 plain", (), lambda: (
+        distributed.search(P14, devices=W4, **DIST14)))
+check(not any(counts.values()), f"dist ta014 plain: launches {counts}")
+for f in DIST_FIELDS:
+    check(np.array_equal(res_c.per_device[f], res_a.per_device[f]),
+          f"dist ta014: per-worker {f} differs under the plain versions")
+say("dist ta014 lb2 D=4: kernels vs plain versions", equal=True,
+    plain_seconds=secs_c)
+
+# (d) ta021 LB2 ub=opt at the bench shape: 2 macro-iterations against the
+# plain versions, then 64 timed
+P21 = taillard.processing_times(21)
+PF = problems.get("pfsp")
+C21, CAP21, BP21 = BENCH_CHUNK_DEFAULT, 1 << 22, 4
+TC21 = distributed.default_transfer_cap(C21, 20, 20, 4, aux_itemsize=2)
+DRV21 = distributed._problem_driver(PF, W4, P21, 2, C21, BP21, TC21,
+                                    2 * C21, fused="hw")
+FR21 = PF.warmup(P21, 2, taillard.optimal_makespan(21), target=32 * 4)
+FR21.aux = PF.seed_aux(P21, FR21.prmu, FR21.depth)
+
+
+def seed21():
+    return DRV21.seed(FR21, CAP21, 20,
+                      min(FR21.best, taillard.optimal_makespan(21)))
+
+
+def same_workers(label, xs, ys):
+    cx, cy = distributed.worker_counters(xs), distributed.worker_counters(ys)
+    for f in device.COUNTER_DTYPES:
+        check(np.array_equal(cx[f], cy[f]), f"{label}: worker {f} differs")
+    for x, y, n in zip(xs, ys, cx["size"]):
+        check(torch.equal(x.prmu[:, :n], y.prmu[:, :n])
+              and torch.equal(x.depth[:n], y.depth[:n])
+              and torch.equal(x.aux[:, :n], y.aux[:, :n]),
+              f"{label}: live rows differ")
+
+
+with plain_kernels():
+    plain21, _, _ = path_run("dist ta021 plain", (),
+                             lambda: DRV21.run(seed21(), max_iters=2 * BP21))
+s21, counts, secs = path_run("dist ta021 2 macro-iterations",
+                             ("fused_expand", "lb2_sweep"),
+                             lambda: DRV21.run(seed21(), max_iters=2 * BP21))
+same_workers("dist ta021 after 2 macro-iterations", s21, plain21)
+del plain21
+# the same 2 macro-iterations taken eagerly (no graph) on the kernels
+eager21 = seed21()
+body21 = DRV21.body(CAP21)
+ceiling21 = torch.full((), 2 * BP21, dtype=torch.int64, device=DEV)
+for _ in range(2):
+    eager21 = body21(eager21, distributed._loop_cond(eager21, ceiling21))
+same_workers("dist ta021 graph vs eager", s21, eager21)
+del eager21
+say("dist ta021 D=4: 2 macro-iterations, graph vs eager vs plain versions",
+    equal=True, seconds_with_capture=secs, launches=counts)
+torch.cuda.reset_peak_memory_stats(DEV)
+reads0, macros0 = DRV21.host_reads, DRV21.macro_iters
+c0 = distributed.worker_counters(s21)
+s21, counts, secs = path_run("dist ta021 64 macro-iterations",
+                             ("fused_expand", "lb2_sweep"),
+                             lambda: DRV21.run(s21,
+                                               max_iters=(2 + 64) * BP21))
+c1 = distributed.worker_counters(s21)
+reads, macros = DRV21.host_reads - reads0, DRV21.macro_iters - macros0
+check(macros >= 64 and reads <= macros and int(c1["iters"][0]) == 66 * BP21,
+      f"dist ta021: {macros} macro-iterations, {reads} reads")
+DIST_FROM.update(dict.fromkeys(("fused_expand", "lb2_sweep"), counts))
+peak = torch.cuda.max_memory_allocated(DEV)
+clones = [s._replace(prmu=s.prmu.clone(), depth=s.depth.clone(),
+                     aux=s.aux.clone()) for s in s21]
+ACT = torch.ones((), dtype=torch.bool, device=DEV)
+balance_ms = graph_ms(lambda: distributed._balance_round(
+    clones, TC21, 2 * C21, DRV21.limit(CAP21), ACT), 20)
+del clones
+say("dist ta021 lb2 D=4 (fused, chunk 65536, capacity 2^22 per worker, "
+    "balance period 4)", macro_iterations=macros, seconds=secs,
+    ms_per_macro_iteration=1e3 * secs / macros,
+    evals_per_s=float(c1["evals"].sum() - c0["evals"].sum()) / secs,
+    host_reads_per_macro_iteration=reads / macros,
+    balance_round_device_ms=balance_ms, transfer_cap=TC21,
+    sizes=c1["size"].tolist(), steals=c1["steals"].tolist(),
+    sent=c1["sent"].tolist(), peak_memory_bytes=peak, launches=counts,
+    card=CARD)
+del s21
+device.clear_graphs()
+
+# (e) N-Queens 15 on four workers (no incumbent: the counts hold for any D)
+res_e, counts, secs = path_run("dist nqueens 15", (), lambda: (
+    nqueens.search_distributed(15, chunk=65536, capacity=1 << 22,
+                               devices=W4)))
+check((res_e.explored_tree, res_e.explored_sol) == NQ15 and res_e.complete,
+      f"dist nqueens 15: {res_e.explored_tree}, {res_e.explored_sol}")
+check(not any(counts.values()), f"dist nqueens 15: kernels {counts}")
+say("dist nqueens N=15 D=4 (chunk 65536)", tree=res_e.explored_tree,
+    sol=res_e.explored_sol, seconds=secs, card=CARD,
+    sent=res_e.per_device["sent"].tolist())
+device.clear_graphs()
+
+# (f) case (a) stopped after two segments, resumed on two workers
+SEG10 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_dist_"))
+ck10 = str(SEG10 / "d14.npz")
+part, counts, _ = path_run("dist ta014 2 segments", DENSE, lambda: (
+    distributed.search(P14, devices=W4, segment_iters=BP21,
+                       checkpoint_path=ck10,
+                       should_stop=lambda rep: rep.segment >= 2, **DIST14)))
+check(not part.complete, "dist ta014: ended within two segments")
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    res_f, counts, secs = path_run("dist ta014 resumed on D=2", DENSE,
+                                   lambda: distributed.search(
+        P14, devices=W2, segment_iters=64, checkpoint_path=ck10, **DIST14))
+check(any("resharding" in str(w.message) for w in caught),
+      "dist ta014: no elastic reshard on the resume")
+dist_golden("dist ta014 resumed on D=2", res_f, (res_a.explored_tree,
+                                                 res_a.explored_sol,
+                                                 res_a.best))
+shutil.rmtree(SEG10)
+say("dist ta014: stacked checkpoint after 2 segments on D=4, resumed on "
+    "D=2", tree=res_f.explored_tree, seconds=secs, launches=counts)
+
+# (g) -D 4 through the command on this machine
+rc, out, err = cli_run(["pfsp", "-i", "14", "-l", "2", "-u", "1", "-D", "4"])
+if torch.cuda.device_count() < 4:
+    check(rc != 0 and "need 4 devices, have "
+          f"{torch.cuda.device_count()}" in err and "explored" not in out,
+          f"pfsp -D 4 on {torch.cuda.device_count()} card(s): {rc} {err}")
+else:
+    cli_golden("pfsp -D 4", rc, out)
+say("pfsp -i 14 -l 2 -u 1 -D 4 (command)", exit_code=rc,
+    stderr=err.strip(), cards=torch.cuda.device_count())
+say("phase 10 seconds", seconds=time.perf_counter() - t_phase10)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
+    key = r.pop("launches_key")
+    r["dist_launches"] = DIST_FROM[key][key] if key in DIST_FROM else 0
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

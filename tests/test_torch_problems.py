@@ -152,8 +152,12 @@ def test_plugin_spec_matches_jax(name):
             [(c.tolist(), d, b, leaf) for c, d, b, leaf in w]
     assert tp.display_objective(-7) == jp.display_objective(-7)
     assert tp.engine_objective(7) == jp.engine_objective(7)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tp.warmup(table, tp.default_lb, None, target=8)
+    # the multi-worker seed: the same frontier and warm-up counters
+    got = tp.warmup(table, tp.default_lb, None, target=8)
+    ref = jp.warmup(table, jp.default_lb, None, target=8)
+    assert (got.tree, got.sol, got.best) == (ref.tree, ref.sol, ref.best)
+    np.testing.assert_array_equal(got.prmu, ref.prmu)
+    np.testing.assert_array_equal(got.depth, ref.depth)
 
 
 # ------------------------------------------------------- branch / bound
@@ -484,9 +488,17 @@ def test_nqueens_command_gives_jax_numbers():
 @pytest.mark.parametrize("argv", [
     ["nqueens", "-N", "6", "-D", "4"],
     ["solve", "--problem", "tsp", "--size", "6", "-D", "2"]])
-def test_more_than_one_device_is_refused(argv):
-    rc, out, err = _cli([*argv, "--device", "cpu"])
-    assert rc == 2 and "ROADMAP A5" in err and "explored" not in out
+def test_more_than_one_device_is_refused(argv, monkeypatch):
+    """On the card `-D n` needs n visible cards: a one-card machine
+    refuses more, naming the count, before any search starts (`--device
+    cpu` runs n workers on the CPU: tests/test_torch_distributed.py)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rc, out, err = _cli(argv)
+    n = argv[argv.index("-D") + 1]
+    assert rc == 2 and f"need {n} devices, have 1" in err
+    assert "explored" not in out
 
 
 def test_solve_command_refusals():

@@ -1,7 +1,7 @@
 """Command line of the port: the `pfsp`, `nqueens` and `solve`
-subcommands on one device.
+subcommands, on one device or on several workers (`-D`).
 
-Reproduces the single-device paths of `tpu_tree_search/cli.py`:
+Reproduces these paths of `tpu_tree_search/cli.py`:
 `run_pfsp` -> `device.search`, and with `--segment-iters` or
 `--checkpoint` `_run_pfsp_segmented` -> `checkpoint.run_segmented`, which
 runs the search in bounded segments with a `[segment k]` heartbeat line,
@@ -19,14 +19,24 @@ either way.
 `nqueens` (`run_nqueens` -> `problems.nqueens.search`) and `solve`
 (`run_solve` -> `device.solve`, any registered problem, an instance from
 `-i`, `--size`/`--seed` or `--instance-json`) print the JAX CLI's lines
-and JSON fields, with "GPU" for "TPU". The port runs on one device: a
-`-D` above 1 exits with an error (the multi-device tier is ROADMAP A5).
+and JSON fields, with "GPU" for "TPU".
+
+`-D n` above 1 runs the multi-worker search (`engine/distributed.py`,
+the JAX CLI's distributed branches): on the card it needs n visible cards
+(`-D 0`: all of them) and exits 2 naming the count otherwise; with
+`--device cpu` it runs n workers on the CPU. `pfsp -D n` takes `-m` (the
+warm-up's nodes per worker), `--balance-period`, `-w`/`-L` (`-w 0 -L 0`
+turns balancing off: no surplus reaches the transfer threshold 2**30),
+`--max-iters` as a ceiling on balance rounds, and with `--segment-iters`
+or `--checkpoint` prints a `[segment k]` line with per-worker sizes and
+steals; its checkpoint is the stacked one either package resumes.
 
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1
     python -m tpu_tree_search_torch nqueens -N 15 --chunk 65536
     python -m tpu_tree_search_torch solve --problem knapsack --size 1000 -l 2
     python -m tpu_tree_search_torch pfsp -i 14 -l 2 --segment-iters 8 \\
         --checkpoint c.npz --max-iters 16     # then again, to resume
+    python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1 --device cpu -D 4
 """
 
 from __future__ import annotations
@@ -43,9 +53,12 @@ from .tune.defaults import CLI_CHUNK_DEFAULT
 from .utils import config as _cfg
 
 
-def _print_pfsp_settings(args, machines: int, jobs: int, device) -> None:
+def _print_pfsp_settings(args, machines: int, jobs: int, device,
+                         n_dev: int = 1) -> None:
     print("=" * 49)
-    print(f"GPU B&B (1 device(s) - {device})")
+    balancing = (f" - balancing [{int(bool(args.ws or args.L))}]"
+                 if n_dev > 1 else "")
+    print(f"GPU B&B ({n_dev} device(s) - {device}{balancing})")
     print(f"Resolution of PFSP Taillard's instance: ta{args.inst} "
           f"(m = {machines}, n = {jobs})")
     print("Initial upper bound: " + ("opt" if args.ub == 1 else "inf"))
@@ -72,14 +85,27 @@ def run_pfsp(args) -> int:
     from .utils import faults
 
     dev = device.resolve_device(args.device)
+    workers = _workers(args.D, dev)
+    if workers is None:
+        return 2
     p = taillard.processing_times(args.inst)
     jobs, machines = p.shape[1], p.shape[0]
     if args.capacity is None:
         args.capacity = device.default_capacity(jobs, machines)
     init_ub = taillard.optimal_makespan(args.inst) if args.ub == 1 else None
-    _print_pfsp_settings(args, machines, jobs, dev)
+    _print_pfsp_settings(args, machines, jobs, dev, len(workers))
     t0 = time.perf_counter()
-    if args.segment_iters is not None or args.checkpoint is not None:
+    if len(workers) > 1:
+        with (faults.scoped(args.faults) if args.faults
+              else contextlib.nullcontext()):
+            try:
+                res = _run_pfsp_distributed(args, p, init_ub, workers)
+            except (RuntimeError, ValueError, OSError) as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+        tree, sol, best = res.explored_tree, res.explored_sol, res.best
+        complete, summary = res.complete, res.telemetry
+    elif args.segment_iters is not None or args.checkpoint is not None:
         # the plan is this call's (an in-process caller keeps its own)
         with (faults.scoped(args.faults) if args.faults
               else contextlib.nullcontext()):
@@ -128,8 +154,8 @@ def _run_pfsp_segmented(args, p, init_ub, dev):
             raise ValueError(
                 f"{args.checkpoint} holds {len(meta['host_depth'])} node(s) "
                 "of the JAX CLI's -C host tier (meta host_prmu/host_depth); "
-                "that tier (engine/hybrid.py) is not yet ported, and "
-                "resuming without it would drop those nodes")
+                "that tier (engine/hybrid.py, ROADMAP A6) is not yet "
+                "ported, and resuming without it would drop those nodes")
         state = checkpoint.collapse_to_single_device(state, args.chunk, jobs,
                                                      device=dev)
         if args.grow_capacity:
@@ -167,18 +193,54 @@ def _run_pfsp_segmented(args, p, init_ub, dev):
     return out, warm_tree, warm_sol
 
 
-def _one_device(D: int, dev) -> int | None:
-    """The device count `-D` asks for (0: every visible device), or None
-    after printing why more than one cannot run."""
-    import torch
+def _run_pfsp_distributed(args, p, init_ub, workers):
+    """The JAX CLI's distributed branches: `distributed.search` over the
+    workers, segmented (a `[segment k]` line with per-worker sizes and
+    steals, stacked checkpoint and resume) when `--segment-iters` or
+    `--checkpoint` is given."""
+    from .engine import distributed
 
-    n = D if D > 0 else (torch.cuda.device_count() if dev.type == "cuda"
-                         else 1)
-    if n == 1:
-        return n
-    print(f"error: -D {D} asks for {n} devices; the port runs on one "
-          "device (the multi-device search is ROADMAP A5)", file=sys.stderr)
-    return None
+    if args.grow_capacity:
+        raise ValueError("--grow-capacity re-homes a one-device checkpoint; "
+                         "a -D run grows every pool on overflow by itself")
+
+    def heartbeat(r):
+        pw = (f" sizes={r.per_worker['size']}"
+              f" steals={r.per_worker['steals']}" if r.per_worker else "")
+        print(f"[segment {r.segment}] iters={r.iters} tree={r.tree} "
+              f"sol={r.sol} best={r.best} pool={r.pool_size}{pw} "
+              f"t={r.elapsed:.2f}s")
+
+    return distributed.search(
+        p, lb_kind=args.lb, init_ub=init_ub, devices=workers,
+        chunk=args.chunk, capacity=args.capacity,
+        balance_period=args.balance_period,
+        # balancing off (-w 0 -L 0): no surplus reaches the threshold, so
+        # every plan is empty while the loop condition still runs
+        min_transfer=None if (args.ws or args.L) else 2**30,
+        min_seed=args.m, max_rounds=args.max_iters,
+        segment_iters=args.segment_iters, checkpoint_path=args.checkpoint,
+        heartbeat=heartbeat, checkpoint_every=args.checkpoint_every,
+        telemetry=args.search_telemetry or None,
+        retry_attempts=args.retry_attempts,
+        segment_timeout_s=args.segment_timeout)
+
+
+def _workers(D: int, dev) -> list | None:
+    """The worker devices `-D` asks for: on the card, D visible cards (0:
+    every one); on the CPU, D workers on the CPU (0: one). None after
+    printing why they are not there."""
+    from .parallel import mesh
+
+    if D == 1:
+        return [dev]
+    try:
+        if dev.type == "cuda":
+            return mesh.worker_devices(D if D > 0 else None)
+        return mesh.worker_devices(devices=[dev] * max(D, 1))
+    except ValueError as e:
+        print(f"error: -D {D}: {e} (visible CUDA devices)", file=sys.stderr)
+        return None
 
 
 def run_nqueens(args) -> int:
@@ -186,17 +248,21 @@ def run_nqueens(args) -> int:
     from .problems import nqueens as nq
 
     dev = device.resolve_device(args.device)
-    n_dev = _one_device(args.D, dev)
-    if n_dev is None:
+    workers = _workers(args.D, dev)
+    if workers is None:
         return 2
     print("=" * 49)
-    print(f"GPU N-Queens ({n_dev} device(s))")
+    print(f"GPU N-Queens ({len(workers)} device(s))")
     print(f"Resolution of the {args.N}-Queens instance")
     print(f"  with {args.g} safety check(s) per evaluation")
     print("=" * 49)
     t0 = time.perf_counter()
-    out = nq.search(args.N, g=args.g, chunk=args.chunk,
-                    capacity=args.capacity, device=dev)
+    if len(workers) == 1:
+        out = nq.search(args.N, g=args.g, chunk=args.chunk,
+                        capacity=args.capacity, device=dev)
+    else:
+        out = nq.search_distributed(args.N, g=args.g, chunk=args.chunk,
+                                    capacity=args.capacity, devices=workers)
     elapsed = time.perf_counter() - t0
     print("=" * 49)
     print(f"Size of the explored tree: {out.explored_tree}")
@@ -262,7 +328,7 @@ def _solve_instance_table(args) -> np.ndarray:
 
 def run_solve(args) -> int:
     from . import problems
-    from .engine import device
+    from .engine import device, distributed
 
     try:
         prob = problems.get(args.problem)
@@ -270,7 +336,8 @@ def run_solve(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     dev = device.resolve_device(args.device)
-    if _one_device(args.D, dev) is None:
+    workers = _workers(args.D, dev)
+    if workers is None:
         return 2
     table = _solve_instance_table(args)
     reason = prob.validate(table)
@@ -285,9 +352,16 @@ def run_solve(args) -> int:
           f"{'x'.join(map(str, table.shape))} lb={lb} D={args.D}")
     print("=" * 49)
     t0 = time.perf_counter()
-    out = device.solve(prob, table, lb_kind=lb, init_ub=init_ub,
-                       chunk=args.chunk, capacity=args.capacity,
-                       max_iters=args.max_iters, device=dev)
+    if len(workers) == 1:
+        out = device.solve(prob, table, lb_kind=lb, init_ub=init_ub,
+                           chunk=args.chunk, capacity=args.capacity,
+                           max_iters=args.max_iters, device=dev)
+    else:
+        out = distributed.search(
+            table, problem=prob, lb_kind=lb, init_ub=init_ub,
+            devices=workers, chunk=args.chunk,
+            capacity=args.capacity or prob.default_capacity(table),
+            max_rounds=args.max_iters)
     elapsed = time.perf_counter() - t0
     print(json.dumps({
         "problem": prob.name, "explored_tree": out.explored_tree,
@@ -313,12 +387,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="lower bound: 0 lb1_d, 1 lb1, 2 lb2")
     p.add_argument("-u", dest="ub", type=int, choices=(0, 1), default=1,
                    help="initial upper bound: 1 the optimum, 0 infinity")
+    p.add_argument("-D", type=int, default=1,
+                   help="workers: on the card, visible cards (0: all); "
+                        "with --device cpu, workers on the CPU")
+    p.add_argument("-m", type=int, default=25,
+                   help="with -D > 1: warm-up frontier nodes per worker")
+    p.add_argument("-w", "--ws", type=int, default=1,
+                   help="with -D > 1: work stealing on (1) or off (0)")
+    p.add_argument("-L", type=int, default=1,
+                   help="with -D > 1: the same balance round (-w 0 -L 0 "
+                        "turns balancing off)")
+    p.add_argument("--balance-period", type=int, default=4,
+                   help="with -D > 1: steps between balance rounds")
     p.add_argument("--chunk", type=int, default=CLI_CHUNK_DEFAULT,
                    help="parents popped per step")
     p.add_argument("--capacity", type=int, default=None,
-                   help="initial pool rows (default: by instance class)")
+                   help="initial pool rows per worker (default: by "
+                        "instance class)")
     p.add_argument("--max-iters", type=int, default=None,
-                   help="stop after this many steps (a truncated run)")
+                   help="stop after this many steps (with -D > 1: balance "
+                        "rounds; a truncated run)")
     p.add_argument("--segment-iters", type=int, default=None,
                    help="run in bounded segments with heartbeat reports "
                         "(enables checkpointing)")
@@ -360,8 +448,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", type=int, default=1,
                    help="safety-check repetitions (work scaling)")
     p.add_argument("-D", type=int, default=1,
-                   help="devices (0: every visible one); the port runs "
-                        "on one")
+                   help="workers: on the card, visible cards (0: all); "
+                        "with --device cpu, workers on the CPU")
     p.add_argument("--chunk", type=int, default=CLI_CHUNK_DEFAULT)
     p.add_argument("--capacity", type=int, default=1 << 20)
     _device_arg(p)
@@ -376,7 +464,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-u", "--ub", type=int, default=None,
                    help="seed incumbent value (objective units)")
     p.add_argument("-D", type=int, default=1,
-                   help="devices (1 = the single-device engine)")
+                   help="workers (1: the single-device engine); on the "
+                        "card visible cards (0: all), with --device cpu "
+                        "workers on the CPU")
     p.add_argument("--chunk", type=int, default=64)
     p.add_argument("--capacity", type=int, default=None)
     p.add_argument("--max-iters", type=int, default=None,

@@ -59,11 +59,15 @@ def state_from_numpy(arrays: dict, device="cuda",
     return SearchState(**out)
 
 
-def state_to_numpy(state: SearchState, rows: int | None = None) -> dict:
+def state_to_numpy(state, rows: int | None = None) -> dict:
     """The state's fields as numpy arrays (pool, telemetry) and 0-d (or,
     for a stacked state, (D,)) arrays of the counters' dtypes, the
     counters read in one transfer. With `rows`, only each pool's first
-    `rows` rows."""
+    `rows` rows. A list of worker states (`engine/distributed.py`) gives
+    the stacked (D, ...) arrays."""
+    if isinstance(state, list):
+        per = [state_to_numpy(s, rows) for s in state]
+        return {f: np.stack([p[f] for p in per]) for f in per[0]}
     live = slice(None) if rows is None else slice(0, rows)
     out = {f: getattr(state, f)[..., live].cpu().numpy() for f in _DEVICE
            if f != "telemetry"}

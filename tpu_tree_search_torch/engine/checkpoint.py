@@ -1,6 +1,6 @@
-"""Checkpoint / resume for long searches on one device.
+"""Checkpoint / resume for long searches, on one device or many workers.
 
-Reproduces the single-device durability layer of
+Reproduces the sync durability layer of
 `tpu_tree_search/engine/checkpoint.py`:
 
 - `save`/`load`: snapshots of the live pool rows and every counter in the
@@ -19,6 +19,14 @@ Reproduces the single-device durability layer of
 - `run_segmented`: the sync segment driver, with heartbeat reports,
   checkpoints, stall detection, retry of transient errors, a wall-clock
   watchdog and the fault-injection points of `utils/faults.py`.
+
+Every function that takes a state also takes a multi-worker search's
+list of worker states (`engine/distributed.py`): `save` writes it as the
+JAX multi-device driver's stacked (D, ...) snapshot, `run_segmented`
+drives one `_DistDriver.run` a segment with per-worker heartbeat fields,
+and `load` returns a stacked snapshot as one stacked state, which the
+driver splits across its workers (`reshard_state` first when the worker
+count differs).
 
 `device.run` updates the pool in place (a captured CUDA graph holds it by
 address), where the JAX `run` is functional. So `run_segmented` keeps a
@@ -152,6 +160,21 @@ def _with_watchdog(fn, timeout_s: float | None, what: str,
     return box["result"]
 
 
+def _field(state, f: str) -> torch.Tensor:
+    """Field `f` of a state, or of a worker list stacked on the first
+    worker's device (a counter as (D,), the telemetry as (D, WIDTH))."""
+    if isinstance(state, list):
+        dev = state[0].prmu.device
+        return torch.stack([getattr(s, f).to(dev) for s in state])
+    return getattr(state, f)
+
+
+def _pool(state) -> torch.Tensor:
+    """A pool tensor of the state (the first worker's for a list): its
+    device and row capacity are the state's."""
+    return state[0].prmu if isinstance(state, list) else state.prmu
+
+
 def _fetch_many(xs: tuple, fire: bool = True) -> tuple:
     """Several device tensors of one device read back in ONE transfer (as
     int64, then cast back to each tensor's dtype), as numpy arrays of their
@@ -255,14 +278,14 @@ def _save_impl(path: str | pathlib.Path, state: SearchState,
     _write_snapshot(path, snapshot_arrays(state, meta))
 
 
-def snapshot_arrays(state: SearchState, meta: dict | None = None) -> dict:
-    """The checkpoint payload of a state, up to (not including) the schema
-    and CRC stamps: `size` read once, then the live rows `[..., :size]` of
-    each pool and the counters and telemetry vector (the counters in one
-    transfer)."""
-    n = int(state.size.max())
+def snapshot_arrays(state, meta: dict | None = None) -> dict:
+    """The checkpoint payload of a state (or a worker list, stacked), up to
+    (not including) the schema and CRC stamps: `size` read once, then the
+    live rows `[..., :size]` of each pool and the counters and telemetry
+    vector (the counters in one transfer)."""
+    n = int(_field(state, "size").max())
     arrays = convert.state_to_numpy(state, rows=n)
-    arrays["meta_capacity"] = np.asarray(state.prmu.shape[-1])
+    arrays["meta_capacity"] = np.asarray(_pool(state).shape[-1])
     arrays["meta_pool_layout"] = np.asarray(1)   # 1 = feature-major
     if meta:
         reserved = {"capacity", "pool_layout", "schema_version", "crc32"} \
@@ -626,6 +649,9 @@ class SegmentReport:
     best: int
     pool_size: int
     elapsed: float
+    # a multi-worker run's per-worker live sizes, cumulative steal counts,
+    # incumbents, iterations and evaluations; None on one device
+    per_worker: dict | None = None
     evals: int = 0               # cumulative bound evaluations
     # cumulative search telemetry (telemetry.summarize), None when the
     # state carries no telemetry vector
@@ -644,11 +670,11 @@ class _ReportFolder:
         self.stall_limit = stall_limit
         self.stalls = 0
         self.last = (start_iters, -1, -1)
-        self.tele_w = int(state.telemetry.shape[-1])
+        self.tele_w = int(_field(state, "telemetry").shape[-1])
         # a resumed state carries cumulative totals: the throughput counter
         # and the telemetry deltas count only this run's progress
-        tree, telem = _fetch_many((state.tree, state.telemetry),
-                                  fire=False)
+        tree, telem = _fetch_many((_field(state, "tree"),
+                                   _field(state, "telemetry")), fire=False)
         self.prev_tree = int(tree.sum())
         self.prev_tele = tele.merge(telem) if self.tele_w else None
         self.nodes_c = obs_metrics.default().counter(
@@ -656,8 +682,16 @@ class _ReportFolder:
             "explored-node throughput (segment deltas)")
 
     def fold(self, fetched: tuple, seg: int) -> SegmentReport:
-        f_iters, f_tree, f_sol, f_size, f_best, _, _, f_evals = fetched[:8]
+        f_iters, f_tree, f_sol, f_size, f_best, f_steals, _, f_evals = \
+            fetched[:8]
         tree = int(f_tree.sum())
+        per_worker = None
+        if f_size.ndim:                     # a worker list or stacked state
+            per_worker = {"size": f_size.tolist(),
+                          "steals": f_steals.tolist(),
+                          "best": f_best.tolist(),
+                          "iters": f_iters.tolist(),
+                          "evals": f_evals.tolist()}
         tele_summary = None
         if self.tele_w:
             merged = tele.merge(fetched[8])
@@ -678,7 +712,7 @@ class _ReportFolder:
             segment=seg, iters=int(f_iters.max()), tree=tree,
             sol=int(f_sol.sum()), best=int(f_best.min()),
             pool_size=int(f_size.sum()),
-            elapsed=time.perf_counter() - self.t0,
+            elapsed=time.perf_counter() - self.t0, per_worker=per_worker,
             evals=int(f_evals.sum()), telemetry=tele_summary)
 
     def check_stall(self, report: SegmentReport) -> None:
@@ -695,19 +729,25 @@ class _ReportFolder:
         self.last = key
 
 
-def _segment_copy(state: SearchState, rows: int) -> dict:
+def _segment_copy(state, rows: int):
     """A device copy of what a segment may change: the live rows
-    `[..., :rows]` of each pool, every counter and the telemetry
-    vector."""
+    `[..., :rows]` of each pool, every counter and the telemetry vector
+    (a list of them for a worker list)."""
+    if isinstance(state, list):
+        return [_segment_copy(s, rows) for s in state]
     saved = {f: getattr(state, f)[..., :rows].clone() for f in POOL_FIELDS}
     for f in (*COUNTER_DTYPES, "telemetry"):
         saved[f] = getattr(state, f).clone()
     return saved
 
 
-def _restore(state: SearchState, saved: dict) -> None:
+def _restore(state, saved) -> None:
     """Copy `_segment_copy`'s tensors back into the same tensors of
     `state` (the addresses a captured graph holds)."""
+    if isinstance(state, list):
+        for s, sv in zip(state, saved):
+            _restore(s, sv)
+        return
     for f, x in saved.items():
         dst = getattr(state, f)
         (dst[..., :x.shape[-1]] if f in POOL_FIELDS else dst).copy_(x)
@@ -727,7 +767,9 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
                   segment_timeout_s: float | None = None,
                   overlap: bool = False):
     """Drive `run_fn(state, target_total_iters) -> state` to exhaustion in
-    bounded segments (one device).
+    bounded segments. `state` is one device's SearchState or a worker list
+    (`engine/distributed.py`, whose `_DistDriver.run` is then `run_fn`;
+    the reports carry `per_worker`).
 
     `run_fn` receives a CUMULATIVE iteration ceiling (`device.run(...,
     max_iters=...)`'s semantics), offset by the incoming state's iteration
@@ -768,18 +810,18 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
         raise NotImplementedError(
             "run_segmented(overlap=True): the pipelined segment driver and "
             "its asynchronous checkpoint writer are not yet ported (ROADMAP "
-            "A5, with the multi-GPU slice); run with overlap=False")
+            "A5b); run with overlap=False")
     if retry_attempts is None:
         retry_attempts = _cfg.env_int("TTS_RETRY_ATTEMPTS")
     if retry_base_s is None:
         retry_base_s = _cfg.env_float("TTS_RETRY_BASE_S")
     if segment_timeout_s is None:
         segment_timeout_s = _cfg.env_float("TTS_SEG_TIMEOUT_S")
-    dev = state.prmu.device
+    dev = _pool(state).device
     t0 = time.perf_counter()
     seg = 0
-    start_iters, live = (int(x) for x in _fetch_many(
-        (state.iters, state.size), fire=False))
+    start_iters, live = (int(x.max()) for x in _fetch_many(
+        (_field(state, "iters"), _field(state, "size")), fire=False))
     folder = _ReportFolder(state, t0, stall_limit, start_iters)
     # the time the device waits on the host between segments (heartbeat,
     # checkpoint, stop checks)
@@ -836,11 +878,11 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
             # ONE transfer of every per-segment scalar (and the telemetry)
             fetched = _retry(
                 lambda: _with_watchdog(
-                    lambda: _fetch_many(
-                        (state.iters, state.tree, state.sol, state.size,
-                         state.best, state.steals, state.overflow,
-                         state.evals)
-                        + ((state.telemetry,) if folder.tele_w else ())),
+                    lambda: _fetch_many(tuple(
+                        _field(state, f) for f in
+                        ("iters", "tree", "sol", "size", "best", "steals",
+                         "overflow", "evals")
+                        + (("telemetry",) if folder.tele_w else ()))),
                     segment_timeout_s, f"segment {seg} result fetch", dev),
                 "per-segment host fetch", retry_attempts, retry_base_s)
             results_ready_t = time.monotonic()

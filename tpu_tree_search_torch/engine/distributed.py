@@ -1,0 +1,820 @@
+"""Multi-worker branch-and-bound: one process drives D workers, each with
+its own pool on its own `torch.device`.
+
+Reproduces `tpu_tree_search/engine/distributed.py`: `Frontier`,
+`default_transfer_cap`, `bfs_warmup` (the native runtime first, the
+Python warm-up after one warning), `_shard_frontier` (round-robin
+stripes `d::D`), `_balance_round`, `member_body` (one macro-iteration),
+the loop of `build_dist_loop`, `DistResult`, `fetch_state`,
+`_DistDriver` (`limit`, `seed`, `commit`, and `run`, which grows every
+pool x2 and resumes on overflow), `_problem_driver` and `search`.
+
+The JAX engine is one `shard_map`ped program over a mesh; here a search
+holds a list of single-device `SearchState`s, one per worker, and each
+collective is torch operations on device tensors that read nothing back:
+
+- `pmin(best)`: the minimum of the workers' `best`, written back to each;
+- `all_gather(size)`: a stack of the sizes;
+- the steal-half plan: `parallel/balance.exchange_plan` on the device;
+- `all_to_all`: for each (donor, receiver) pair a fixed-width
+  `transfer_cap` block gathered from the donor's stack top and copied to
+  the receiver's device (`.to`, a no-op when both share a device);
+- `argsort(~push, stable=True)`: `ops/columns.partition`;
+- `lax.cond`: selects, as `engine/device.py`'s steps do;
+- `psum(size) > 0` and the overflow `psum`: one host read of (total size,
+  any overflow, iters) per macro-iteration.
+
+A macro-iteration is `balance_period` local steps on every worker, the
+incumbent minimum and one balance round, gated as a whole by the loop
+condition evaluated on the device at its start (a macro-iteration whose
+condition fails is a no-op). When every worker is on one CUDA device,
+`_DistDriver.run` captures one macro-iteration as one CUDA graph (cached
+by the whole worker set's storage in `device._GRAPHS`) and replays it,
+reading the status once a replay; otherwise it runs the same
+macro-iterations eagerly. Either way the pools and counters after each
+macro-iteration are the JAX loop's, worker by worker.
+
+`stack_states`/`unstack_state` convert between the worker list and the
+stacked `(D, ...)` layout of `DistResult.per_device`, `fetch_state` and
+the checkpoint file.
+
+Left out of this slice, each raising `NotImplementedError` naming its
+ROADMAP item: the `-C` host tier (`host_fraction > 0`), the chunk ladder,
+the tuner, the incumbent board and adaptive `chunk=None` /
+`balance_period=None` (A6); the executor cache (`loop_cache`, A9); the
+overlapped segment driver (`overlap=True`) and multi-process runs (A5b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from collections import deque
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import convert
+from ..obs import tracelog
+from ..ops import columns as cols, fused as fz, kernels
+from ..ops import reference as ref
+from ..parallel import balance as bal
+from ..parallel.mesh import worker_devices
+from . import device, sequential as seq, telemetry as tele
+from .device import COUNTER_DTYPES, SearchState
+
+# per-worker byte budget for one balance round's transfer blocks (each
+# way); caps the default transfer_cap at production shapes
+BALANCE_BYTE_BUDGET = 64 << 20
+_I64_MAX = 2**63 - 1
+
+
+def default_transfer_cap(chunk: int, jobs: int, machines: int,
+                         n_dev: int, aux_itemsize: int = 4) -> int:
+    """Default balance transfer cap: 4*chunk, byte-budgeted. A round moves
+    (2J + aux_itemsize*A + 2) bytes per column over D*transfer_cap columns
+    each way per worker; the cap keeps that under BALANCE_BYTE_BUDGET."""
+    bytes_per_col = 2 * jobs + aux_itemsize * machines + 2
+    budget_cols = BALANCE_BYTE_BUDGET // (bytes_per_col * max(n_dev, 1))
+    return max(min(4 * chunk, budget_cols), 256)
+
+
+# ---------------------------------------------------------------------------
+# Step 1: the host warm-up
+
+_native_warned = False
+
+
+def _warn_native_unavailable(e: Exception) -> None:
+    """A broken native toolchain degrades loudly, once: the Python warm-up
+    gives the same frontier, much more slowly."""
+    global _native_warned
+    if not _native_warned:
+        _native_warned = True
+        warnings.warn(
+            f"native host runtime unavailable ({e!r}); falling back to "
+            "the pure-Python warm-up (identical results, much slower). "
+            "Check `g++` and tpu_tree_search_torch/native/__init__.py:build.",
+            RuntimeWarning, stacklevel=3)
+
+
+@dataclasses.dataclass
+class Frontier:
+    prmu: np.ndarray    # (n, jobs) int16
+    depth: np.ndarray   # (n,) int16
+    tree: int           # counters accumulated during warm-up
+    sol: int
+    best: int
+    aux: np.ndarray | None = None  # (n, A) per-node aux rows, in the
+                                   # pool's aux dtype
+
+
+def bfs_warmup(p_times: np.ndarray, lb_kind: int, init_ub: int | None,
+               target: int, use_native: bool = True) -> Frontier:
+    """Pop-front BFS until the frontier holds >= target nodes (or the tree
+    is exhausted), with the oracle's decompose semantics, so warm-up
+    counters plus device counters add up to the sequential totals. The
+    native runtime (`native.bfs_frontier`) first; the Python path below
+    gives the same frontier."""
+    if use_native:
+        try:
+            from .. import native
+            prmu, depth, tree, sol, best = native.bfs_frontier(
+                p_times, lb_kind, init_ub, target)
+            return Frontier(prmu=prmu, depth=depth, tree=tree, sol=sol,
+                            best=best)
+        except Exception as e:  # noqa: BLE001 — any build or load failure
+            _warn_native_unavailable(e)
+    jobs = p_times.shape[1]
+    lb1 = ref.make_lb1_data(p_times)
+    lb2 = ref.make_lb2_data(lb1) if lb_kind == seq.LB2 else None
+    best = seq.INT_MAX if init_ub is None else int(init_ub)
+    tree = sol = 0
+
+    frontier: deque[tuple[np.ndarray, int]] = deque(
+        [(np.arange(jobs, dtype=np.int16), 0)])
+    while frontier and len(frontier) < target:
+        prmu, depth = frontier.popleft()
+        limit1 = depth - 1
+        if lb_kind == seq.LB1_D:
+            lb_begin = ref.lb1_children_bounds(lb1, prmu, limit1, jobs)
+        for i in range(depth, jobs):
+            child = prmu.copy()
+            child[depth], child[i] = child[i], child[depth]
+            if lb_kind == seq.LB1:
+                bound = ref.lb1_bound(lb1, child, limit1 + 1, jobs)
+            elif lb_kind == seq.LB1_D:
+                bound = int(lb_begin[int(prmu[i])])
+            else:
+                bound = ref.lb2_bound(lb1, lb2, child, limit1 + 1, jobs, best)
+            if depth + 1 == jobs:
+                sol += 1
+                if bound < best:
+                    best = bound
+            elif bound < best:
+                frontier.append((child, depth + 1))
+                tree += 1
+
+    if frontier:
+        prmu = np.stack([f[0] for f in frontier]).astype(np.int16)
+        depth = np.array([f[1] for f in frontier], dtype=np.int16)
+    else:
+        prmu = np.zeros((0, jobs), np.int16)
+        depth = np.zeros((0,), np.int16)
+    return Frontier(prmu=prmu, depth=depth, tree=tree, sol=sol, best=best)
+
+
+# ---------------------------------------------------------------------------
+# The worker list and the stacked layout
+
+
+def stack_states(states: list[SearchState]) -> SearchState:
+    """The workers' states as one stacked (D, ...) state on the first
+    worker's device."""
+    dev = states[0].prmu.device
+    return SearchState(*(torch.stack([x.to(dev) for x in xs])
+                         for xs in zip(*states)))
+
+
+def unstack_state(stacked: SearchState, devices) -> list[SearchState]:
+    """A stacked (D, ...) state as D worker states, worker d's on
+    devices[d], each in storage of its own."""
+    return [SearchState(*(x[d].to(dev, copy=True) for x in stacked))
+            for d, dev in enumerate(devices)]
+
+
+def worker_counters(states: list[SearchState]) -> dict:
+    """Every worker's counters as (D,) numpy arrays of the JAX dtypes, read
+    in one transfer."""
+    dev0 = states[0].prmu.device
+    flat = torch.stack([getattr(s, f).to(dev0).long()
+                        for f in COUNTER_DTYPES for s in states])
+    vals = flat.cpu().numpy().reshape(len(COUNTER_DTYPES), len(states))
+    return {f: v.astype(convert.np_dtype(dt))
+            for v, (f, dt) in zip(vals, COUNTER_DTYPES.items())}
+
+
+def fetch_state(states: list[SearchState]) -> SearchState:
+    """Every worker's state on the host as one stacked SearchState of numpy
+    arrays (the JAX `fetch_state`'s layout)."""
+    return SearchState(**convert.state_to_numpy(states))
+
+
+# ---------------------------------------------------------------------------
+# Step 2: the macro-iteration
+
+
+def _loop_cond(states: list[SearchState], max_iters) -> torch.Tensor:
+    """The JAX loop's `while_loop` condition as a device bool on the first
+    worker's device: work left somewhere, no worker overflowed, and the
+    (common) iteration count below `max_iters`."""
+    dev0 = states[0].prmu.device
+    size = torch.stack([s.size.to(dev0) for s in states]).sum()
+    ovf = torch.stack([s.overflow.to(dev0) for s in states]).any()
+    return (size > 0) & ~ovf & (states[0].iters < max_iters)
+
+
+def _status(states: list[SearchState]) -> torch.Tensor:
+    """(total size, any overflow, iters) as one int64 device vector."""
+    dev0 = states[0].prmu.device
+    size = torch.stack([s.size.to(dev0).long() for s in states]).sum()
+    ovf = torch.stack([s.overflow.to(dev0) for s in states]).any()
+    return torch.stack([size, ovf.long(), states[0].iters])
+
+
+def _pmin(states: list[SearchState], active) -> list[SearchState]:
+    """`pmin(best)`: the workers' minimum incumbent, written to each."""
+    dev0 = states[0].prmu.device
+    best = torch.stack([s.best.to(dev0) for s in states]).min()
+    return [s._replace(best=torch.where(active.to(s.prmu.device),
+                                        best.to(s.prmu.device), s.best))
+            for s in states]
+
+
+def _balance_round(states: list[SearchState], transfer_cap: int,
+                   min_transfer: int, limit: int,
+                   active: torch.Tensor) -> list[SearchState]:
+    """One steal-half exchange across the workers (JAX `_balance_round`),
+    a no-op unless `active`.
+
+    The sizes are stacked and the plan computed on the first worker's
+    device. Each donor gathers its outgoing rows off its stack top into D
+    blocks of `transfer_cap` columns (columns past the pair's flow marked
+    as holes by depth -1); receiver e takes block e of every donor, copies
+    it to its device, compacts the received rows to the front
+    (`columns.partition`) and writes the D*transfer_cap-column block at
+    its new base. The round is globally transactional: if any receiver
+    would pass `limit`, no worker exchanges or commits and every worker's
+    overflow flag is set (the driver grows every pool and resumes). A
+    round that does not flow writes its block at `limit`, in the headroom
+    the driver reserves above it, which no live row reaches."""
+    D = len(states)
+    dev0 = states[0].prmu.device
+    capacity = states[0].prmu.shape[-1]
+    tc = transfer_cap
+    sizes = torch.stack([s.size.to(dev0) for s in states])
+    plan = bal.exchange_plan(sizes, tc, min_transfer)
+    total_out = plan.sum(1, dtype=torch.int32)
+    total_in = plan.sum(0, dtype=torch.int32)
+    base = sizes - total_out
+    ovf = ((base + total_in) > limit).any() & active
+    do_flow = (plan.sum() > 0) & ~ovf & active
+
+    offs = torch.cumsum(plan, 1, dtype=torch.int32) - plan
+    k = torch.arange(tc, dtype=torch.int32, device=dev0)
+    rows = (base[:, None, None] + offs[:, :, None] + k).clamp(0, capacity - 1)
+    send = k < plan[:, :, None]                              # (D, D, tc)
+    blocks = []
+    for d, s in enumerate(states):
+        dev = s.prmu.device
+        r = rows[d].reshape(-1).long().to(dev)
+        hole = ~send[d].reshape(-1).to(dev)
+        blocks.append((s.prmu.index_select(1, r), s.aux.index_select(1, r),
+                       s.depth.index_select(0, r).masked_fill(hole, -1)))
+
+    out = []
+    n_cols = D * tc
+    for e, s in enumerate(states):
+        dev = s.prmu.device
+        blk = slice(e * tc, (e + 1) * tc)
+        r_prmu = torch.cat([b[0][:, blk].to(dev) for b in blocks], 1)
+        r_aux = torch.cat([b[1][:, blk].to(dev) for b in blocks], 1)
+        r_depth = torch.cat([b[2][blk].to(dev) for b in blocks])
+        push = r_depth >= 0
+        order = cols.partition(push)
+        n_push = push.sum(dtype=torch.int32)
+        flow = do_flow.to(dev)
+        my_base = base[e].to(dev)
+        at = torch.where(flow, my_base, limit).long()
+        cols_at = at + torch.arange(n_cols, device=dev)
+        s.prmu.index_copy_(1, cols_at, r_prmu[:, order])
+        s.depth.index_copy_(0, cols_at, r_depth[order])
+        s.aux.index_copy_(1, cols_at, r_aux[:, order])
+
+        sent = total_out[e].to(dev).long()
+        got = n_push.long()
+
+        def keep(new, old, flow=flow):
+            return torch.where(flow, new, old)
+
+        telem = s.telemetry
+        if telem.shape[-1] > 0:
+            # the steal-flow slots mirror sent/recv, under the same guard
+            slot = torch.arange(telem.shape[-1], device=dev)
+            flow_in = (torch.where(slot == tele.O_STEAL_SENT, sent, 0)
+                       + torch.where(slot == tele.O_STEAL_RECV, got, 0))
+            telem = keep(telem + flow_in, telem)
+        out.append(s._replace(
+            telemetry=telem,
+            size=keep(my_base + n_push, s.size),
+            sent=keep(s.sent + sent, s.sent),
+            recv=keep(s.recv + got, s.recv),
+            steals=keep(s.steals + (n_push > 0).long(), s.steals),
+            overflow=s.overflow | ovf.to(dev)))
+    return out
+
+
+def member_body(step_fns, balance_period: int, transfer_cap: int,
+                min_transfer: int, limit: int):
+    """One macro-iteration (JAX `member_body`): `balance_period` local
+    steps on every worker, the incumbent minimum and one balance round,
+    all a no-op unless the device bool `active`. `step_fns[d]` is worker
+    d's step (`Problem.make_step` at the tightened `limit`). Steps are
+    issued step-major, so workers on different devices run together."""
+
+    def body(states: list[SearchState], active) -> list[SearchState]:
+        acts = [active.to(s.prmu.device) for s in states]
+        states = list(states)
+        for _ in range(balance_period):
+            for d, fn in enumerate(step_fns):
+                states[d] = fn(states[d], active=acts[d])
+        states = _pmin(states, active)
+        return _balance_round(states, transfer_cap, min_transfer, limit,
+                              active)
+
+    return body
+
+
+# ---------------------------------------------------------------------------
+# Host entry point
+
+
+class DistResult:
+    def __init__(self, explored_tree, explored_sol, best, per_device,
+                 warmup_tree, warmup_sol, complete=True, telemetry=None,
+                 problem: str = "pfsp"):
+        self.explored_tree = explored_tree
+        self.explored_sol = explored_sol
+        self.best = best
+        self.per_device = per_device        # dict of (D,) arrays
+        self.warmup_tree = warmup_tree
+        self.warmup_sol = warmup_sol
+        self.complete = complete            # all pools drained
+        self.telemetry = telemetry          # telemetry.summarize dict, or
+                                            # None when the vector is off
+        self.problem = problem              # registry name
+
+
+def _shard_frontier(fr: Frontier, n_dev: int, jobs: int, init_best: int,
+                    limit: int) -> dict:
+    """Round-robin stripes of the frontier, worker d taking rows `d::D`
+    (the reference's roundRobin_distribution): a stacked dict of numpy
+    arrays keyed by state field, each pool as wide as the widest stripe
+    (the driver re-homes it into the pool capacity). Every stripe must
+    fit under `limit`."""
+    aux_w = 0 if fr.aux is None else fr.aux.shape[1]
+    width = -(-len(fr.depth) // n_dev)
+    assert width <= limit, (width, limit)
+    prmu = np.zeros((n_dev, jobs, width), np.int16)
+    depth = np.zeros((n_dev, width), np.int16)
+    aux = np.zeros((n_dev, aux_w, width),
+                   fr.aux.dtype if aux_w else np.int32)
+    sizes = np.zeros(n_dev, np.int32)
+    for d in range(n_dev):
+        n = len(fr.depth[d::n_dev])
+        prmu[d, :, :n] = fr.prmu[d::n_dev].T
+        depth[d, :n] = fr.depth[d::n_dev]
+        if aux_w:
+            aux[d, :, :n] = fr.aux[d::n_dev].T
+        sizes[d] = n
+    zeros = np.zeros(n_dev, np.int64)
+    return dict(prmu=prmu, depth=depth, aux=aux, size=sizes,
+                best=np.full(n_dev, init_best, np.int32),
+                tree=zeros, sol=zeros, iters=zeros, evals=zeros,
+                sent=zeros, recv=zeros, steals=zeros,
+                overflow=np.zeros(n_dev, bool),
+                telemetry=np.zeros((n_dev, tele.enabled_width()), np.int64))
+
+
+class _DistGraph(NamedTuple):
+    """One captured macro-iteration: the graph, each worker's counters and
+    telemetry vector it reads and writes, its iteration ceiling, the
+    status it leaves and the kernel launches of one replay."""
+
+    graph: torch.cuda.CUDAGraph
+    counters: list
+    telemetry: list
+    max_iters: torch.Tensor
+    status: torch.Tensor
+    launches: dict
+
+
+class _DistDriver:
+    """Runs the macro-iteration loop over a fixed worker list, with
+    lossless overflow recovery: on overflow every pool is re-homed into
+    double the capacity (checkpoint.grow) and the search resumes exactly
+    where it stopped.
+
+    `limit_fn(capacity)` is the problem's usable-row bound; `limit` tightens
+    it so the balance round's D*transfer_cap receive block also fits above
+    it, and both the local steps and the round's commit use the tightened
+    limit. `host_reads` counts the status reads of `run` (one per
+    macro-iteration) and `macro_iters` the macro-iterations it issued."""
+
+    def __init__(self, devices, make_tables, make_local_step,
+                 balance_period: int, transfer_cap: int, min_transfer: int,
+                 limit_fn, name: str = "pfsp", key: tuple = ()):
+        self.devices = list(devices)
+        self.n_dev = len(self.devices)
+        self.tables = {}
+        for dev in self.devices:
+            if dev not in self.tables:
+                self.tables[dev] = make_tables(dev)
+        self.make_local_step = make_local_step
+        self.balance_period = balance_period
+        self.transfer_cap = transfer_cap
+        self.min_transfer = min_transfer
+        self.limit_fn = limit_fn
+        self.name = name
+        self.key = tuple(key)
+        self.n_recv = self.n_dev * transfer_cap
+        self._bodies: dict[int, object] = {}
+        self.host_reads = 0
+        self.macro_iters = 0
+
+    def limit(self, capacity: int) -> int:
+        return min(self.limit_fn(capacity), capacity - self.n_recv)
+
+    def body(self, capacity: int):
+        """The macro-iteration for pools of `capacity` rows."""
+        if capacity not in self._bodies:
+            lim = self.limit(capacity)
+            steps = [self.make_local_step(self.tables[dev], lim)
+                     for dev in self.devices]
+            self._bodies[capacity] = member_body(
+                steps, self.balance_period, self.transfer_cap,
+                self.min_transfer, lim)
+        return self._bodies[capacity]
+
+    def commit(self, state: SearchState) -> list[SearchState]:
+        """A stacked (D, ...) state (any device) as the worker list."""
+        return unstack_state(state, self.devices)
+
+    def seed(self, frontier: Frontier, capacity: int, jobs: int,
+             init_best: int) -> list[SearchState]:
+        """Stripe a warm-up frontier across the workers, pre-growing the
+        pool until a stripe fits under the usable-row limit."""
+        stripe = -(-max(len(frontier.depth), 1) // self.n_dev)
+        while self.limit(capacity) < max(stripe, 1):
+            capacity *= 2
+        arrays = _shard_frontier(frontier, self.n_dev, jobs, init_best,
+                                 self.limit(capacity))
+        return [convert.state_from_numpy({f: a[d] for f, a in arrays.items()},
+                                         dev, capacity=capacity)
+                for d, dev in enumerate(self.devices)]
+
+    def _graph_ok(self, states) -> bool:
+        devs = {s.prmu.device for s in states}
+        return len(devs) == 1 and next(iter(devs)).type == "cuda"
+
+    def _graph_key(self, states, capacity: int) -> tuple:
+        tensors = []
+        for dev in self.devices:
+            t = self.tables[dev]
+            tensors += ([t] if isinstance(t, torch.Tensor)
+                        else [x for x in t if isinstance(x, torch.Tensor)])
+        for s in states:
+            tensors += [s.prmu, s.depth, s.aux]
+        storage = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                        for t in tensors)
+        return ("dist", self.name, self.key, self.balance_period,
+                self.transfer_cap, self.min_transfer, capacity,
+                states[0].telemetry.shape[-1], storage)
+
+    def _capture(self, states, capacity: int) -> _DistGraph:
+        """Capture one macro-iteration on `states`' pools (updated in
+        place, at the addresses the graph holds). One no-op macro-iteration
+        runs first on a side stream, so that every kernel's first launch
+        and the allocator's first blocks happen outside the capture."""
+        body = self.body(capacity)
+        dev = states[0].prmu.device
+        static = [s._replace(
+            **{f: getattr(s, f).clone() for f in COUNTER_DTYPES},
+            telemetry=s.telemetry.clone()) for s in states]
+        max_iters = torch.zeros((), dtype=torch.int64, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body(static, torch.zeros((), dtype=torch.bool, device=dev))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        kernels.take_captured()
+        status = torch.zeros(3, dtype=torch.int64, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = body(static, _loop_cond(static, max_iters))
+            for s, o in zip(static, out):
+                for f in COUNTER_DTYPES:
+                    getattr(s, f).copy_(getattr(o, f))
+                s.telemetry.copy_(o.telemetry)
+            status.copy_(_status(out))
+        return _DistGraph(
+            graph, [{f: getattr(s, f) for f in COUNTER_DTYPES}
+                    for s in static],
+            [s.telemetry for s in static], max_iters, status,
+            kernels.take_captured())
+
+    def _run_graph(self, states, ceiling: int, capacity: int, going):
+        key = self._graph_key(states, capacity)
+        g = device._GRAPHS.pop(key, None)
+        if g is None:
+            g = self._capture(states, capacity)
+        device._GRAPHS[key] = g
+        while len(device._GRAPHS) > device._GRAPH_CACHE:
+            device._GRAPHS.popitem(last=False)
+        for s, ctr, tv in zip(states, g.counters, g.telemetry):
+            for f, t in ctr.items():
+                t.copy_(getattr(s, f))
+            tv.copy_(s.telemetry)
+        g.max_iters.fill_(ceiling)
+        while True:
+            kernels.replay(g.graph, g.launches)
+            self.macro_iters += 1
+            status = g.status.tolist()
+            self.host_reads += 1
+            if not going(status):
+                break
+        out = [s._replace(**{f: t.clone() for f, t in ctr.items()},
+                          telemetry=tv.clone())
+               for s, ctr, tv in zip(states, g.counters, g.telemetry)]
+        return out, status
+
+    def _drive(self, states, ceiling: int, capacity: int):
+        """Macro-iterations until the loop condition fails, reading (total
+        size, any overflow, iters) once after each; returns (states,
+        last status)."""
+
+        def going(status) -> bool:
+            size, overflow, iters = status
+            return size > 0 and not overflow and iters < ceiling
+
+        if self._graph_ok(states):
+            return self._run_graph(states, ceiling, capacity, going)
+        body = self.body(capacity)
+        lim = torch.full((), ceiling, dtype=torch.int64,
+                         device=states[0].prmu.device)
+        while True:
+            states = body(states, _loop_cond(states, lim))
+            self.macro_iters += 1
+            status = _status(states).tolist()
+            self.host_reads += 1
+            if not going(status):
+                return states, status
+
+    def run(self, states: list[SearchState],
+            max_iters=None) -> list[SearchState]:
+        """Run until exhaustion or the cumulative per-worker iteration
+        ceiling, growing every pool x2 and resuming on overflow. The pools
+        are updated in place (until a growth re-homes them)."""
+        from . import checkpoint
+
+        ceiling = _I64_MAX if max_iters is None else int(max_iters)
+        while True:
+            capacity = states[0].prmu.shape[-1]
+            states, status = self._drive(states, ceiling, capacity)
+            if not status[1]:
+                return states
+            states = [checkpoint.grow(s, capacity * 2) for s in states]
+
+
+def _resolve_problem(problem):
+    """Registry name or plugin object -> plugin object."""
+    if isinstance(problem, str):
+        from .. import problems as problems_pkg
+        return problems_pkg.get(problem)
+    return problem
+
+
+def _problem_driver(problem, devices, table, lb_kind: int, chunk: int,
+                    balance_period: int, transfer_cap: int,
+                    min_transfer: int, fused: str = "off") -> _DistDriver:
+    """The driver of any registered problem: the plugin's tables on each
+    worker device, its step (`make_step`, fused mode `fused` where the
+    plugin uses one) and its usable-row bound."""
+    table = np.asarray(table)
+    jobs = problem.slots(table)
+    if not problem.supports_fused:
+        fused = "off"
+
+    def make_local_step(t, limit):
+        return problem.make_step(t, lb_kind, chunk, 1024, limit, fused=fused)
+
+    return _DistDriver(
+        devices, lambda dev: problem.make_tables(table, device=dev),
+        make_local_step, balance_period, transfer_cap, min_transfer,
+        limit_fn=lambda cap: problem.usable_rows(cap, chunk, jobs),
+        name=problem.name,
+        key=(jobs, int(table.shape[0]), lb_kind, chunk, fused))
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"distributed.search: {what} is not ported yet (ROADMAP {item})")
+
+
+def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
+           n_devices: int | None = None, chunk: int | None = 64,
+           capacity: int = 1 << 17, balance_period: int | None = 4,
+           transfer_cap: int | None = None, min_transfer: int | None = None,
+           min_seed: int = 32, max_rounds: int | None = None,
+           devices: list | None = None,
+           segment_iters: int | None = None,
+           checkpoint_path: str | None = None,
+           checkpoint_every: int = 1,
+           heartbeat=None, host_fraction: int = 0,
+           stop_event=None, should_stop=None,
+           loop_cache=None, checkpoint_meta_extra=None,
+           overlap: bool | None = None,
+           incumbent_board=None, ladder: bool | None = None, tuner=None,
+           problem="pfsp", telemetry: bool | None = None,
+           retry_attempts: int | None = None,
+           segment_timeout_s: float | None = None) -> DistResult:
+    """Multi-worker branch-and-bound (the JAX `search`).
+
+    The workers are `parallel.mesh.worker_devices(n_devices, devices)`: the
+    visible cards by default, or any list of devices (repeats allowed:
+    several workers on one card, or on the CPU). A host warm-up
+    (`Problem.warmup`) makes a frontier of >= `min_seed` nodes per worker,
+    striped round-robin across the pools; the workers then run
+    macro-iterations of `balance_period` steps each, an incumbent minimum
+    and a steal-half balance round (`transfer_cap` columns per pair at
+    most, `min_transfer` the smallest surplus that donates), until every
+    pool is empty or each worker has taken `max_rounds * balance_period`
+    steps. An overflow grows every pool x2 and resumes.
+
+    With `segment_iters`, `checkpoint_path`, `stop_event` or
+    `should_stop` the loop runs in segments (`checkpoint.run_segmented`):
+    `heartbeat(SegmentReport)` after each (with per-worker sizes and
+    steals), a stacked checkpoint in the JAX file format (meta
+    `warmup_tree`, `warmup_sol` and `problem`; `checkpoint_meta_extra`, a
+    dict or a callable returning one, merged in), and a stop at the next
+    segment boundary. An existing checkpoint is resumed, on any worker
+    count (elastic: `checkpoint.reshard_state`); one written by another
+    problem is refused.
+
+    `problem` is a registry name or a plugin; `p_times` its instance table.
+    The PFSP step takes the fused route on CUDA workers and the unfused one
+    on the CPU (`ops/fused.resolve_mode`). `telemetry` (None: the
+    TTS_SEARCH_TELEMETRY flag) gives each pool the telemetry vector;
+    `retry_attempts` and `segment_timeout_s` go to `run_segmented` (None:
+    its environment defaults)."""
+    from . import checkpoint
+
+    if host_fraction > 0:
+        raise _not_ported("the -C host tier (host_fraction > 0)", "A6")
+    if ladder:
+        raise _not_ported("the chunk ladder (ladder=True)", "A6")
+    if tuner is not None:
+        raise _not_ported("the tuner", "A6")
+    if incumbent_board is not None:
+        raise _not_ported("the cross-request incumbent board", "A6")
+    if chunk is None or balance_period is None:
+        raise _not_ported("adaptive chunk/balance_period (None, from "
+                          "tune/defaults)", "A6")
+    if loop_cache is not None:
+        raise _not_ported("the executor cache (loop_cache)", "A9")
+    if overlap:
+        raise _not_ported("the overlapped segment driver (overlap=True)",
+                          "A5b")
+
+    prob = _resolve_problem(problem)
+    table = np.asarray(p_times)
+    devs = worker_devices(n_devices, devices)
+    n_dev = len(devs)
+    jobs = prob.slots(table)
+    mode = fz.resolve_mode(None, on_cuda=devs[0].type == "cuda")
+    adt = prob.aux_dtype(table)
+    resumed = None
+    if checkpoint_path and checkpoint.resume_path(checkpoint_path):
+        # loaded before the balance buffers are sized: a resume keeps the
+        # saved pools' aux dtype
+        state, meta, _ = checkpoint.load_resilient(
+            checkpoint_path, p_times=table if prob.name == "pfsp" else None,
+            device="cpu")
+        saved_prob = meta.get("problem")
+        saved_prob = ("pfsp" if saved_prob is None
+                      else str(np.asarray(saved_prob)))
+        if saved_prob != prob.name:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} was written by problem "
+                f"{saved_prob!r}; refusing to resume it as "
+                f"{prob.name!r} (pick a fresh tag/checkpoint path)")
+        if len(np.asarray(meta.get("host_depth", ()))):
+            raise ValueError(
+                f"{checkpoint_path} holds "
+                f"{len(np.asarray(meta['host_depth']))} node(s) of the JAX "
+                "package's -C host tier (meta host_prmu/host_depth); that "
+                "tier is not yet ported (ROADMAP A6), and resuming without "
+                "it would drop those nodes")
+        adt = state.aux.dtype
+        resumed = (state, meta)
+    if transfer_cap is None:
+        transfer_cap = default_transfer_cap(
+            chunk, jobs, prob.aux_rows(table), n_dev,
+            aux_itemsize=adt.itemsize)
+    min_transfer = min_transfer or 2 * chunk
+    driver = _problem_driver(prob, devs, table, lb_kind, chunk,
+                             balance_period, transfer_cap, min_transfer,
+                             fused=mode)
+
+    if resumed is not None:
+        host_state, meta = resumed
+        shape = tuple(host_state.prmu.shape)
+        if len(shape) != 3 or shape[0] != n_dev:
+            old = shape[0] if len(shape) == 3 else 1
+            warnings.warn(
+                f"resharding checkpoint {checkpoint_path} from {old} to "
+                f"{n_dev} workers (elastic resume)", RuntimeWarning,
+                stacklevel=2)
+            host_state = checkpoint.reshard_state(host_state, n_dev,
+                                                  device="cpu")
+        # re-home into a capacity whose usable-row limit covers the
+        # fullest pool
+        cap0 = cap = host_state.prmu.shape[-1]
+        need = int(host_state.size.max())
+        while driver.limit(cap) < max(need, 1):
+            cap *= 2
+        if cap != cap0:
+            host_state = checkpoint.grow(host_state, cap)
+        fr = Frontier(prmu=np.zeros((0, jobs), np.int16),
+                      depth=np.zeros(0, np.int16),
+                      tree=int(meta.get("warmup_tree", 0)),
+                      sol=int(meta.get("warmup_sol", 0)),
+                      best=int(host_state.best.min()))
+        states = driver.commit(host_state)
+        del host_state
+    else:
+        with tracelog.span("bfs_warmup", problem=prob.name,
+                           target=min_seed * n_dev) as ws:
+            fr = prob.warmup(table, lb_kind, init_ub,
+                             target=min_seed * n_dev)
+            ws.set(frontier=len(fr.depth), tree=fr.tree)
+        init_best = (fr.best if init_ub is None
+                     else min(fr.best, int(init_ub)))
+        fr.aux = prob.seed_aux(table, fr.prmu, fr.depth)
+        states = driver.seed(fr, capacity, jobs, init_best)
+        if telemetry is not None:
+            width = tele.WIDTH if telemetry else 0
+            states = [s._replace(telemetry=torch.zeros(
+                width, dtype=torch.int64, device=s.prmu.device))
+                for s in states]
+
+    max_iters = (None if max_rounds is None
+                 else max_rounds * balance_period)
+    stop_fn = None
+    if stop_event is not None or should_stop is not None:
+        def stop_fn(rep):
+            return ((stop_event is not None and stop_event.is_set())
+                    or (should_stop is not None and should_stop(rep)))
+    if (segment_iters is None and checkpoint_path is None
+            and stop_fn is None):
+        with tracelog.span("engine.run", workers=n_dev):
+            out = driver.run(states, max_iters)
+    else:
+        ckpt_meta = {"warmup_tree": fr.tree, "warmup_sol": fr.sol,
+                     # the snapshot's problem stamp: a resume refuses a
+                     # cross-problem re-home (checked above)
+                     "problem": prob.name,
+                     "host_prmu": np.zeros((0, jobs), np.int16),
+                     "host_depth": np.zeros(0, np.int16)}
+        if checkpoint_meta_extra is not None:
+            base_meta = ckpt_meta
+
+            def ckpt_meta():
+                extra = (checkpoint_meta_extra()
+                         if callable(checkpoint_meta_extra)
+                         else checkpoint_meta_extra)
+                return {**base_meta, **extra}
+
+        out = checkpoint.run_segmented(
+            lambda s, target: driver.run(s, max_iters=target), states,
+            segment_iters=segment_iters or 2048,
+            checkpoint_path=checkpoint_path, heartbeat=heartbeat,
+            checkpoint_every=checkpoint_every, max_total_iters=max_iters,
+            checkpoint_meta=ckpt_meta, should_stop=stop_fn,
+            retry_attempts=retry_attempts,
+            segment_timeout_s=segment_timeout_s)
+
+    c = worker_counters(out)
+    best = int(c["best"].min())
+    tree = int(c["tree"].sum()) + fr.tree
+    complete = int(c["size"].sum()) == 0
+    tracelog.event(
+        "engine.complete", workers=n_dev, tree=tree, best=best,
+        iters=int(c["iters"].max()),
+        balance_rounds=int(c["iters"].max()) // max(balance_period, 1),
+        steals=int(c["steals"].sum()), complete=complete)
+    summary = None
+    if out[0].telemetry.shape[-1] > 0:
+        summary = tele.summarize(torch.stack(
+            [s.telemetry.cpu() for s in out]))
+    return DistResult(
+        explored_tree=tree,
+        explored_sol=int(c["sol"].sum()) + fr.sol,
+        best=best, telemetry=summary,
+        per_device={"tree": c["tree"], "sol": c["sol"], "iters": c["iters"],
+                    "evals": c["evals"], "sent": c["sent"],
+                    "recv": c["recv"], "steals": c["steals"],
+                    "final_size": c["size"]},
+        warmup_tree=fr.tree, warmup_sol=fr.sol, complete=complete,
+        problem=prob.name)

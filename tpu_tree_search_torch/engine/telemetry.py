@@ -12,7 +12,9 @@ same no-commit guard as the counters:
   gaps of 100 % and more, and every child bounded before an incumbent
   exists);
 - the pool's high-water mark;
-- the work-steal flow slots (zero on one device);
+- the work-steal flow slots (zero on one device; a multi-worker search's
+  balance round adds each committed round's sent and received rows,
+  `engine/distributed._balance_round`);
 - a ring of the last RING (iteration, value) incumbent improvements and
   their total count.
 
@@ -25,9 +27,10 @@ best and evals are the same on or off.
 The update ops are torch ops on the device vector and read nothing back
 (a CUDA graph of the step holds them);
 `bound_hist` is `ops/columns.py`'s, which the fused kernel's plain version
-bins with too. `summarize`, `merge` (the checkpoint and reshard folding
-rule), `delta_counts` and `frontier_depth` are numpy views on the host.
-`publish` belongs to the observability layer, which is not ported yet.
+bins with too. `summarize`, `merge` (the checkpoint, reshard and
+multi-worker folding rule), `delta_counts` and `frontier_depth` are numpy
+views on the host; `publish` writes a summary into an `obs/metrics`
+registry as labelled gauges.
 """
 
 from __future__ import annotations
@@ -224,3 +227,54 @@ def summarize(arr) -> dict | None:
         "pruning_rate": round(float(pruned.sum()) / max(evaluated, 1), 6),
         "frontier_depth": frontier_depth(popped),
     }
+
+
+# --------------------------------------------------- metrics registry view
+
+# every labelled series `publish` writes
+SERIES = (
+    "tts_search_popped", "tts_search_branched", "tts_search_pruned",
+    "tts_search_bound_gap", "tts_search_pruning_rate",
+    "tts_search_frontier_depth", "tts_search_pool_highwater",
+    "tts_search_steal_sent", "tts_search_steal_recv",
+    "tts_search_improvements",
+)
+
+
+def publish(summary: dict | None, registry, **labels) -> None:
+    """Write a `summarize` dict into an `obs/metrics` Registry as gauges
+    labelled with `labels` (gauges: the values are set from cumulative
+    snapshots, so a resumed checkpoint does not count twice)."""
+    if not summary:
+        return
+    g = registry.gauge
+    for name, key in (("tts_search_popped", "popped"),
+                      ("tts_search_branched", "branched"),
+                      ("tts_search_pruned", "pruned")):
+        m = g(name, f"{key} nodes by relative-depth bucket (cumulative)")
+        for k, v in enumerate(summary[key]):
+            m.set(v, bucket=k, **labels)
+    m = g("tts_search_bound_gap",
+          "child bound-value histogram by relative gap to the incumbent")
+    for k, v in enumerate(summary["bound_hist_pruned"]):
+        m.set(v, outcome="pruned", bin=k, **labels)
+    for k, v in enumerate(summary["bound_hist_surviving"]):
+        m.set(v, outcome="surviving", bin=k, **labels)
+    g("tts_search_pruning_rate",
+      "pruned / evaluated non-leaf children (cumulative)").set(
+        summary["pruning_rate"], **labels)
+    g("tts_search_frontier_depth",
+      "mean relative depth of popped nodes (0=root, 1=leaves)").set(
+        summary["frontier_depth"], **labels)
+    g("tts_search_pool_highwater",
+      "pool-occupancy high-water mark (live rows)").set(
+        summary["pool_highwater"], **labels)
+    g("tts_search_steal_sent",
+      "nodes donated via balance exchanges").set(
+        summary["steal_sent"], **labels)
+    g("tts_search_steal_recv",
+      "nodes received via balance exchanges").set(
+        summary["steal_recv"], **labels)
+    g("tts_search_improvements",
+      "incumbent improvements recorded on-device").set(
+        summary["improvements"], **labels)

@@ -27,9 +27,9 @@ The instance is one 2-D integer table: PFSP (machines, jobs) processing
 times; N-Queens (g, n), both knobs in the shape; TSP the (n, n) distance
 matrix; knapsack (3, n) rows weights, values and [capacity, 0, ...].
 
-`warmup`, the host BFS frontier that seeds the multi-device search, needs
-`engine/distributed.Frontier`, which the port does not have yet (ROADMAP
-A5); it raises.
+`warmup` is the host BFS frontier (`engine/distributed.Frontier`) that
+seeds the multi-worker search; by default a pop-front BFS over
+`host_children`.
 
 `problems/__init__.py` registers the four built-in plugins at import;
 `get(name)` is the one place a name resolves.
@@ -140,12 +140,43 @@ class Problem:
 
     def warmup(self, table: np.ndarray, lb_kind: int,
                init_ub: int | None, target: int):
-        """The host BFS frontier that seeds the multi-device search
-        (`engine/distributed.Frontier` in the JAX package)."""
-        raise NotImplementedError(
-            f"{self.name}: the warm-up frontier seeds the multi-device "
-            "search (engine/distributed.py), which the port does not have "
-            "yet (ROADMAP A5)")
+        """Host BFS frontier of >= `target` nodes (or the exhausted tree)
+        with its warm-up counters (`engine/distributed.Frontier`), the
+        multi-worker search's seed. Default: pop-front BFS over
+        `host_children`, with the plugin's accounting rule."""
+        from collections import deque
+
+        from ..engine.distributed import Frontier
+
+        best = I32_MAX if init_ub is None else int(init_ub)
+        tree = sol = 0
+        prmu0, depth0 = self.root(table)
+        frontier: deque = deque(
+            (np.asarray(p, np.int16), int(d))
+            for p, d in zip(prmu0, depth0))
+        while frontier and len(frontier) < target:
+            node, depth = frontier.popleft()
+            if not self.leaf_in_evals and depth == self.slots(table):
+                sol += 1
+                continue
+            for child, cdepth, bound, is_leaf in self.host_children(
+                    table, node, depth, best, lb_kind=lb_kind):
+                if self.leaf_in_evals and is_leaf:
+                    sol += 1
+                    if bound < best:
+                        best = bound
+                elif bound < best:
+                    frontier.append((child, cdepth))
+                    tree += 1
+        J = self.slots(table)
+        if frontier:
+            prmu = np.stack([f[0] for f in frontier]).astype(np.int16)
+            depth = np.array([f[1] for f in frontier], np.int16)
+        else:
+            prmu = np.zeros((0, J), np.int16)
+            depth = np.zeros(0, np.int16)
+        return Frontier(prmu=prmu, depth=depth, tree=tree, sol=sol,
+                        best=best)
 
     def host_children(self, table: np.ndarray, node: np.ndarray,
                       depth: int, best: int, *, lb_kind: int = 1):

@@ -1,7 +1,8 @@
 """N-Queens as a plugin of the generic engine (permutation backtracking).
 
 Reproduces `tpu_tree_search/problems/nqueens.py`: `SOLUTION_COUNTS`,
-`root_node`, `is_safe`, `table`, `NQueensProblem` and `search`. A node is
+`root_node`, `is_safe`, `table`, `NQueensProblem`, `search` and
+`search_distributed`. A node is
 a permutation `board` of column -> row plus a `depth`: queens
 `0..depth-1` are placed (reference: NQueens_node.h:11-17). Its children
 swap `board[depth] <-> board[j]` for each `j in depth..N-1` whose row is
@@ -10,8 +11,8 @@ conflict by construction. A node at depth N is a solution.
 
 `g` repeats the safety test to scale the work (nqueens_c.c:80-96); it
 does not change the result. Solution counts (OEIS A000170) are the
-oracle. `search_distributed` waits for the multi-device tier (ROADMAP
-A5).
+oracle. `search_distributed` runs the multi-worker search
+(`engine/distributed.py`).
 """
 
 from __future__ import annotations
@@ -126,3 +127,22 @@ def search(n: int, g: int = 1, chunk: int = 64, capacity: int = 1 << 18,
     return dev_mod.solve(PROBLEM, table(n, g), lb_kind=0, chunk=chunk,
                          capacity=capacity, max_iters=max_iters,
                          device=device)
+
+
+def search_distributed(n: int, g: int = 1, n_devices: int | None = None,
+                       chunk: int = 64, capacity: int = 1 << 17,
+                       balance_period: int = 4, min_seed: int = 32,
+                       transfer_cap: int | None = None,
+                       min_transfer: int | None = None,
+                       devices: list | None = None):
+    """Multi-worker N-Queens through the generic engine, with the transfer
+    defaults 4*chunk / 2*chunk (not the byte-budgeted
+    `default_transfer_cap`, whose 256-column floor would resize
+    small-chunk runs). `devices`: see `parallel.mesh.worker_devices`."""
+    from ..engine import distributed
+    return distributed.search(
+        table(n, g), problem="nqueens", lb_kind=0, n_devices=n_devices,
+        devices=devices, chunk=chunk, capacity=capacity,
+        balance_period=balance_period, min_seed=min_seed,
+        transfer_cap=transfer_cap or 4 * chunk,
+        min_transfer=min_transfer or 2 * chunk)

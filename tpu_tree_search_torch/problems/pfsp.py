@@ -12,8 +12,8 @@ each `i in depth..jobs-1` (PFSP_lib.c:7-42).
 `PFSPProblem.make_step` returns `engine/device.step`, so a search through
 the plugin (`device.solve`, the `solve` command) takes the same route and
 kernels as `device.search`: the fused kernel, the pair sweeps and the
-expand kernel on the card. `warmup` needs the multi-device tier
-(ROADMAP A5) and raises.
+expand kernel on the card. `warmup` is `engine/distributed.bfs_warmup`
+(the native runtime's breadth-first frontier).
 """
 
 from __future__ import annotations
@@ -139,6 +139,12 @@ class PFSPProblem(base.Problem):
         if len(depth) == 0:
             return np.zeros((0, m), adt)
         return ref.prefix_front_remain(t, prmu, depth)[:, :m].astype(adt)
+
+    def warmup(self, table: np.ndarray, lb_kind: int,
+               init_ub: int | None, target: int):
+        from ..engine import distributed
+        return distributed.bfs_warmup(np.asarray(table), lb_kind, init_ub,
+                                      target)
 
     def host_children(self, table: np.ndarray, node: np.ndarray,
                       depth: int, best: int, *, lb_kind: int = 1):
