@@ -106,6 +106,18 @@ Phases (one line each, then two JSON lines):
      totals; (g) `pfsp -i 14 -l 2 -u 1 -D 4` through the command, refused
      with the device count when fewer than 4 cards are visible. The
      `kernels` line's `dist_launches` are this phase's launches
+ 11. the `-C` host tier (`engine/hybrid.py`, this slice's main path): the
+     native host session beside the device loop, incumbents merged at
+     every segment, the residue drained on host threads. Through the
+     `pfsp` command: (a) ta008 LB2 ub=opt at chunk 65536 (dense) against
+     the same command without -C, with the session's counters; (b) ta016
+     LB2 ub=opt at chunk 65536 (its route recorded); (c) ta007 LB1_d;
+     (d) ta014 LB2 ub=inf (live incumbent); (e) ta014 LB2 segmented with
+     a checkpoint, stopped at 8 steps, resumed with -C and, a second
+     copy, without; (f) `distributed.search` on four workers on the card
+     with the tier; (g) the `--csv` rows of (a) and (f) in the JAX CLI's
+     schema with measured timing columns. The `kernels` line's
+     `hybrid_launches` are this phase's launches
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -114,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -131,12 +144,13 @@ if not torch.cuda.is_available():
 
 from tpu_tree_search_torch import cli, native, problems  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
-from tpu_tree_search_torch.engine import distributed  # noqa: E402
+from tpu_tree_search_torch.engine import distributed, hybrid  # noqa: E402
 from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
 from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
+from tpu_tree_search_torch.obs import tracelog  # noqa: E402
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
 from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
@@ -145,7 +159,8 @@ from tpu_tree_search_torch.problems import knapsack, nqueens  # noqa: E402
 from tpu_tree_search_torch.problems import taillard, tsp  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
-from tpu_tree_search_torch.utils import faults  # noqa: E402
+from tpu_tree_search_torch.utils import csv_stats, faults  # noqa: E402
+from tpu_tree_search_torch.utils import phase_timing  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEV = torch.device("cuda", 0)
@@ -1791,10 +1806,172 @@ say("pfsp -i 14 -l 2 -u 1 -D 4 (command)", exit_code=rc,
     stderr=err.strip(), cards=torch.cuda.device_count())
 say("phase 10 seconds", seconds=time.perf_counter() - t_phase10)
 
+# --- phase 11: the -C host tier -------------------------------------------
+device.clear_graphs()
+t_phase11 = time.perf_counter()
+HYB = dict.fromkeys(kernels.LAUNCHES, 0)
+HOST_KEYS = ("host_tree", "host_sol", "host_expanded", "host_drained",
+             "exchanges", "host_improved", "dev_improved")
+CSV11 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_hybrid_"))
+
+
+def counts_of(text: str) -> tuple:
+    return tuple(int(ln.rsplit(": ", 1)[1]) for ln in text.splitlines()
+                 if ln.startswith(("Size of the explored tree",
+                                   "Number of explored solutions",
+                                   "Optimal makespan")))
+
+
+STAGES = {}
+
+
+def hybrid_cli(label, argv, expect=()):
+    """One `pfsp -C 1` command as a path run; returns (counts, the
+    `hybrid.search` result it made, or None, launches, seconds,
+    stderr). STAGES[label] keeps the seconds of hybrid.search's stage
+    spans (warm-up, seeding, device loop, drain, join)."""
+    prev = tracelog.install(tracelog.TraceLog(capacity=1024))
+    try:
+        with recording(hybrid, "search") as made:
+            (rc, text, err), counts, secs = path_run(label, expect,
+                                                     lambda: cli_run(argv))
+    finally:
+        STAGES[label] = {r["name"]: r["dur"]
+                         for r in tracelog.install(prev).records()
+                         if r["kind"] == "span"
+                         and r["name"].startswith("hybrid.")}
+    check(rc == 0, f"{label}: exit code {rc}: {err}")
+    for k, v in counts.items():
+        HYB[k] += v
+    return counts_of(text), (made[0] if made else None), counts, secs, err
+
+
+def host_fields(res) -> dict:
+    return {k: int(res.per_device[k][0]) for k in HOST_KEYS}
+
+
+# (a) ta008 LB2 ub=opt at the bench chunk, the dense route, with -C and
+# without; the session searched its share and merged at least once
+A8 = ["pfsp", "-i", "8", "-l", "2", "-u", "1", "--chunk", "65536"]
+A8_GOLD = (13_940_189, 0, 1206)
+check(device.lb2_route(20, 5, 10, 65536)[0] == "dense", "ta008 route")
+csv_a = str(CSV11 / "a.csv")
+got, res, counts_a, secs_c, err = hybrid_cli(
+    "ta008 -C 1", A8 + ["-C", "1", "--csv", csv_a], DENSE)
+check(got == A8_GOLD, f"ta008 -C 1: {got}")
+check(res.per_device["host_expanded"][0] > 0
+      and res.per_device["exchanges"][0] >= 1, f"ta008 -C 1: {res.per_device}")
+check("phase profiling failed" not in err, f"ta008 --csv: {err}")
+(rc, text, _), _, secs_plain = path_run("ta008 without -C", DENSE,
+                                        lambda: cli_run(A8))
+check(rc == 0 and counts_of(text) == got, "ta008 without -C differs")
+say("ta008 lb2 -C 1 (dense, chunk 65536)", tree=got[0], sol=got[1],
+    best=got[2], seconds=secs_c, seconds_without_C=secs_plain,
+    stage_seconds=STAGES["ta008 -C 1"], launches=counts_a, card=CARD,
+    **host_fields(res),
+    dev_tree=int(res.per_device["tree"][0]),
+    iters=int(res.per_device["iters"][0]))
+
+# (b) ta016 LB2 ub=opt at the bench chunk (20x10: its route recorded)
+route16 = device.lb2_route(20, 10, 45, 65536)[0]
+got, res, counts, secs, _ = hybrid_cli(
+    "ta016 -C 1", ["pfsp", "-i", "16", "-l", "2", "-u", "1", "--chunk",
+                   "65536", "-C", "1"], ("lb2_sweep",))
+check(got == (2_646_205, 0, 1397), f"ta016 -C 1: {got}")
+check(res.per_device["host_expanded"][0] > 0, "ta016: no host work")
+mode16 = "fused" if counts["fused_expand"] else "unfused"
+say("ta016 lb2 -C 1 (chunk 65536)", tree=got[0], route=route16, mode=mode16,
+    seconds=secs, stage_seconds=STAGES["ta016 -C 1"], launches=counts,
+    card=CARD, **host_fields(res))
+
+# (c) ta007 LB1_d ub=opt: the bounds-only kernel beside the host tier
+got, res, counts, secs, _ = hybrid_cli(
+    "ta007 lb1_d -C 1", ["pfsp", "-i", "7", "-l", "0", "-u", "1", "--chunk",
+                         "4096", "-C", "1"], ("expand_bounds",))
+check(got == (271_602, 28_447, 1234), f"ta007 lb1_d -C 1: {got}")
+say("ta007 lb1_d -C 1 (chunk 4096)", tree=got[0], sol=got[1], seconds=secs,
+    launches=counts, card=CARD, **host_fields(res))
+
+# (d) ta014 LB2 ub=inf: a live incumbent, exchanged both ways
+got, res, counts, secs, _ = hybrid_cli(
+    "ta014 ub=inf -C 1", ["pfsp", "-i", "14", "-l", "2", "-u", "0", "--chunk",
+                          "4096", "-C", "1"], DENSE)
+check(got[2] == 1377 and got[0] >= 144_639, f"ta014 ub=inf -C 1: {got}")
+say("ta014 lb2 ub=inf -C 1 (dense, chunk 4096)", tree=got[0], best=got[2],
+    seconds=secs, launches=counts, card=CARD, **host_fields(res))
+
+# (e) ta014 segmented with -C, stopped at 8 steps; one copy resumed with
+# -C (the session from the saved share), the other without (the share
+# pushed back into the pool)
+E14 = ["pfsp", "-i", "14", "-l", "2", "-u", "1", "--chunk", "4096",
+       "--capacity", "1048576", "--segment-iters", "4", "--checkpoint"]
+for resume_c in (["-C", "1"], []):
+    shutil.rmtree(CSV11 / "e", ignore_errors=True)
+    (CSV11 / "e").mkdir()
+    ck_e = str(CSV11 / "e" / "e.npz")
+    got, _, counts, secs, _ = hybrid_cli(
+        "ta014 -C 1 stopped", E14 + [ck_e, "-C", "1", "--max-iters", "8"])
+    with np.load(ck_e) as z:
+        held = len(z["meta_host_depth"])
+    check(held > 0, "ta014 -C checkpoint holds no host share")
+    got, _, counts, secs, _ = hybrid_cli(
+        f"ta014 resumed {'with' if resume_c else 'without'} -C",
+        E14 + [ck_e] + resume_c, DENSE)
+    check(got == (144_639, 0, 1377), f"ta014 resumed {resume_c}: {got}")
+    say(f"ta014 lb2 -C 1 segmented, stopped at 8 steps, resumed "
+        f"{'with' if resume_c else 'without'} -C", tree=got[0],
+        host_share_rows=held, seconds=secs, launches=counts)
+
+# (f) four workers on the card with the host tier (-D 4 -C 1's call)
+threads_f = max(1, (os.cpu_count() or 1) // 4)
+res_f, counts, secs_f = path_run("dist ta014 D=4 -C 1", DENSE, lambda: (
+    distributed.search(P14, devices=W4, host_fraction=8,
+                       host_threads=threads_f, **DIST14)))
+for k, v in counts.items():
+    HYB[k] += v
+dist_golden("dist ta014 D=4 -C 1", res_f, (144639, 0, 1377))
+check(res_f.per_device["host_expanded"][0] > 0
+      and res_f.per_device["exchanges"][0] >= 1, "dist -C: no host work")
+say("dist ta014 lb2 D=4 -C 1 (dense, chunk 4096)", seconds=secs_f,
+    launches=counts, card=CARD, host_threads=threads_f,
+    **{f: np.asarray(res_f.per_device[f]).tolist()
+       for f in DIST_FIELDS + HOST_KEYS if f in res_f.per_device})
+
+# (g) the CSV rows of (a) and (f): the JAX CLI's headers, measured timing
+# columns within the elapsed time
+csv_f = str(CSV11 / "f.csv")
+args_f = cli.build_parser().parse_args(
+    ["pfsp", "-i", "14", "-l", "2", "-u", "1", "-D", "4", "-C", "1",
+     "--chunk", "4096", "--capacity", "1048576", "--csv", csv_f])
+err_f = io.StringIO()
+with contextlib.redirect_stderr(err_f):
+    phase_timing.write_csv_with_phases(
+        args_f, P14, 1377, W4, secs_f, res_f.explored_tree,
+        res_f.explored_sol, res_f.best,
+        {k: list(v) for k, v in res_f.per_device.items()})
+check("phase profiling failed" not in err_f.getvalue(),
+      f"dist --csv: {err_f.getvalue()}")
+rows = {}
+for name, path, header in (("a", csv_a, csv_stats.SINGLE_HEADER),
+                           ("f", csv_f, csv_stats.MULTI_HEADER)):
+    lines = Path(path).read_text().splitlines()
+    check(len(lines) == 2 and lines[0] == header, f"csv {name}: {lines[:1]}")
+    rows[name] = dict(zip(header.split(","),
+                          next(__import__("csv").reader(lines[1:]))))
+ka = float(rows["a"]["gpu_kernel_time"])
+check(0 < ka <= float(rows["a"]["total_time"]), f"csv a: {rows['a']}")
+kf = [float(x) for x in rows["f"]["gpu_kernel_time"].strip("[]").split(",")]
+check(all(0 < k <= float(rows["f"]["total_time"]) for k in kf),
+      f"csv f: {rows['f']}")
+say("--csv rows of (a) and (f)", single=rows["a"], multi=rows["f"])
+shutil.rmtree(CSV11)
+say("phase 11 seconds", seconds=time.perf_counter() - t_phase11)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
     r["dist_launches"] = DIST_FROM[key][key] if key in DIST_FROM else 0
+    r["hybrid_launches"] = HYB[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,11 @@ from tpu_tree_search_torch.ops import batched as tbatched, expand as tex
 from tpu_tree_search_torch.ops import columns as tcolumns, kernels
 
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
+
 def _parents(jobs, machines, B, seed, deep=False):
     """Random instance and B random parents (permutation, depth, front)."""
     rng = np.random.default_rng(seed)

@@ -12,6 +12,10 @@ import pytest
 
 from tpu_tree_search_torch.ops import kernels
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 FAKE_NVCC = """\
 import sys
 from pathlib import Path

@@ -22,6 +22,11 @@ from tpu_tree_search_torch.ops import batched
 from tpu_tree_search_torch.problems import taillard
 
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
+
 def _setup(seed=21):
     inst = PFSPInstance.synthetic(jobs=8, machines=4, seed=seed)
     opt = inst.brute_force_optimum()

@@ -26,6 +26,11 @@ from tpu_tree_search_torch.problems import nqueens as tnq
 from tpu_tree_search_torch.problems.pfsp import PFSPInstance
 
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
+
 def _counting_grow(monkeypatch):
     calls = []
     orig = tckpt.grow
@@ -200,7 +205,7 @@ def test_cross_problem_resume_refused(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(host_fraction=8), "A6"), (dict(ladder=True), "A6"),
+    (dict(ladder=True), "A6"),
     (dict(tuner=object()), "A6"), (dict(incumbent_board=object()), "A6"),
     (dict(chunk=None), "A6"), (dict(balance_period=None), "A6"),
     (dict(loop_cache=object()), "A9"), (dict(overlap=True), "A5b")])
@@ -208,6 +213,19 @@ def test_left_out_arguments_name_their_roadmap_item(kw, item):
     table = PFSPInstance.synthetic(7, 3, 0).p_times
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tdist.search(table, devices=["cpu"] * 2, **kw)
+
+
+def test_host_fraction_runs_beside_the_workers():
+    """`host_fraction=8` (once refused, naming A6) runs the -C host tier
+    beside two workers and proves the optimum (ub=inf: the totals depend
+    on the exchanges' timing, the optimum does not)."""
+    inst = PFSPInstance.synthetic(9, 4, 3)
+    got = tdist.search(inst.p_times, devices=["cpu"] * 2, lb_kind=1,
+                       chunk=32, capacity=1 << 12, host_fraction=8,
+                       host_threads=2)
+    assert got.best == tseq.pfsp_search(inst, lb=1).best and got.complete
+    assert got.per_device["host_expanded"][0] > 0
+    assert got.per_device["exchanges"][0] >= 1
 
 
 def test_pfsp_command_segmented_resume(tmp_path):

@@ -34,6 +34,10 @@ from tpu_tree_search_torch.parallel import balance as tbal, mesh as tmesh
 from tpu_tree_search_torch.problems import nqueens as tnq
 from tpu_tree_search_torch.problems.pfsp import PFSPInstance
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 D = 4
 CPUS = ["cpu"] * D
 _COUNTERS = ("size", "best", "tree", "sol", "evals", "iters", "sent",

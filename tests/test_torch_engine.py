@@ -22,6 +22,10 @@ from tpu_tree_search_torch.engine import checkpoint as tcheckpoint
 from tpu_tree_search_torch.engine import device as tdevice
 from tpu_tree_search_torch.ops import batched as tbatched
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 _FIELDS = ("prmu", "depth", "aux", "size", "best", "tree", "sol", "iters",
            "evals", "sent", "recv", "steals", "overflow", "telemetry")

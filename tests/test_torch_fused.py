@@ -27,6 +27,10 @@ from tpu_tree_search_torch.engine import device as tdevice
 from tpu_tree_search_torch.ops import batched as tbatched, expand as tex
 from tpu_tree_search_torch.ops import fused as tfused, kernels
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 _FIELDS = ("prmu", "depth", "aux", "size", "best", "tree", "sol", "iters",
            "evals", "sent", "recv", "steals", "overflow", "telemetry")
 

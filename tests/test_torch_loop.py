@@ -28,6 +28,10 @@ from tpu_tree_search_torch.engine import device as tdevice
 from tpu_tree_search_torch.ops import batched as tbatched, columns, kernels
 from tpu_tree_search_torch.ops import expand as tex
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 _FIELDS = ("prmu", "depth", "aux", "size", "best", "tree", "sol", "iters",
            "evals", "sent", "recv", "steals", "overflow", "telemetry")
 # the tensor methods that hand a value to the host
@@ -300,7 +304,7 @@ def test_run_reads_three_counters_once_a_block():
         mp.setattr(torch.Tensor, "tolist", counted)
         out = tdevice.run(tt, ts, 1, 32, max_iters=17, tile=16,
                           steps_per_check=7)
-    assert reads == [(3,)] * 4          # entry, then after 7, 14 and 21
+    assert reads == [(3,)] * 4          # entry, then after 7, 14 and 17
     assert int(out.iters) == 17
 
 

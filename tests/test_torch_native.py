@@ -19,6 +19,11 @@ from tpu_tree_search_torch.problems import taillard
 from tpu_tree_search_torch.problems.pfsp import PFSPInstance
 
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
+
 def test_native_builds_into_the_port_build_dir():
     path = native.build()
     assert path.exists() and path.parent == native.BUILD_DIR

@@ -29,6 +29,10 @@ from tpu_tree_search_torch.engine import sequential as tseq
 from tpu_tree_search_torch.problems import knapsack as tks, nqueens as tnq
 from tpu_tree_search_torch.problems import pfsp as tpfsp, tsp as ttsp
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 _FIELDS = ("prmu", "depth", "aux", "size", "best", "tree", "sol", "iters",
            "evals", "sent", "recv", "steals", "overflow", "telemetry")
 _READS = ("item", "tolist", "numpy", "__bool__", "__int__", "__index__",

@@ -13,6 +13,11 @@ from tpu_tree_search_torch.engine import sequential as tseq
 from tpu_tree_search_torch.problems import nqueens as tnq, pfsp as tpfsp
 
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
+
 def _triple(r):
     return (r.explored_tree, r.explored_sol, r.best, r.complete)
 

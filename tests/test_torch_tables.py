@@ -16,6 +16,10 @@ from tpu_tree_search.problems import taillard as jtaillard
 from tpu_tree_search_torch.ops import batched as tbatched
 from tpu_tree_search_torch.problems import taillard as ttaillard
 
+import _torch_threads
+
+_torch_threads.share_cores()
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden" / "taillard_fnv.jsonl"
 FNV_ROWS = [json.loads(l) for l in GOLDEN.read_text().splitlines()]

@@ -31,12 +31,26 @@ turns balancing off: no surplus reaches the transfer threshold 2**30),
 or `--checkpoint` prints a `[segment k]` line with per-worker sizes and
 steals; its checkpoint is the stacked one either package resumes.
 
+`pfsp -C 1` runs the host tier (`engine/hybrid.py`) beside the device
+search on every driver, in the JAX CLI's branch order: with `-D` above 1
+inside `distributed.search`; segmented, beside `_run_pfsp_segmented`'s
+segments (its seed rides the checkpoint, and a resume with or without
+`-C` loses no node); else `hybrid.search`, where `-m` is the pool size
+below which the host drains the device's residue and `--max-iters` exits
+2. `--host-fraction` (default 8) and `--host-threads` (default: the
+host's cores over the workers) tune it; on the card the device part runs
+on the card. `--csv` appends the reference's CSV row
+(`utils/csv_stats.py`) with measured phase-time columns
+(`utils/phase_timing.py`); `-M`, `-T` and `-p` feed only that schema.
+
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1
     python -m tpu_tree_search_torch nqueens -N 15 --chunk 65536
     python -m tpu_tree_search_torch solve --problem knapsack --size 1000 -l 2
     python -m tpu_tree_search_torch pfsp -i 14 -l 2 --segment-iters 8 \\
         --checkpoint c.npz --max-iters 16     # then again, to resume
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1 --device cpu -D 4
+    python -m tpu_tree_search_torch pfsp -i 8 -l 2 -u 1 --chunk 65536 -C 1 \\
+        --csv runs.csv
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -79,8 +94,21 @@ def _print_results(optimum: int, tree: int, sol: int, elapsed: float,
     print("=" * 49)
 
 
+def _host_tier(args, n_dev: int) -> tuple[int, int]:
+    """(host_fraction, host_threads) of `-C`: fraction 8 and the host's
+    cores over the workers by default (the reference's
+    num_procs/deviceCount rule, pfsp_multigpu_cuda.c:61-69); (0, 0)
+    without `-C`."""
+    if not args.C:
+        return 0, 0
+    fraction = 8 if args.host_fraction is None else max(args.host_fraction, 0)
+    threads = (max(1, (os.cpu_count() or 1) // max(n_dev, 1))
+               if args.host_threads is None else max(args.host_threads, 1))
+    return fraction, threads
+
+
 def run_pfsp(args) -> int:
-    from .engine import device, telemetry
+    from .engine import device
     from .problems import taillard
     from .utils import faults
 
@@ -93,79 +121,145 @@ def run_pfsp(args) -> int:
     if args.capacity is None:
         args.capacity = device.default_capacity(jobs, machines)
     init_ub = taillard.optimal_makespan(args.inst) if args.ub == 1 else None
+    host_fraction, host_threads = _host_tier(args, len(workers))
+    segmented = args.segment_iters is not None or args.checkpoint is not None
+    if len(workers) == 1 and args.C and not segmented \
+            and args.max_iters is not None:
+        print("error: --max-iters is not supported with -C 1",
+              file=sys.stderr)
+        return 2
     _print_pfsp_settings(args, machines, jobs, dev, len(workers))
     t0 = time.perf_counter()
-    if len(workers) > 1:
-        with (faults.scoped(args.faults) if args.faults
-              else contextlib.nullcontext()):
-            try:
-                res = _run_pfsp_distributed(args, p, init_ub, workers)
-            except (RuntimeError, ValueError, OSError) as e:
-                print(f"error: {e}", file=sys.stderr)
-                return 1
-        tree, sol, best = res.explored_tree, res.explored_sol, res.best
-        complete, summary = res.complete, res.telemetry
-    elif args.segment_iters is not None or args.checkpoint is not None:
-        # the plan is this call's (an in-process caller keeps its own)
-        with (faults.scoped(args.faults) if args.faults
-              else contextlib.nullcontext()):
-            try:
-                out, warm_tree, warm_sol = _run_pfsp_segmented(args, p,
-                                                               init_ub, dev)
-            except (RuntimeError, ValueError, OSError) as e:
-                print(f"error: {e}", file=sys.stderr)
-                return 1
-        c = device.counters(out)
-        tree, sol, best = c.tree + warm_tree, c.sol + warm_sol, c.best
-        complete = c.size == 0
-        summary = telemetry.summarize(out.telemetry)
-    else:
-        res = device.search(p, lb_kind=args.lb, init_ub=init_ub,
-                            chunk=args.chunk, capacity=args.capacity,
-                            max_iters=args.max_iters, device=dev,
-                            telemetry=args.search_telemetry or None)
-        tree, sol, best = res.explored_tree, res.explored_sol, res.best
-        complete, summary = res.complete, res.telemetry
+    # the fault plan is this call's (an in-process caller keeps its own)
+    with (faults.scoped(args.faults) if args.faults
+          else contextlib.nullcontext()):
+        try:
+            run = _run_pfsp_paths(args, p, init_ub, workers, host_fraction,
+                                  host_threads, segmented)
+        except (RuntimeError, ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    tree, sol, best, complete, summary, per_device = run
     elapsed = time.perf_counter() - t0
     _print_results(best, tree, sol, elapsed, complete=complete)
     if summary is not None:
         print("Search telemetry: " + json.dumps(summary))
+    if args.csv:
+        from .utils import phase_timing
+        phase_timing.write_csv_with_phases(args, p, init_ub, workers,
+                                           elapsed, tree, sol, best,
+                                           per_device)
     return 0
 
 
-def _run_pfsp_segmented(args, p, init_ub, dev):
+def _run_pfsp_paths(args, p, init_ub, workers, host_fraction: int,
+                    host_threads: int, segmented: bool):
+    """The `pfsp` search on the path the flags pick (the JAX CLI's branch
+    order): several workers -> `distributed.search`; one, segmented ->
+    `_run_pfsp_segmented`; one with `-C` -> `hybrid.search`; else
+    `device.search`. Returns (tree, sol, best, complete, telemetry
+    summary, per-worker counters for the CSV row)."""
+    from .engine import device, hybrid, telemetry
+
+    dev = workers[0]
+    if len(workers) > 1:
+        res = _run_pfsp_distributed(args, p, init_ub, workers,
+                                    host_fraction, host_threads)
+        return (res.explored_tree, res.explored_sol, res.best, res.complete,
+                res.telemetry,
+                {k: list(v) for k, v in res.per_device.items()})
+    if segmented:
+        out, extras = _run_pfsp_segmented(args, p, init_ub, dev,
+                                          host_fraction, host_threads)
+        c = device.counters(out)
+        best = c.best if extras["best"] is None else min(c.best,
+                                                         extras["best"])
+        per_device = {"tree": [c.tree], "sol": [c.sol], "evals": [c.evals],
+                      "iters": [c.iters], "steals": [0], "recv": [0],
+                      **extras["host"]}
+        return (c.tree + extras["tree"], c.sol + extras["sol"], best,
+                c.size == 0, telemetry.summarize(out.telemetry), per_device)
+    if args.C:
+        # -C 1 on one device: native warm-up, the device loop while the
+        # pool feeds >= -m parents, the host session beside it and a
+        # native drain of the residue (pfsp_multigpu_cuda.c's CPU tier)
+        res = hybrid.search(p, lb_kind=args.lb, init_ub=init_ub,
+                            chunk=args.chunk, capacity=args.capacity,
+                            drain_min=max(args.m, 1),
+                            host_fraction=host_fraction,
+                            host_threads=host_threads, device=dev,
+                            telemetry=args.search_telemetry or None)
+        return (res.explored_tree, res.explored_sol, res.best, res.complete,
+                res.telemetry, res.per_device)
+    res = device.search(p, lb_kind=args.lb, init_ub=init_ub,
+                        chunk=args.chunk, capacity=args.capacity,
+                        max_iters=args.max_iters, device=dev,
+                        telemetry=args.search_telemetry or None)
+    return (res.explored_tree, res.explored_sol, res.best, res.complete,
+            res.telemetry,
+            {"tree": [res.explored_tree], "sol": [res.explored_sol],
+             "evals": [res.evals], "iters": [res.iters], "steals": [0],
+             "recv": [0]})
+
+
+def _run_pfsp_segmented(args, p, init_ub, dev, host_fraction: int = 0,
+                        host_threads: int = 0):
     """Segmented single-device search with heartbeat + checkpoint/resume
-    (the JAX CLI's `_run_pfsp_segmented` without the `-C` host tier).
-    Returns (state, warm-up tree, warm-up sol): a checkpoint of the JAX
-    multi-device driver counts its warm-up frontier's nodes in its meta,
-    added to the device totals."""
-    from .engine import checkpoint, device
+    (the JAX CLI's `_run_pfsp_segmented`). With `host_fraction > 0` a
+    native `-C` host session runs beside the segments, seeded from a
+    warm-up share (fresh) or the checkpoint's saved share (else rows
+    carved off the pool) on a resume, merging incumbents at every segment
+    boundary (`engine/hybrid.HostSession`); a resume without `-C` pushes a
+    saved share back into the pool.
+
+    Returns (state, extras): the warm-up's and the host tier's tree and
+    sol to add to the device totals, the host's best (None without a
+    session) and its per-worker counters for the CSV row."""
+    from . import problems
+    from .engine import checkpoint, device, distributed, hybrid
     from .ops import batched
 
     jobs = p.shape[1]
     tables = batched.make_tables(p, device=dev)
+    session = None
     warm_tree = warm_sol = 0
+    h_prmu = np.zeros((0, jobs), np.int16)
+    h_depth = np.zeros(0, np.int16)
     if args.checkpoint and checkpoint.resume_path(args.checkpoint):
         # a torn snapshot rolls back to its last-good sibling; a stacked
         # snapshot collapses onto this device
         state, meta, _ = checkpoint.load_resilient(args.checkpoint,
                                                    p_times=p, device=dev)
-        if len(np.asarray(meta.get("host_depth", ()))):
-            raise ValueError(
-                f"{args.checkpoint} holds {len(meta['host_depth'])} node(s) "
-                "of the JAX CLI's -C host tier (meta host_prmu/host_depth); "
-                "that tier (engine/hybrid.py, ROADMAP A6) is not yet "
-                "ported, and resuming without it would drop those nodes")
         state = checkpoint.collapse_to_single_device(state, args.chunk, jobs,
                                                      device=dev)
         if args.grow_capacity:
             state = checkpoint.grow(state, args.grow_capacity)
         warm_tree = int(meta.get("warmup_tree", 0))
         warm_sol = int(meta.get("warmup_sol", 0))
+        state, session, h_prmu, h_depth = hybrid.resume_share(
+            state, meta, problems.get("pfsp"), p, args.lb, host_fraction,
+            host_threads)
         c = device.counters(state)
         print(f"Resumed from {args.checkpoint} "
               f"(segment {int(meta.get('segment', 0))}, "
               f"iters {c.iters}, pool {c.size})")
+    elif host_fraction > 0:
+        # the host tier needs real nodes: a native warm-up frontier, split
+        # by stride as hybrid.search splits it
+        fr = distributed.bfs_warmup(p, args.lb, init_ub,
+                                    target=4 * host_fraction)
+        best0 = fr.best if init_ub is None else min(fr.best, int(init_ub))
+        warm_tree, warm_sol = fr.tree, fr.sol
+        dmask, h_prmu, h_depth = hybrid.split_host_share(
+            fr.prmu, fr.depth, host_fraction)
+        if len(h_depth):
+            session = hybrid.HostSession(p, h_prmu, h_depth, args.lb, best0,
+                                         n_threads=host_threads)
+        state = device.init_state(jobs, args.grow_capacity or args.capacity,
+                                  best0, prmu0=fr.prmu[dmask],
+                                  depth0=fr.depth[dmask], p_times=p,
+                                  telemetry=args.search_telemetry or None,
+                                  device=dev)
     else:
         state = device.init_state(jobs, args.grow_capacity or args.capacity,
                                   init_ub, p_times=p,
@@ -186,17 +280,29 @@ def _run_pfsp_segmented(args, p, init_ub, dev):
         checkpoint_every=args.checkpoint_every,
         max_total_iters=args.max_iters,
         checkpoint_meta={"warmup_tree": warm_tree, "warmup_sol": warm_sol,
-                         "host_prmu": np.zeros((0, jobs), np.int16),
-                         "host_depth": np.zeros(0, np.int16)},
+                         "host_prmu": (h_prmu if session else
+                                       np.zeros((0, jobs), np.int16)),
+                         "host_depth": (h_depth if session else
+                                        np.zeros(0, np.int16))},
+        post_segment=session.post_segment if session else None,
         retry_attempts=args.retry_attempts,
         segment_timeout_s=args.segment_timeout)
-    return out, warm_tree, warm_sol
+
+    extras = {"tree": warm_tree, "sol": warm_sol, "best": None, "host": {}}
+    if session is not None:
+        h_tree, h_sol, best, extras["host"] = hybrid.finish(
+            session, device.counters(out).best)
+        extras.update(tree=warm_tree + h_tree, sol=warm_sol + h_sol,
+                      best=best)
+    return out, extras
 
 
-def _run_pfsp_distributed(args, p, init_ub, workers):
+def _run_pfsp_distributed(args, p, init_ub, workers, host_fraction: int = 0,
+                          host_threads: int = 0):
     """The JAX CLI's distributed branches: `distributed.search` over the
-    workers, segmented (a `[segment k]` line with per-worker sizes and
-    steals, stacked checkpoint and resume) when `--segment-iters` or
+    workers (with the `-C` host tier beside them when `host_fraction > 0`),
+    segmented (a `[segment k]` line with per-worker sizes and steals,
+    stacked checkpoint and resume) when `--segment-iters` or
     `--checkpoint` is given."""
     from .engine import distributed
 
@@ -223,7 +329,8 @@ def _run_pfsp_distributed(args, p, init_ub, workers):
         heartbeat=heartbeat, checkpoint_every=args.checkpoint_every,
         telemetry=args.search_telemetry or None,
         retry_attempts=args.retry_attempts,
-        segment_timeout_s=args.segment_timeout)
+        segment_timeout_s=args.segment_timeout,
+        host_fraction=host_fraction, host_threads=host_threads)
 
 
 def _workers(D: int, dev) -> list | None:
@@ -391,12 +498,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="workers: on the card, visible cards (0: all); "
                         "with --device cpu, workers on the CPU")
     p.add_argument("-m", type=int, default=25,
-                   help="with -D > 1: warm-up frontier nodes per worker")
+                   help="with -D > 1: warm-up frontier nodes per worker; "
+                        "with -C 1 on one device: the pool size below "
+                        "which the host drains the device's residue")
+    p.add_argument("-M", type=int, default=50000,
+                   help="reference offload chunk ceiling; accepted for "
+                        "command-line and CSV-schema compatibility")
+    p.add_argument("-T", type=int, default=5000,
+                   help="reference CPU bulk-pop size; accepted for "
+                        "command-line and CSV-schema compatibility but "
+                        "inert here, like -p (the host tier's native DFS "
+                        "pops per node; PFSP_lib.c:175-185)")
+    p.add_argument("-C", type=int, default=0,
+                   help="1: run the host tier beside the device search "
+                        "(engine/hybrid.py; every driver)")
+    p.add_argument("--host-fraction", type=int, default=None,
+                   help="with -C 1: seed the native host tier with every "
+                        "k-th warm-up node (default 8; 0 disables the "
+                        "concurrent tier)")
+    p.add_argument("--host-threads", type=int, default=None,
+                   help="with -C 1: native host worker threads "
+                        "(default: host cores / device count, the "
+                        "reference's num_procs/deviceCount rule, "
+                        "pfsp_multigpu_cuda.c:61-69)")
     p.add_argument("-w", "--ws", type=int, default=1,
                    help="with -D > 1: work stealing on (1) or off (0)")
     p.add_argument("-L", type=int, default=1,
                    help="with -D > 1: the same balance round (-w 0 -L 0 "
                         "turns balancing off)")
+    p.add_argument("-p", "--perc", type=float, default=0.5,
+                   help="reference steal fraction; accepted for "
+                        "command-line compatibility (the balance round "
+                        "steals half)")
     p.add_argument("--balance-period", type=int, default=4,
                    help="with -D > 1: steps between balance rounds")
     p.add_argument("--chunk", type=int, default=CLI_CHUNK_DEFAULT,
@@ -404,6 +537,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--capacity", type=int, default=None,
                    help="initial pool rows per worker (default: by "
                         "instance class)")
+    p.add_argument("--csv", type=str, default=None,
+                   help="append a row in the reference's CSV schema, with "
+                        "measured phase-time columns (utils/phase_timing)")
     p.add_argument("--max-iters", type=int, default=None,
                    help="stop after this many steps (with -D > 1: balance "
                         "rounds; a truncated run)")

@@ -761,6 +761,7 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
                   stall_limit: int = 3,
                   raise_on_overflow: bool = True,
                   checkpoint_meta: dict | None = None,
+                  post_segment=None,
                   should_stop=None,
                   retry_attempts: int | None = None,
                   retry_base_s: float | None = None,
@@ -779,6 +780,10 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
 
     - checkpoints every `checkpoint_every` segments when a path is given,
       and on every exit;
+    - calls `post_segment(state) -> state` after each segment, before the
+      report and the checkpoint, so that what it changes (the `-C` host
+      session's incumbent merge, `engine/hybrid.HostSession`) lands in
+      both and in the next segment's counters;
     - calls `heartbeat(SegmentReport)` after each segment;
     - stops early (after checkpointing) when `should_stop(SegmentReport)`
       returns True;
@@ -874,6 +879,8 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
             state = _retry(attempt, "segment execution", retry_attempts,
                            retry_base_s)
             saved = None
+            if post_segment is not None:
+                state = post_segment(state)
             seg += 1
             # ONE transfer of every per-segment scalar (and the telemetry)
             fetched = _retry(

@@ -794,9 +794,12 @@ def _drive(step_fn, key, state: SearchState, usable: int,
     lim = torch.full((), ceiling, dtype=torch.int64, device=dev)
     dmin = torch.full((), drain, dtype=torch.int32, device=dev)
     while True:
-        for _ in range(steps):
+        # no step past the ceiling: such a step is a no-op that still
+        # bounds a whole frame on the CPU (the graph's block stays whole)
+        for _ in range(min(steps, ceiling - status[2])):
             state = step_fn(state, active=_loop_cond(state, dmin, lim))
-        if not going(_status(state)):
+        status = _status(state)
+        if not going(status):
             return state
 
 

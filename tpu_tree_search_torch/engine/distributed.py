@@ -38,11 +38,17 @@ macro-iteration are the JAX loop's, worker by worker.
 stacked `(D, ...)` layout of `DistResult.per_device`, `fetch_state` and
 the checkpoint file.
 
-Left out of this slice, each raising `NotImplementedError` naming its
-ROADMAP item: the `-C` host tier (`host_fraction > 0`), the chunk ladder,
-the tuner, the incumbent board and adaptive `chunk=None` /
-`balance_period=None` (A6); the executor cache (`loop_cache`, A9); the
-overlapped segment driver (`overlap=True`) and multi-process runs (A5b).
+`search(..., host_fraction > 0)` runs the `-C` host tier beside the
+workers (`engine/hybrid.py`): a host session seeded with a stride share of
+the warm-up frontier (or, on a resume, with the checkpoint's saved share
+or rows carved off the pools), merging incumbents with the workers at
+every segment boundary.
+
+Left out, each raising `NotImplementedError` naming its ROADMAP item: the
+chunk ladder, the tuner, the incumbent board and adaptive `chunk=None` /
+`balance_period=None` (the rest of A6); the executor cache (`loop_cache`,
+A9); the overlapped segment driver (`overlap=True`) and multi-process
+runs (A5b).
 """
 
 from __future__ import annotations
@@ -621,7 +627,7 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
            segment_iters: int | None = None,
            checkpoint_path: str | None = None,
            checkpoint_every: int = 1,
-           heartbeat=None, host_fraction: int = 0,
+           heartbeat=None, host_fraction: int = 0, host_threads: int = 0,
            stop_event=None, should_stop=None,
            loop_cache=None, checkpoint_meta_extra=None,
            overlap: bool | None = None,
@@ -657,11 +663,23 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     on the CPU (`ops/fused.resolve_mode`). `telemetry` (None: the
     TTS_SEARCH_TELEMETRY flag) gives each pool the telemetry vector;
     `retry_attempts` and `segment_timeout_s` go to `run_segmented` (None:
-    its environment defaults)."""
-    from . import checkpoint
+    its environment defaults).
 
-    if host_fraction > 0:
-        raise _not_ported("the -C host tier (host_fraction > 0)", "A6")
+    `host_fraction > 0` runs the `-C` host tier (`engine/hybrid.py`) with
+    `host_threads` threads (0: the native default): every
+    host_fraction-th warm-up node seeds a host session, and the search
+    runs in segments that merge the incumbents of the workers and the
+    session. Its seed rides the checkpoint meta (`host_prmu`,
+    `host_depth`): a resume with `-C` re-seeds the session from it (or,
+    lacking it, from rows carved off the pools), one without `-C` pushes
+    it back into a pool. A plugin without a host tier raises
+    `HostTierUnsupported`."""
+    from . import checkpoint, hybrid
+
+    prob = _resolve_problem(problem)
+    if host_fraction > 0 and not prob.supports_host_tier:
+        from ..problems.base import HostTierUnsupported
+        raise HostTierUnsupported(prob.name)
     if ladder:
         raise _not_ported("the chunk ladder (ladder=True)", "A6")
     if tuner is not None:
@@ -677,7 +695,6 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
         raise _not_ported("the overlapped segment driver (overlap=True)",
                           "A5b")
 
-    prob = _resolve_problem(problem)
     table = np.asarray(p_times)
     devs = worker_devices(n_devices, devices)
     n_dev = len(devs)
@@ -699,13 +716,6 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 f"checkpoint {checkpoint_path} was written by problem "
                 f"{saved_prob!r}; refusing to resume it as "
                 f"{prob.name!r} (pick a fresh tag/checkpoint path)")
-        if len(np.asarray(meta.get("host_depth", ()))):
-            raise ValueError(
-                f"{checkpoint_path} holds "
-                f"{len(np.asarray(meta['host_depth']))} node(s) of the JAX "
-                "package's -C host tier (meta host_prmu/host_depth); that "
-                "tier is not yet ported (ROADMAP A6), and resuming without "
-                "it would drop those nodes")
         adt = state.aux.dtype
         resumed = (state, meta)
     if transfer_cap is None:
@@ -717,6 +727,7 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                              balance_period, transfer_cap, min_transfer,
                              fused=mode)
 
+    session = None
     if resumed is not None:
         host_state, meta = resumed
         shape = tuple(host_state.prmu.shape)
@@ -736,6 +747,9 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
             cap *= 2
         if cap != cap0:
             host_state = checkpoint.grow(host_state, cap)
+        host_state, session, h_prmu, h_depth = hybrid.resume_share(
+            host_state, meta, prob, table, lb_kind, host_fraction,
+            host_threads)
         fr = Frontier(prmu=np.zeros((0, jobs), np.int16),
                       depth=np.zeros(0, np.int16),
                       tree=int(meta.get("warmup_tree", 0)),
@@ -751,6 +765,13 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
             ws.set(frontier=len(fr.depth), tree=fr.tree)
         init_best = (fr.best if init_ub is None
                      else min(fr.best, int(init_ub)))
+        dmask, h_prmu, h_depth = hybrid.split_host_share(
+            fr.prmu, fr.depth, host_fraction)
+        if len(h_depth):
+            session = hybrid.make_session(prob, table, h_prmu, h_depth,
+                                          lb_kind, init_best,
+                                          n_threads=host_threads)
+            fr.prmu, fr.depth = fr.prmu[dmask], fr.depth[dmask]
         fr.aux = prob.seed_aux(table, fr.prmu, fr.depth)
         states = driver.seed(fr, capacity, jobs, init_best)
         if telemetry is not None:
@@ -767,7 +788,7 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
             return ((stop_event is not None and stop_event.is_set())
                     or (should_stop is not None and should_stop(rep)))
     if (segment_iters is None and checkpoint_path is None
-            and stop_fn is None):
+            and session is None and stop_fn is None):
         with tracelog.span("engine.run", workers=n_dev):
             out = driver.run(states, max_iters)
     else:
@@ -775,8 +796,13 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                      # the snapshot's problem stamp: a resume refuses a
                      # cross-problem re-home (checked above)
                      "problem": prob.name,
-                     "host_prmu": np.zeros((0, jobs), np.int16),
-                     "host_depth": np.zeros(0, np.int16)}
+                     # the host tier's seed rides every checkpoint, so a
+                     # killed -C run resumes without losing its share (the
+                     # killed session's work was committed nowhere)
+                     "host_prmu": h_prmu if session else
+                     np.zeros((0, jobs), np.int16),
+                     "host_depth": h_depth if session else
+                     np.zeros(0, np.int16)}
         if checkpoint_meta_extra is not None:
             base_meta = ckpt_meta
 
@@ -792,12 +818,17 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
             checkpoint_path=checkpoint_path, heartbeat=heartbeat,
             checkpoint_every=checkpoint_every, max_total_iters=max_iters,
             checkpoint_meta=ckpt_meta, should_stop=stop_fn,
+            post_segment=session.post_segment if session else None,
             retry_attempts=retry_attempts,
             segment_timeout_s=segment_timeout_s)
 
     c = worker_counters(out)
     best = int(c["best"].min())
-    tree = int(c["tree"].sum()) + fr.tree
+    h_tree = h_sol = 0
+    host_stats = {}
+    if session is not None:
+        h_tree, h_sol, best, host_stats = hybrid.finish(session, best)
+    tree = int(c["tree"].sum()) + fr.tree + h_tree
     complete = int(c["size"].sum()) == 0
     tracelog.event(
         "engine.complete", workers=n_dev, tree=tree, best=best,
@@ -810,11 +841,11 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
             [s.telemetry.cpu() for s in out]))
     return DistResult(
         explored_tree=tree,
-        explored_sol=int(c["sol"].sum()) + fr.sol,
+        explored_sol=int(c["sol"].sum()) + fr.sol + h_sol,
         best=best, telemetry=summary,
         per_device={"tree": c["tree"], "sol": c["sol"], "iters": c["iters"],
                     "evals": c["evals"], "sent": c["sent"],
                     "recv": c["recv"], "steals": c["steals"],
-                    "final_size": c["size"]},
+                    "final_size": c["size"], **host_stats},
         warmup_tree=fr.tree, warmup_sol=fr.sol, complete=complete,
         problem=prob.name)

@@ -181,18 +181,23 @@ def prefix_front_remain(p_times: np.ndarray, prmu: np.ndarray,
     p = np.asarray(p_times, dtype=np.int64)
     m = p.shape[0]
     prmu = np.asarray(prmu).reshape(-1, p.shape[1])
-    depth = np.asarray(depth).reshape(-1)
-    total = p.sum(axis=1)
+    depth = np.asarray(depth).reshape(-1).astype(np.int64)
+    front = np.zeros((prmu.shape[0], m), dtype=np.int64)
+    sched = np.zeros((prmu.shape[0], m), dtype=np.int64)
+    # add_forward of the i-th scheduled job, over every node at once (a
+    # warm-up frontier holds some 10^5 of them)
+    for i in range(int(depth.max(initial=0))):
+        on = depth > i
+        pj = p[:, prmu[on, i].astype(np.int64)].T          # (nodes, m)
+        f = front[on]
+        f[:, 0] += pj[:, 0]
+        for k in range(1, m):
+            f[:, k] = np.maximum(f[:, k - 1], f[:, k]) + pj[:, k]
+        front[on] = f
+        sched[on] += pj
     out = np.zeros((prmu.shape[0], 2 * m), dtype=np.int32)
-    for b in range(prmu.shape[0]):
-        front = np.zeros(m, dtype=np.int64)
-        sched = np.zeros(m, dtype=np.int64)
-        for i in range(int(depth[b])):
-            job = int(prmu[b, i])
-            add_forward(job, p, front)
-            sched += p[:, job]
-        out[b, :m] = front
-        out[b, m:] = total - sched
+    out[:, :m] = front
+    out[:, m:] = p.sum(axis=1) - sched
     return out
 
 
