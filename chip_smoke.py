@@ -118,12 +118,36 @@ Phases (one line each, then two JSON lines):
      with the tier; (g) the `--csv` rows of (a) and (f) in the JAX CLI's
      schema with measured timing columns. The `kernels` line's
      `hybrid_launches` are this phase's launches
+ 12. the chunk ladder and the incumbent board (`engine/ladder.py`,
+     `engine/incumbent.py`, `distributed.search(ladder=True,
+     incumbent_board=...)`), four workers on the card: (1) ta021 LB2
+     ub=opt at chunk 65536 (rungs 4096, 16384, 65536), capacity 2^22 a
+     worker, period 4, 8-step segments, 6 segments from the root, twice:
+     with the default warm-up (starting on 4096) and with 8192 warm-up
+     nodes a worker (starting on 16384); each reaches the top rung, every
+     segment launches kernels, each rung is captured once, and at every
+     boundary the node accounting holds exactly (telemetry on,
+     TTS_AUDIT_HARD=1); per rung its segments, captures, graph ms per
+     segment and launches, and the peak memory against the same segments
+     without the ladder; (2) ta008 LB2 ub=opt at chunk 65536 (dense) to
+     completion with the ladder on and off, both to the golden, both
+     timed; (3) ta014 LB2 ub=opt at chunk 4096 (rungs 256, 1024, 4096),
+     4-step segments, switching up and down; cut after two segments with
+     a checkpoint, resumed on the recorded rung and, from a copy, with
+     the ladder off, both to the golden; (4) ta014 ub=inf with no board,
+     with a lone board client (every worker's counters equal) and a
+     second search on that board, which folds the first's best
+     (`tts_incumbent_folds_total{direction="in"}`), proves 1377 and
+     explores no more than the solo run; (5) `chunk=None` /
+     `balance_period=None`, resolved to `params_for("serving")`. The
+     `kernels` line's `ladder_launches` are this phase's launches
 The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -145,10 +169,12 @@ if not torch.cuda.is_available():
 from tpu_tree_search_torch import cli, native, problems  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
 from tpu_tree_search_torch.engine import distributed, hybrid  # noqa: E402
+from tpu_tree_search_torch.engine import incumbent  # noqa: E402
 from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
+from tpu_tree_search_torch.obs import audit  # noqa: E402
 from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
 from tpu_tree_search_torch.obs import tracelog  # noqa: E402
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
@@ -157,6 +183,7 @@ from tpu_tree_search_torch.ops import fused as fz, kernels  # noqa: E402
 from tpu_tree_search_torch.parallel import mesh  # noqa: E402
 from tpu_tree_search_torch.problems import knapsack, nqueens  # noqa: E402
 from tpu_tree_search_torch.problems import taillard, tsp  # noqa: E402
+from tpu_tree_search_torch.tune import defaults as tune_defaults  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
 from tpu_tree_search_torch.utils import csv_stats, faults  # noqa: E402
@@ -1967,11 +1994,262 @@ say("--csv rows of (a) and (f)", single=rows["a"], multi=rows["f"])
 shutil.rmtree(CSV11)
 say("phase 11 seconds", seconds=time.perf_counter() - t_phase11)
 
+# --- phase 12: the chunk ladder and the board -----------------------------
+device.clear_graphs()
+t_phase12 = time.perf_counter()
+LAD = dict.fromkeys(kernels.LAUNCHES, 0)
+SEG12 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_ladder_"))
+
+
+def lad_run(label, expect, fn):
+    """A path run of this phase (graphs dropped first, so that each case
+    captures its own); its launches join LAD."""
+    device.clear_graphs()
+    out, counts, secs = path_run(label, expect, fn)
+    for k, v in counts.items():
+        LAD[k] += v
+    return out, counts, secs
+
+
+@contextlib.contextmanager
+def ladder_trace():
+    """The rung drivers `_ladder_plan` builds, one row per segment (each
+    `_DistDriver.run` call: its rung, milliseconds with the device
+    synchronized, captures made and kernel launches), and the ladder and
+    tuner events of the flight recorder."""
+    rows, events = [], []
+    orig = distributed._DistDriver.run
+    prev = tracelog.install(tracelog.TraceLog(capacity=1 << 14))
+
+    def run(self, states, max_iters=None):
+        before = dict(kernels.LAUNCHES)
+        caps = sum(self.captures.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, states, max_iters)
+        torch.cuda.synchronize()
+        rows.append({
+            # a PFSP `_DistDriver` is keyed (jobs, machines, lb_kind,
+            # chunk, fused mode)
+            "rung": self.key[3], "ms": 1e3 * (time.perf_counter() - t0),
+            "captures": sum(self.captures.values()) - caps,
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in before if kernels.LAUNCHES[k] > before[k]}})
+        return out
+
+    distributed._DistDriver.run = run
+    try:
+        with recording(distributed, "_ladder_plan") as plans:
+            yield rows, plans, events
+    finally:
+        distributed._DistDriver.run = orig
+        events += [r for r in tracelog.install(prev).records()
+                   if r["name"].startswith(("ladder.", "tuner."))]
+
+
+def rung_table(rows) -> dict:
+    """Per rung: its segments, captures, graph ms per segment (a capture
+    included where one was made) and launches."""
+    out = {}
+    for r in rows:
+        t = out.setdefault(r["rung"], {"segments": 0, "captures": 0,
+                                       "ms": [], "launches": {}})
+        t["segments"] += 1
+        t["captures"] += r["captures"]
+        t["ms"].append(round(r["ms"], 4))
+        for k, v in r["launches"].items():
+            t["launches"][k] = t["launches"].get(k, 0) + v
+    return out
+
+
+def switches(events) -> list:
+    return [(e["frm"], e["to"], e["segment"]) for e in events
+            if e["name"] == "ladder.switch"]
+
+
+def accounting(frontier: int):
+    """A heartbeat holding the node accounting exact at every segment
+    boundary (the state carries telemetry; a failed identity raises under
+    TTS_AUDIT_HARD=1): every branched node is in the tree, every
+    evaluated child is branched, pruned or a leaf, every transferred node
+    arrived, and the pools hold the seeded frontier plus the branched less
+    the popped."""
+    def hb(rep):
+        t = rep.telemetry
+        branched, pruned = sum(t["branched"]), sum(t["pruned"])
+        for name, ok in (
+                ("branched_is_tree", branched == rep.tree),
+                ("children_conservation",
+                 branched + pruned + rep.sol == rep.evals),
+                ("steal_flow", t["steal_sent"] == t["steal_recv"]),
+                ("pool_conservation",
+                 rep.pool_size == frontier + branched - sum(t["popped"]))):
+            audit.record(name, ok, segment=rep.segment, tree=rep.tree,
+                         pool=rep.pool_size)
+            check(ok, f"segment {rep.segment}: {name}")
+    return hb
+
+
+# (1) ta021 at full width from the root, four workers on the card: LB2
+# ub=opt at chunk 65536 (rungs 4096, 16384, 65536), capacity 2^22 a
+# worker, period 4, 8-step segments, telemetry on, under
+# TTS_AUDIT_HARD=1. The default warm-up (32 nodes a worker) starts on
+# 4096; a warm-up of 8192 nodes a worker (`pfsp -D 4 -m 8192`) starts on
+# 16384. The first boundary's pool (some 80,000 nodes a worker after one
+# macro-iteration) covers only the top rung, so each leg climbs to it.
+L21 = dict(lb_kind=2, init_ub=taillard.optimal_makespan(21), chunk=C21,
+           capacity=CAP21, balance_period=BP21, segment_iters=8,
+           max_rounds=12, telemetry=True)
+RUNGS21 = (4096, 16384, 65536)
+os.environ["TTS_AUDIT_HARD"] = "1"
+LEGS = {}
+try:
+    for seed_nodes, start in ((32, 4096), (8192, 16384)):
+        fr = PF.warmup(P21, 2, L21["init_ub"], target=seed_nodes * 4)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        with ladder_trace() as (rows, plans, events):
+            res, counts, secs = lad_run(
+                f"ladder ta021 from {start}", ("fused_expand", "lb2_sweep"),
+                lambda: distributed.search(
+                    P21, devices=W4, min_seed=seed_nodes, ladder=True,
+                    heartbeat=accounting(len(fr.depth)), **L21))
+        peak = torch.cuda.max_memory_allocated(DEV)
+        (rungs, drivers), = plans
+        check(tuple(rungs) == RUNGS21, f"ta021 rungs {rungs}")
+        check(events[0]["source"] == "occupancy"
+              and events[0]["rung"] == start, f"ta021 start {events[0]}")
+        check(rows[-1]["rung"] == C21, f"ta021 never reached {C21}")
+        table = rung_table(rows)
+        for r in rows:
+            check(sum(r["launches"].values()) > 0,
+                  f"ta021 rung {r['rung']}: a segment launched no kernel")
+        for c, d in drivers.items():
+            check(all(v == 1 for v in d.captures.values())
+                  and (c not in table or d.captures),
+                  f"ta021 rung {c}: captures {d.captures}")
+        LEGS[start] = table
+        say(f"ladder ta021 lb2 D=4 from the root, start rung {start} "
+            "(chunk 65536, capacity 2^22 a worker, period 4, 8-step "
+            "segments)", rung_per_segment=[r["rung"] for r in rows],
+            switches=switches(events), per_rung=table, seconds=secs,
+            tree=res.explored_tree, complete=res.complete,
+            peak_memory_bytes=peak, launches=counts, card=CARD)
+finally:
+    del os.environ["TTS_AUDIT_HARD"]
+ran = set().union(*LEGS.values())
+check(ran == set(RUNGS21), f"ta021: rungs run {ran}")
+# the same segments on the fixed top chunk, for the peak memory
+torch.cuda.reset_peak_memory_stats(DEV)
+with ladder_trace() as (rows, _, _):
+    res_off, counts, secs = lad_run(
+        "ta021 ladder off", ("fused_expand", "lb2_sweep"),
+        lambda: distributed.search(P21, devices=W4, ladder=False, **L21))
+say("ladder off: ta021 lb2 D=4, the same segments at chunk 65536",
+    per_rung=rung_table(rows), seconds=secs, tree=res_off.explored_tree,
+    peak_memory_bytes=torch.cuda.max_memory_allocated(DEV), card=CARD)
+
+# (2) ta008 to completion at chunk 65536 (dense), the ladder on and off
+A8D = dict(lb_kind=2, init_ub=1206, chunk=65536, capacity=CAP21,
+           segment_iters=8)
+with ladder_trace() as (rows8, _, events8):
+    res_on, _, secs_on = lad_run(
+        "ladder ta008 on", DENSE, lambda: distributed.search(
+            taillard.processing_times(8), devices=W4, ladder=True, **A8D))
+res_off, _, secs_off = lad_run(
+    "ladder ta008 off", DENSE, lambda: distributed.search(
+        taillard.processing_times(8), devices=W4, ladder=False, **A8D))
+for res in (res_on, res_off):
+    dist_golden("ladder ta008", res, A8_GOLD)
+say("ladder ta008 lb2 D=4 (dense, chunk 65536, 8-step segments) to "
+    "completion", seconds_ladder_on=secs_on, seconds_ladder_off=secs_off,
+    rung_per_segment=[r["rung"] for r in rows8],
+    switches=switches(events8), per_rung=rung_table(rows8), card=CARD)
+
+# (3) ta014 at chunk 4096 (rungs 256, 1024, 4096), 4-step segments: up and
+# down; cut after two segments, resumed with the ladder (on its recorded
+# rung) and, from a copy, without
+L14 = dict(DIST14, segment_iters=4)
+with ladder_trace() as (rows14, _, events14):
+    full14, _, secs14 = lad_run("ladder ta014", DENSE, lambda: (
+        distributed.search(P14, devices=W4, ladder=True, **L14)))
+dist_golden("ladder ta014", full14, (144639, 0, 1377))
+dirs = {e["direction"] for e in events14 if e["name"] == "ladder.switch"}
+check(dirs == {"up", "down"}, f"ladder ta014 switched {dirs}")
+ck14 = SEG12 / "l14.npz"
+lad_run("ladder ta014 cut", (), lambda: distributed.search(
+    P14, devices=W4, ladder=True, checkpoint_path=str(ck14),
+    should_stop=lambda rep: rep.segment >= 2, **L14))
+with np.load(ck14) as z:
+    rung14 = int(z["meta_ladder_rung"])
+shutil.copy(ck14, SEG12 / "l14_plain.npz")
+with ladder_trace() as (_, _, ev_res):
+    res_l, _, _ = lad_run("ladder ta014 resumed", DENSE, lambda: (
+        distributed.search(P14, devices=W4, ladder=True,
+                           checkpoint_path=str(ck14), **L14)))
+start14 = [e for e in ev_res if e["name"] == "ladder.start"][0]
+check(start14["source"] == "meta" and start14["rung"] == rung14,
+      f"ta014 resume started {start14}")
+res_p, _, _ = lad_run("ladder ta014 resumed plain", DENSE, lambda: (
+    distributed.search(P14, devices=W4, ladder=False,
+                       checkpoint_path=str(SEG12 / "l14_plain.npz"),
+                       **L14)))
+for res in (res_l, res_p):
+    dist_golden("ladder ta014 resumed", res, (144639, 0, 1377))
+say("ladder ta014 lb2 D=4 (chunk 4096, 4-step segments)", seconds=secs14,
+    rung_per_segment=[r["rung"] for r in rows14],
+    switches=switches(events14), per_rung=rung_table(rows14),
+    cut_rung=rung14, resumed_with_ladder=res_l.explored_tree,
+    resumed_without=res_p.explored_tree, card=CARD)
+
+# (4) the board: ta014 ub=inf (the incumbent moves) with no board, with a
+# lone client (bit-identical), then a second search on that board, which
+# folds the first's best before its first dispatch
+B14 = dict(DIST14, init_ub=None, segment_iters=8)
+solo, _, secs_solo = lad_run("board ta014 solo", DENSE, lambda: (
+    distributed.search(P14, devices=W4, **B14)))
+board = incumbent.IncumbentBoard()
+lone, _, _ = lad_run("board ta014 lone", DENSE, lambda: (
+    distributed.search(P14, devices=W4, incumbent_board=board, **B14)))
+for f in DIST_FIELDS + ("final_size",):
+    check(np.array_equal(lone.per_device[f], solo.per_device[f]),
+          f"board: a lone client changed per-worker {f}")
+folds = obs_metrics.default().counter("tts_incumbent_folds_total")
+in0 = folds.value(direction="in")
+second, _, secs_2 = lad_run("board ta014 second", DENSE, lambda: (
+    distributed.search(P14, devices=W4, incumbent_board=board, **B14)))
+folded = folds.value(direction="in") - in0
+check(folded >= 1, "board: the second search folded nothing")
+check(solo.best == lone.best == second.best == 1377
+      and second.complete and second.explored_tree <= solo.explored_tree,
+      f"board: {solo.best} {second.best} {second.explored_tree}")
+say("board ta014 lb2 ub=inf D=4 (chunk 4096)", solo_tree=solo.explored_tree,
+    second_tree=second.explored_tree, folds_in=folded,
+    seconds_solo=secs_solo, seconds_second=secs_2, board=board.snapshot(),
+    card=CARD)
+
+# (5) chunk=None and balance_period=None: the serving defaults
+with ladder_trace() as (_, _, ev_none):
+    res_n, _, secs_n = lad_run("chunk=None ta014", (), lambda: (
+        distributed.search(P14, devices=W4, lb_kind=2, init_ub=1377,
+                           chunk=None, balance_period=None,
+                           capacity=1 << 20)))
+dist_golden("chunk=None ta014", res_n, (144639, 0, 1377))
+params = tune_defaults.params_for("serving", 20, 10)
+resolved = [e for e in ev_none if e["name"] == "tuner.resolve"]
+check(len(resolved) == 1 and resolved[0]["chunk"] == params.chunk
+      and resolved[0]["balance_period"] == params.balance_period
+      and resolved[0]["source"] == "default", f"tuner.resolve {resolved}")
+say("chunk=None ta014 lb2 D=4: params_for('serving')",
+    params=dataclasses.asdict(params), seconds=secs_n, card=CARD)
+shutil.rmtree(SEG12)
+say("phase 12 seconds", seconds=time.perf_counter() - t_phase12)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
     r["dist_launches"] = DIST_FROM[key][key] if key in DIST_FROM else 0
     r["hybrid_launches"] = HYB[key]
+    r["ladder_launches"] = LAD[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

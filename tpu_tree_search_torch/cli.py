@@ -29,7 +29,10 @@ warm-up's nodes per worker), `--balance-period`, `-w`/`-L` (`-w 0 -L 0`
 turns balancing off: no surplus reaches the transfer threshold 2**30),
 `--max-iters` as a ceiling on balance rounds, and with `--segment-iters`
 or `--checkpoint` prints a `[segment k]` line with per-worker sizes and
-steals; its checkpoint is the stacked one either package resumes.
+steals; its checkpoint is the stacked one either package resumes. With
+`TTS_LADDER=1` such a segmented run switches between chunk rungs at its
+segment boundaries (`engine/ladder.py`; the JAX CLI has no flag for it on
+`pfsp` either).
 
 `pfsp -C 1` runs the host tier (`engine/hybrid.py`) beside the device
 search on every driver, in the JAX CLI's branch order: with `-D` above 1
@@ -49,6 +52,8 @@ on the card. `--csv` appends the reference's CSV row
     python -m tpu_tree_search_torch pfsp -i 14 -l 2 --segment-iters 8 \\
         --checkpoint c.npz --max-iters 16     # then again, to resume
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1 --device cpu -D 4
+    TTS_LADDER=1 python -m tpu_tree_search_torch pfsp -i 14 -l 2 -u 1 \
+        --chunk 4096 --device cpu -D 4 --segment-iters 8
     python -m tpu_tree_search_torch pfsp -i 8 -l 2 -u 1 --chunk 65536 -C 1 \\
         --csv runs.csv
 """

@@ -44,11 +44,15 @@ the warm-up frontier (or, on a resume, with the checkpoint's saved share
 or rows carved off the pools), merging incumbents with the workers at
 every segment boundary.
 
+`_ladder_plan` builds the chunk ladder's rung drivers (`engine/ladder.py`)
+under one usable-row limit; `search` resolves `chunk=None` /
+`balance_period=None` from `tune/defaults.params_for("serving", ...)`,
+runs the ladder on segmented runs (`ladder`, or the TTS_LADDER flag) and
+joins an `engine/incumbent.IncumbentBoard`.
+
 Left out, each raising `NotImplementedError` naming its ROADMAP item: the
-chunk ladder, the tuner, the incumbent board and adaptive `chunk=None` /
-`balance_period=None` (the rest of A6); the executor cache (`loop_cache`,
-A9); the overlapped segment driver (`overlap=True`) and multi-process
-runs (A5b).
+tuner (the rest of A6); the executor cache (`loop_cache`, A9); the
+overlapped segment driver (`overlap=True`) and multi-process runs (A5b).
 """
 
 from __future__ import annotations
@@ -416,7 +420,8 @@ class _DistDriver:
     it so the balance round's D*transfer_cap receive block also fits above
     it, and both the local steps and the round's commit use the tightened
     limit. `host_reads` counts the status reads of `run` (one per
-    macro-iteration) and `macro_iters` the macro-iterations it issued."""
+    macro-iteration), `macro_iters` the macro-iterations it issued and
+    `captures` the CUDA graphs it captured, by pool capacity."""
 
     def __init__(self, devices, make_tables, make_local_step,
                  balance_period: int, transfer_cap: int, min_transfer: int,
@@ -438,6 +443,7 @@ class _DistDriver:
         self._bodies: dict[int, object] = {}
         self.host_reads = 0
         self.macro_iters = 0
+        self.captures: dict[int, int] = {}
 
     def limit(self, capacity: int) -> int:
         return min(self.limit_fn(capacity), capacity - self.n_recv)
@@ -486,7 +492,8 @@ class _DistDriver:
                         for t in tensors)
         return ("dist", self.name, self.key, self.balance_period,
                 self.transfer_cap, self.min_transfer, capacity,
-                states[0].telemetry.shape[-1], storage)
+                self.limit(capacity), states[0].telemetry.shape[-1],
+                storage)
 
     def _capture(self, states, capacity: int) -> _DistGraph:
         """Capture one macro-iteration on `states`' pools (updated in
@@ -494,6 +501,7 @@ class _DistDriver:
         runs first on a side stream, so that every kernel's first launch
         and the allocator's first blocks happen outside the capture."""
         body = self.body(capacity)
+        self.captures[capacity] = self.captures.get(capacity, 0) + 1
         dev = states[0].prmu.device
         static = [s._replace(
             **{f: getattr(s, f).clone() for f in COUNTER_DTYPES},
@@ -593,10 +601,12 @@ def _resolve_problem(problem):
 
 def _problem_driver(problem, devices, table, lb_kind: int, chunk: int,
                     balance_period: int, transfer_cap: int,
-                    min_transfer: int, fused: str = "off") -> _DistDriver:
+                    min_transfer: int, fused: str = "off",
+                    limit_fn=None) -> _DistDriver:
     """The driver of any registered problem: the plugin's tables on each
     worker device, its step (`make_step`, fused mode `fused` where the
-    plugin uses one) and its usable-row bound."""
+    plugin uses one) and its usable-row bound (`limit_fn`, None: this
+    chunk's own; the ladder passes the limit shared by its rungs)."""
     table = np.asarray(table)
     jobs = problem.slots(table)
     if not problem.supports_fused:
@@ -608,9 +618,64 @@ def _problem_driver(problem, devices, table, lb_kind: int, chunk: int,
     return _DistDriver(
         devices, lambda dev: problem.make_tables(table, device=dev),
         make_local_step, balance_period, transfer_cap, min_transfer,
-        limit_fn=lambda cap: problem.usable_rows(cap, chunk, jobs),
+        limit_fn=limit_fn or (lambda cap: problem.usable_rows(cap, chunk,
+                                                              jobs)),
         name=problem.name,
         key=(jobs, int(table.shape[0]), lb_kind, chunk, fused))
+
+
+def _ladder_plan(problem, devices, table, lb_kind: int, chunk: int,
+                 balance_period: int, transfer_cap: int | None,
+                 min_transfer: int | None, adt, rung_profile=None,
+                 fused_mode: str = "off") -> tuple[tuple, dict]:
+    """One `_DistDriver` per chunk-ladder rung (JAX `_ladder_plan`), all
+    under one usable-row limit: the minimum over the rungs of each rung's
+    scratch margin and balance headroom. A state committed by any rung is
+    then in bounds for every other, so a switch in either direction at a
+    segment boundary never writes a block over live rows.
+
+    `transfer_cap` / `min_transfer` are the caller's explicit values, for
+    every rung; None derives each rung's own (`default_transfer_cap`,
+    2*chunk). `rung_profile` (`Params.rung_modes`) admits rungs by their
+    measured time (`ladder.rungs_from_profile`) in place of the static
+    per-bound floor, and picks each rung's fused mode (`ladder.fused_for`)
+    under `fused_mode`."""
+    from .ladder import (fused_for, min_rung_for, rungs_for,
+                         rungs_from_profile)
+
+    jobs, aux_rows = problem.slots(table), problem.aux_rows(table)
+    n_dev = len(devices)
+    rungs = rungs_from_profile(chunk, rung_profile, fused_mode=fused_mode)
+    if rungs is None:
+        rungs = rungs_for(chunk, min_chunk=min_rung_for(lb_kind))
+    cfgs = []
+    for c in rungs:
+        tc = (transfer_cap if transfer_cap is not None
+              else default_transfer_cap(c, jobs, aux_rows, n_dev,
+                                        aux_itemsize=adt.itemsize))
+        mt = min_transfer if min_transfer is not None else 2 * c
+        cfgs.append((c, tc, mt))
+
+    def unified_limit(cap: int) -> int:
+        return min(min(problem.usable_rows(cap, c, jobs), cap - n_dev * tc)
+                   for c, tc, _ in cfgs)
+
+    drivers = {
+        c: _problem_driver(problem, devices, table, lb_kind, c,
+                           balance_period, tc, mt,
+                           fused=fused_for(c, rung_profile, fused_mode),
+                           limit_fn=unified_limit)
+        for c, tc, mt in cfgs}
+    return tuple(sorted(drivers)), drivers
+
+
+def _fold_cap(states: list[SearchState], cap) -> list[SearchState]:
+    """The board's pruning ceiling folded into every worker's `best` on its
+    device (JAX's `min(best, bound_cap)` at loop entry); None folds
+    nothing."""
+    if cap is None:
+        return states
+    return [s._replace(best=s.best.clamp_max(int(cap))) for s in states]
 
 
 def _not_ported(what: str, item: str):
@@ -631,7 +696,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
            stop_event=None, should_stop=None,
            loop_cache=None, checkpoint_meta_extra=None,
            overlap: bool | None = None,
-           incumbent_board=None, ladder: bool | None = None, tuner=None,
+           incumbent_board=None, incumbent_key=None,
+           ladder: bool | None = None, tuner=None,
            problem="pfsp", telemetry: bool | None = None,
            retry_attempts: int | None = None,
            segment_timeout_s: float | None = None) -> DistResult:
@@ -648,6 +714,10 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     pool is empty or each worker has taken `max_rounds * balance_period`
     steps. An overflow grows every pool x2 and resumes.
 
+    `chunk=None` / `balance_period=None` take the value of
+    `tune/defaults.params_for("serving", ...)` for this problem and shape
+    (a `tuner.resolve` event with source "default").
+
     With `segment_iters`, `checkpoint_path`, `stop_event` or
     `should_stop` the loop runs in segments (`checkpoint.run_segmented`):
     `heartbeat(SegmentReport)` after each (with per-worker sizes and
@@ -657,6 +727,23 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     segment boundary. An existing checkpoint is resumed, on any worker
     count (elastic: `checkpoint.reshard_state`); one written by another
     problem is refused.
+
+    `ladder` (None: the TTS_LADDER flag) runs a segmented search on the
+    chunk ladder (`engine/ladder.py`): a driver per rung under one
+    usable-row limit (`_ladder_plan`), the rung picked at each segment
+    boundary from the pool occupancy, the top rung (`chunk`) seeding,
+    committing and resuming. The live rung rides the checkpoint meta
+    (`ladder_rung`) and a resume starts on it. It does not engage without
+    segments, beside a host tier, or when `chunk` gives fewer than two
+    rungs; a ladder checkpoint resumes on the plain driver and back.
+
+    `incumbent_board` (`engine/incumbent.IncumbentBoard`) joins the
+    cross-request exchange under `incumbent_key` (None:
+    `incumbent.share_key` of the table): the starting best, the best at
+    each segment boundary and the final best are published, and before
+    each dispatch the board's tighter value is folded into every worker's
+    `best` on the device. A lone search is bit-identical to one with no
+    board.
 
     `problem` is a registry name or a plugin; `p_times` its instance table.
     The PFSP step takes the fused route on CUDA workers and the unfused one
@@ -674,21 +761,15 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     lacking it, from rows carved off the pools), one without `-C` pushes
     it back into a pool. A plugin without a host tier raises
     `HostTierUnsupported`."""
-    from . import checkpoint, hybrid
+    from ..utils import config as _cfg
+    from . import checkpoint, hybrid, incumbent as inc_mod
 
     prob = _resolve_problem(problem)
     if host_fraction > 0 and not prob.supports_host_tier:
         from ..problems.base import HostTierUnsupported
         raise HostTierUnsupported(prob.name)
-    if ladder:
-        raise _not_ported("the chunk ladder (ladder=True)", "A6")
     if tuner is not None:
         raise _not_ported("the tuner", "A6")
-    if incumbent_board is not None:
-        raise _not_ported("the cross-request incumbent board", "A6")
-    if chunk is None or balance_period is None:
-        raise _not_ported("adaptive chunk/balance_period (None, from "
-                          "tune/defaults)", "A6")
     if loop_cache is not None:
         raise _not_ported("the executor cache (loop_cache)", "A9")
     if overlap:
@@ -700,6 +781,22 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     n_dev = len(devs)
     jobs = prob.slots(table)
     mode = fz.resolve_mode(None, on_cuda=devs[0].type == "cuda")
+    rung_profile = None
+    if chunk is None or balance_period is None:
+        from ..tune import defaults as tune_defaults
+        params = tune_defaults.params_for("serving", jobs, table.shape[0],
+                                          problem=prob.name)
+        if chunk is None:
+            chunk = params.chunk
+            if transfer_cap is None and params.transfer_cap:
+                transfer_cap = params.transfer_cap
+        if balance_period is None:
+            balance_period = params.balance_period
+        rung_profile = params.rung_modes
+        tracelog.event("tuner.resolve", chunk=chunk,
+                       balance_period=balance_period, source=params.source,
+                       evals_per_s=params.evals_per_s, fused=mode,
+                       rung_profile=bool(rung_profile))
     adt = prob.aux_dtype(table)
     resumed = None
     if checkpoint_path and checkpoint.resume_path(checkpoint_path):
@@ -718,18 +815,42 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 f"{prob.name!r} (pick a fresh tag/checkpoint path)")
         adt = state.aux.dtype
         resumed = (state, meta)
+    if ladder is None:
+        ladder = _cfg.env_flag(_cfg.LADDER_FLAG)
+    # the ladder switches at segment boundaries, so it engages only on a
+    # segmented run; a host tier keeps the single driver
+    ladder_drivers = None
+    if (ladder and host_fraction == 0
+            and (segment_iters is not None or checkpoint_path is not None
+                 or stop_event is not None or should_stop is not None)):
+        # the rungs get the caller's explicit transfer knobs (None derives
+        # each rung's own)
+        rungs, ladder_drivers = _ladder_plan(
+            prob, devs, table, lb_kind, chunk, balance_period, transfer_cap,
+            min_transfer, adt, rung_profile=rung_profile, fused_mode=mode)
+        if len(rungs) < 2:
+            ladder_drivers = None
     if transfer_cap is None:
         transfer_cap = default_transfer_cap(
             chunk, jobs, prob.aux_rows(table), n_dev,
             aux_itemsize=adt.itemsize)
     min_transfer = min_transfer or 2 * chunk
-    driver = _problem_driver(prob, devs, table, lb_kind, chunk,
-                             balance_period, transfer_cap, min_transfer,
-                             fused=mode)
+    if ladder_drivers is not None:
+        # the top rung seeds, commits and resumes (every rung shares its
+        # limit)
+        driver = ladder_drivers[chunk]
+    else:
+        from .ladder import fused_for
+        driver = _problem_driver(prob, devs, table, lb_kind, chunk,
+                                 balance_period, transfer_cap, min_transfer,
+                                 fused=fused_for(chunk, rung_profile, mode))
 
     session = None
+    meta_rung = None            # the checkpoint's recorded rung
     if resumed is not None:
         host_state, meta = resumed
+        if "ladder_rung" in meta:
+            meta_rung = int(np.asarray(meta["ladder_rung"]))
         shape = tuple(host_state.prmu.shape)
         if len(shape) != 3 or shape[0] != n_dev:
             old = shape[0] if len(shape) == 3 else 1
@@ -780,6 +901,24 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 width, dtype=torch.int64, device=s.prmu.device))
                 for s in states]
 
+    ladder_ctl = client = None
+    if ladder_drivers is not None or incumbent_board is not None:
+        c0 = worker_counters(states)
+    if ladder_drivers is not None:
+        from .ladder import RungController
+        ladder_ctl = RungController(ladder_drivers, n_dev)
+        ladder_ctl.start(int(c0["size"].sum()), meta_rung=meta_rung)
+    if incumbent_board is not None:
+        client = inc_mod.BoardClient(
+            incumbent_board,
+            incumbent_key or inc_mod.share_key(table, problem=prob.name))
+        # the starting best (a resumed checkpoint's, or the warm-up's /
+        # init_ub), so peers tighten before this search's first segment
+        client.publish(int(c0["best"].min()))
+
+    def cap():
+        return client.cap() if client is not None else None
+
     max_iters = (None if max_rounds is None
                  else max_rounds * balance_period)
     stop_fn = None
@@ -790,7 +929,7 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     if (segment_iters is None and checkpoint_path is None
             and session is None and stop_fn is None):
         with tracelog.span("engine.run", workers=n_dev):
-            out = driver.run(states, max_iters)
+            out = driver.run(_fold_cap(states, cap()), max_iters)
     else:
         ckpt_meta = {"warmup_tree": fr.tree, "warmup_sol": fr.sol,
                      # the snapshot's problem stamp: a resume refuses a
@@ -803,19 +942,34 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                      np.zeros((0, jobs), np.int16),
                      "host_depth": h_depth if session else
                      np.zeros(0, np.int16)}
-        if checkpoint_meta_extra is not None:
+        if checkpoint_meta_extra is not None or ladder_ctl is not None:
             base_meta = ckpt_meta
 
             def ckpt_meta():
                 extra = (checkpoint_meta_extra()
                          if callable(checkpoint_meta_extra)
-                         else checkpoint_meta_extra)
-                return {**base_meta, **extra}
+                         else checkpoint_meta_extra or {})
+                # the rung of the next segment, chosen at this boundary
+                rung = ({"ladder_rung": ladder_ctl.current_chunk}
+                        if ladder_ctl is not None else {})
+                return {**base_meta, **extra, **rung}
+
+        def run_fn(s, target):
+            drv = ladder_ctl.driver() if ladder_ctl is not None else driver
+            return drv.run(_fold_cap(s, cap()), max_iters=target)
+
+        def hb(rep):
+            if ladder_ctl is not None:
+                # the rung of the next dispatch, from this boundary's pool
+                ladder_ctl.observe(rep.pool_size, segment=rep.segment)
+            if client is not None:
+                client.publish(rep.best)
+            if heartbeat is not None:
+                heartbeat(rep)
 
         out = checkpoint.run_segmented(
-            lambda s, target: driver.run(s, max_iters=target), states,
-            segment_iters=segment_iters or 2048,
-            checkpoint_path=checkpoint_path, heartbeat=heartbeat,
+            run_fn, states, segment_iters=segment_iters or 2048,
+            checkpoint_path=checkpoint_path, heartbeat=hb,
             checkpoint_every=checkpoint_every, max_total_iters=max_iters,
             checkpoint_meta=ckpt_meta, should_stop=stop_fn,
             post_segment=session.post_segment if session else None,
@@ -824,6 +978,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
 
     c = worker_counters(out)
     best = int(c["best"].min())
+    if client is not None:
+        client.publish(best)     # the final best: peers prune against it
     h_tree = h_sol = 0
     host_stats = {}
     if session is not None:

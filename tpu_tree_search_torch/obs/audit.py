@@ -1,10 +1,12 @@
-"""Checkpoint round-trip audit.
+"""Checkpoint round-trip and incumbent-exchange audits.
 
-Reproduces `roundtrip_enabled` and `check_checkpoint_roundtrip` of
-`tpu_tree_search/obs/audit.py`, with the pieces they stand on (`record`,
-`state_sums`, `AuditError`, `Finding`): after a save, `run_segmented`
-re-reads the snapshot and requires the counters it was written from
-(`TTS_AUDIT=full` or `TTS_AUDIT_CKPT=1`). Every check lands in the metrics
+Reproduces `enabled`, `roundtrip_enabled`, `check_checkpoint_roundtrip`
+and `check_incumbent_fold` of `tpu_tree_search/obs/audit.py`, with the
+pieces they stand on (`record`, `state_sums`, `AuditError`, `Finding`):
+after a save, `run_segmented` re-reads the snapshot and requires the
+counters it was written from (`TTS_AUDIT=full` or `TTS_AUDIT_CKPT=1`);
+`engine/incumbent.BoardClient` requires that a pruning ceiling it hands
+out never loosens (`TTS_AUDIT`, on by default). Every check lands in the metrics
 registry (`tts_audit_checks_total` / `tts_audit_failures_total` by
 invariant) and the flight recorder (`audit.check` / `audit.fail` events);
 `TTS_AUDIT_HARD=1` makes a failed one raise. The rest of the JAX module
@@ -33,6 +35,13 @@ class Finding:
     ok: bool
     detail: dict
     t_unix: float
+
+
+def enabled() -> bool:
+    """Result and exchange auditing (TTS_AUDIT; default on: the checks are
+    host-side comparisons of values already fetched)."""
+    return (_cfg.env_str("TTS_AUDIT") or "1").strip().lower() not in (
+        "0", "off", "false", "no")
 
 
 def hard() -> bool:
@@ -119,3 +128,16 @@ def check_checkpoint_roundtrip(path, state) -> list[Finding]:
     got = state_sums(loaded)
     return [record("checkpoint_roundtrip", got == expect,
                    path=str(path), expect=expect, got=got)]
+
+
+def check_incumbent_fold(key: str, prev_cap, new_cap) -> Finding:
+    """Monotonicity of the cross-request incumbent exchange
+    (`engine/incumbent.BoardClient` calls this on every fold the board
+    hands a search): a pruning ceiling must never loosen. The board is a
+    min-fold by construction, so `new_cap > prev_cap` means the exchange
+    itself is broken and a search could prune less than it already
+    safely did."""
+    ok = prev_cap is None or int(new_cap) <= int(prev_cap)
+    return record("incumbent_monotone", ok, key=str(key),
+                  prev_cap=(None if prev_cap is None else int(prev_cap)),
+                  new_cap=int(new_cap))

@@ -2,10 +2,10 @@
 
 Reproduces the accessors of `tpu_tree_search/utils/config.py` (`env_flag`,
 `env_str`, `env_int`, `env_float`, `set_env`) with the same accepted
-spellings, and the rows of its knob registry for the knobs the port reads:
-a `TTS_*` name must be registered, so a misspelt knob raises at its first
-read instead of never applying. The resilience defaults are the JAX
-package's.
+spellings, and the rows of its knob registry for the knobs the port reads
+(among them `LADDER_FLAG`, `TTS_LADDER`): a `TTS_*` name must be
+registered, so a misspelt knob raises at its first read instead of never
+applying. The resilience defaults are the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +23,15 @@ SEGMENT_TIMEOUT_S_DEFAULT = 0.0   # 0 = watchdog off
 OBS_TRACE_RING_DEFAULT = 16384
 OBS_TRACE_MAX_MB_DEFAULT = 64
 OBS_METRIC_MAX_SERIES_DEFAULT = 2048
+
+# the cross-request incumbent board's key bound (engine/incumbent.py)
+INCUMBENT_MAX_KEYS_DEFAULT = 4096
+
+# chunk-ladder execution (engine/ladder.py): STATIC, default off (off is
+# the single-driver path); on, the segmented multi-worker driver switches
+# between pre-built chunk rungs at segment boundaries from the pool
+# occupancy
+LADDER_FLAG = "TTS_LADDER"
 
 
 # the registered knobs and their defaults (None: no default / off)
@@ -48,6 +57,10 @@ KNOBS: dict[str, object] = {
     "TTS_TRACE_RING": OBS_TRACE_RING_DEFAULT,
     "TTS_TRACE_MAX_MB": OBS_TRACE_MAX_MB_DEFAULT,
     "TTS_METRIC_MAX_SERIES": OBS_METRIC_MAX_SERIES_DEFAULT,
+    # chunk-ladder execution, and the incumbent board's bound on distinct
+    # instance keys (least recently updated evicted first)
+    LADDER_FLAG: False,
+    "TTS_INCUMBENT_MAX_KEYS": INCUMBENT_MAX_KEYS_DEFAULT,
 }
 
 
