@@ -141,6 +141,24 @@ Phases (one line each, then two JSON lines):
      explores no more than the solo run; (5) `chunk=None` /
      `balance_period=None`, resolved to `params_for("serving")`. The
      `kernels` line's `ladder_launches` are this phase's launches
+ 13. the tuner (`tune/`, `distributed.search(tuner=...)`) and the LB2
+     debug tap: (1) `Autotuner.resolve(20, 20, 2, allow_probe=True)` on
+     ta021 with the default candidates (chunks 256 ... 65536 on the fused
+     and the unfused pipeline, periods 1, 4, 16, the winner's rungs;
+     window 24, warm-up 200, 2 repeats): every probe with its rate, the
+     winner, `rung_modes`, the sweep's seconds and peak memory; no
+     top-of-ladder candidate dropped, every probe counting evals, each
+     candidate's calls from the same state counting the same; (2) a
+     second tuner on that directory resolves with zero probes from the
+     cache; (3) ta014 probed at chunks 1024 and 4096 for four workers,
+     then `search(chunk=None, tuner=...)` from a fresh tuner on four
+     workers to the golden (source "cache", the probed chunk), plain and
+     with TTS_LADDER=1 over segments (the entry's `rung_modes` choosing
+     the rungs); (4) the entry truncated: quarantined and probed again;
+     (5) `chip_smoke.py --debug-tap` in a subprocess with
+     TTS_DEBUG_STEP=1 (ta021 LB2 on both routes, the tap equal to the
+     plain versions', graph equal to eager). The `kernels` line's
+     `tune_launches` are the launches of the probes of (1), (3) and (4)
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -169,7 +187,7 @@ if not torch.cuda.is_available():
 from tpu_tree_search_torch import cli, native, problems  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
 from tpu_tree_search_torch.engine import distributed, hybrid  # noqa: E402
-from tpu_tree_search_torch.engine import incumbent  # noqa: E402
+from tpu_tree_search_torch.engine import incumbent, ladder  # noqa: E402
 from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
@@ -184,6 +202,7 @@ from tpu_tree_search_torch.parallel import mesh  # noqa: E402
 from tpu_tree_search_torch.problems import knapsack, nqueens  # noqa: E402
 from tpu_tree_search_torch.problems import taillard, tsp  # noqa: E402
 from tpu_tree_search_torch.tune import defaults as tune_defaults  # noqa: E402
+from tpu_tree_search_torch.tune import tuner as tune_tuner  # noqa: E402
 from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
 from tpu_tree_search_torch.utils import csv_stats, faults  # noqa: E402
@@ -343,6 +362,47 @@ def sync_free_step(label, tables, state, lb_kind, chunk, fused=None):
     torch.cuda.synchronize()
     say(f"sync-free step {label}", fused=fused, syncs=0)
 
+
+def debug_tap_child() -> None:
+    """Phase 13 (5), in a subprocess started with TTS_DEBUG_STEP=1 (the
+    engine reads the flag at import): ta021 LB2 at chunk 65536 from the
+    root, 6 steps on the fused and on the unfused `prefilter` route,
+    through the kernels and through the plain versions from the same
+    states, and through `device.run` (one graph replay, whose 26 steps
+    past the ceiling are no-ops that keep the tap); every counter,
+    `sent`/`recv`/`steals` (the tap) among them, equal after every step.
+    Prints one JSON line of the taps."""
+    check(device._DEBUG_STEP, "TTS_DEBUG_STEP did not reach the engine")
+    p = taillard.processing_times(21)
+    tables = batched.make_tables(p, device=DEV)
+    s0 = device.init_state(20, 1 << 22, taillard.optimal_makespan(21),
+                           p_times=p, device=DEV)
+    taps = {}
+    for fused in (None, "off"):
+        k_state, p_state, rows = clone(s0), clone(s0), []
+        for i in range(6):
+            k_state = device.step(tables, 2, 65536, k_state, fused=fused)
+            with plain_kernels():
+                p_state = device.step(tables, 2, 65536, p_state,
+                                      fused=fused)
+            ck, cp = device.counters(k_state), device.counters(p_state)
+            check(ck == cp, f"debug tap {fused} step {i + 1}: {ck} != {cp}")
+            rows.append([ck.sent, ck.recv, ck.steals])
+        check(same_state(k_state, p_state), f"debug tap {fused}: pools")
+        check(any(r[2] > 0 and r[1] > 0 for r in rows),
+              f"debug tap {fused}: the tap wrote nothing {rows}")
+        g = device.run(tables, clone(s0), 2, 65536, max_iters=6,
+                       fused=fused)
+        check(same_state(g, k_state), f"debug tap {fused}: graph != eager")
+        sync_free_step(f"debug tap {fused}", tables, k_state, 2, 65536,
+                       fused=fused)
+        taps[fused or "hw"] = rows
+    print(json.dumps({"debug_tap": taps}), flush=True)
+
+
+if sys.argv[1:] == ["--debug-tap"]:
+    debug_tap_child()
+    sys.exit(0)
 
 # --- phase 1: the card ----------------------------------------------------
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -710,7 +770,7 @@ def tail_cost(state, reps=20):
     def tail(width):
         return lambda: device._lb2_tail(
             t21, st, kch[:, :width], kaux[:, :width], ksched[:, :width],
-            n_surv, best, start, limit)[0]
+            n_surv, best, start, limit)[1]
 
     pushed = [int(tail(w)().item()) for w in (N21, W)]
     check(pushed[0] == pushed[1], f"ta021 tail: {pushed} pushed")
@@ -2244,12 +2304,201 @@ say("chunk=None ta014 lb2 D=4: params_for('serving')",
 shutil.rmtree(SEG12)
 say("phase 12 seconds", seconds=time.perf_counter() - t_phase12)
 
+# --- phase 13: the tuner on the card -------------------------------------
+device.clear_graphs()
+t_phase13 = time.perf_counter()
+TUNE = dict.fromkeys(kernels.LAUNCHES, 0)
+TUNE_DIR = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_tune_"))
+check(not any(k.startswith("TTS_TUNE") for k in os.environ),
+      "a TTS_TUNE* variable would change the sweep")
+
+
+def tune_run(label, expect, fn):
+    """A path run of this phase's probes; their launches join TUNE."""
+    out, counts, secs = path_run(label, expect, fn)
+    for k, v in counts.items():
+        TUNE[k] += v
+    return out, counts, secs
+
+
+@contextlib.contextmanager
+def probe_calls():
+    """Every timed call of a probe's driver (`_DistDriver._drive`): its
+    chunk, period and fused mode, and its evals and iterations as device
+    tensors, read after the sweep (no read inside a timed window)."""
+    rows = []
+    orig = distributed._DistDriver._drive
+
+    def drive(self, states, ceiling, capacity):
+        out, status = orig(self, states, ceiling, capacity)
+        rows.append((self.key[3], self.balance_period, self.key[4],
+                     out[0].evals, out[0].iters))
+        return out, status
+
+    distributed._DistDriver._drive = drive
+    try:
+        yield rows
+    finally:
+        distributed._DistDriver._drive = orig
+
+
+def same_repeats(label, rows):
+    """Each candidate's calls (the capture and both repeats) from the same
+    state counted the same evals and iterations."""
+    by = {}
+    for chunk, period, fused, ev, it in rows:
+        by.setdefault((chunk, period, fused), []).append(
+            (int(ev.item()), int(it.item())))
+    for cand, counts in by.items():
+        check(len(counts) == 3 and len(set(counts)) == 1,
+              f"{label} {cand}: calls counted {counts}")
+    return len(by)
+
+
+def probe_rows(tuner):
+    return [{k: r[k] for k in ("chunk", "balance_period", "fused",
+                               "evals_per_s", "ms_per_iter", "pool_start",
+                               "underfilled")} for r in tuner.ledger]
+
+
+# (1) the sweep: ta021 LB2 with the default candidates (chunks 256 ...
+# 65536 on both pipelines at period 4, periods 1, 4, 16 at the winner,
+# the winner's rungs), window 24, warm-up 200 steps, 2 repeats
+T21 = tune_tuner.Autotuner(cache_dir=TUNE_DIR / "ta021")
+check(T21.chunks == tune_tuner.CHUNK_CANDIDATES_DEFAULT
+      and T21.periods == tune_tuner.PERIOD_CANDIDATES_DEFAULT
+      and (T21.window_iters, T21.warm_iters, T21.repeats) == (24, 200, 2),
+      "ta021 sweep: not the default candidates")
+torch.cuda.reset_peak_memory_stats(DEV)
+prev_log = tracelog.install(tracelog.TraceLog(capacity=1 << 14))
+try:
+    with probe_calls() as calls21:
+        params21, counts, secs21 = tune_run(
+            "tuner ta021 sweep", ("fused_expand", "lb2_sweep",
+                                  "expand_bounds"),
+            lambda: T21.resolve(20, 20, 2, allow_probe=True, p_times=P21))
+finally:
+    ev21 = [r for r in tracelog.install(prev_log).records()
+            if r["name"].startswith("tuner")]
+peak21 = torch.cuda.max_memory_allocated(DEV)
+dropped = [e for e in ev21 if e["name"] == "tuner.candidate_dropped"]
+check(params21.source == "probe", f"ta021 sweep: {params21}")
+check(not [e for e in dropped if e.get("chunk") == max(T21.chunks)],
+      f"ta021 sweep: a top-of-ladder candidate was dropped: {dropped}")
+probed = {(r["chunk"], r["fused"]) for r in T21.ledger}
+check({(max(T21.chunks), "off"), (max(T21.chunks), "hw")} <= probed,
+      f"ta021 sweep: top chunk not probed on both pipelines: {probed}")
+check(all(r["evals"] > 0 for r in T21.ledger),
+      f"ta021 sweep: a probe counted no evals {T21.ledger}")
+n_cands = same_repeats("ta021 sweep", calls21)
+check(n_cands == T21.probes_run, f"ta021: {n_cands} != {T21.probes_run}")
+for row in probe_rows(T21):
+    say("tuner ta021 probe", **row)
+say("tuner ta021 lb2 sweep: the winner", chunk=params21.chunk,
+    balance_period=params21.balance_period,
+    evals_per_s=params21.evals_per_s, rung_modes=params21.rung_modes,
+    probes=T21.probes_run, dropped=dropped, sweep_seconds=secs21,
+    peak_memory_bytes=peak21, launches=counts, card=CARD)
+
+# (2) the warm replay: a second tuner on the same directory, zero probes
+T21b = tune_tuner.Autotuner(cache_dir=TUNE_DIR / "ta021")
+params21b = T21b.resolve(20, 20, 2, allow_probe=True, p_times=P21)
+check(T21b.probes_run == 0 and params21b.source == "cache"
+      and (params21b.chunk, params21b.balance_period, params21b.rung_modes)
+      == (params21.chunk, params21.balance_period, params21.rung_modes),
+      f"ta021 warm replay: {params21b}, {T21b.probes_run} probes")
+say("tuner ta021 warm replay", source=params21b.source, probes=0,
+    cache=T21b.cache.snapshot())
+
+# (3) a search that consumes an entry: ta014 probed at chunks 1024 and
+# 4096 for four workers, then `search(chunk=None, tuner=...)` from a
+# fresh tuner on that directory, plain and on the ladder over 16-step
+# segments (a multiple of every period candidate: a segment shorter than
+# the period would run no macro-iteration)
+TK14 = dict(cache_dir=TUNE_DIR / "ta014", chunks=(1024, 4096),
+            capacity=1 << 22)
+T14 = tune_tuner.Autotuner(**TK14)
+params14, counts, secs = tune_run(
+    "tuner ta014 sweep", DENSE, lambda: T14.resolve(
+        20, 10, 2, n_workers=4, allow_probe=True, p_times=P14))
+check(params14.source == "probe" and params14.chunk in (1024, 4096),
+      f"ta014 sweep: {params14}")
+say("tuner ta014 lb2 sweep (chunks 1024, 4096; n_workers 4)",
+    chunk=params14.chunk, balance_period=params14.balance_period,
+    evals_per_s=params14.evals_per_s, rung_modes=params14.rung_modes,
+    probes=probe_rows(T14), seconds=secs, launches=counts, card=CARD)
+S14 = dict(lb_kind=2, init_ub=1377, chunk=None, balance_period=None,
+           capacity=1 << 20)
+for lad in (False, True):
+    if lad:
+        os.environ["TTS_LADDER"] = "1"
+    tuner14 = tune_tuner.Autotuner(cache_dir=TK14["cache_dir"])
+    try:
+        with ladder_trace() as (rows_t, plans_t, ev_t), \
+                recording(ladder, "rungs_from_profile") as profiled:
+            res_t, counts, secs = path_run(
+                f"search tuner=ta014 ladder={lad}", DENSE,
+                lambda: distributed.search(
+                    P14, devices=W4, tuner=tuner14,
+                    segment_iters=16 if lad else None, **S14))
+    finally:
+        os.environ.pop("TTS_LADDER", None)
+    dist_golden(f"search tuner=ta014 ladder={lad}", res_t,
+                (144639, 0, 1377))
+    resolved = [e for e in ev_t if e["name"] == "tuner.resolve"]
+    check(len(resolved) == 1 and resolved[0]["source"] == "cache"
+          and resolved[0]["chunk"] == params14.chunk
+          and resolved[0]["balance_period"] == params14.balance_period
+          and tuner14.probes_run == 0, f"tuner.resolve {resolved}")
+    if lad:
+        (rungs, _), = plans_t
+        check(bool(profiled) and profiled[0] is not None
+              and tuple(rungs) == tuple(profiled[0]),
+              f"rung_profile did not reach _ladder_plan: {profiled}")
+    say(f"search ta014 lb2 D=4 chunk=None tuner=<cache> ladder={lad}",
+        resolved=resolved[0], rungs=list(plans_t[0][0]) if lad else None,
+        rung_per_segment=[r["rung"] for r in rows_t], seconds=secs,
+        launches=counts, card=CARD)
+
+# (4) a damaged entry: truncated, then quarantined and probed again
+entry14 = T14.cache.path_for(tune_tuner.Autotuner.key(20, 10, 2, 4))
+blob = entry14.read_bytes()
+entry14.write_bytes(blob[:len(blob) // 2])
+T14d = tune_tuner.Autotuner(**TK14)
+params14d, counts, secs = tune_run(
+    "tuner ta014 re-probe", DENSE, lambda: T14d.resolve(
+        20, 10, 2, n_workers=4, allow_probe=True, p_times=P14))
+snap = T14d.cache.snapshot()
+corrupt = sorted(p.name for p in entry14.parent.glob("*.corrupt"))
+check(params14d.source == "probe" and T14d.probes_run > 0
+      and snap["quarantined"] == 1 and snap["errors"] == 1
+      and len(corrupt) == 1 and entry14.exists(),
+      f"damaged entry: {snap} {corrupt}")
+say("tuner ta014 truncated entry", quarantined_to=corrupt, cache=snap,
+    reprobes=T14d.probes_run, seconds=secs, launches=counts)
+
+# (5) the debug tap, in a subprocess with TTS_DEBUG_STEP=1
+t_tap = time.perf_counter()
+tap = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                      "--debug-tap"], capture_output=True, text=True,
+                     timeout=600, cwd=ROOT,
+                     env=dict(os.environ, TTS_DEBUG_STEP="1"))
+check(tap.returncode == 0, f"debug tap: rc {tap.returncode}\n"
+      f"{tap.stdout[-4000:]}\n{tap.stderr[-4000:]}")
+say("debug tap ta021 lb2 (sent, recv, steals a step; kernels == plain "
+    "versions, graph == eager)", seconds=time.perf_counter() - t_tap,
+    **json.loads(tap.stdout.strip().splitlines()[-1]))
+shutil.rmtree(TUNE_DIR)
+say("phase 13 seconds", seconds=time.perf_counter() - t_phase13,
+    tune_launches=TUNE)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
     r["dist_launches"] = DIST_FROM[key][key] if key in DIST_FROM else 0
     r["hybrid_launches"] = HYB[key]
     r["ladder_launches"] = LAD[key]
+    r["tune_launches"] = TUNE[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

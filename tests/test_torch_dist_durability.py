@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 
 from tpu_tree_search.engine import distributed as jdist
-from tpu_tree_search_torch import cli
+from tpu_tree_search_torch import cli, tune as ttune
 from tpu_tree_search_torch.engine import checkpoint as tckpt
 from tpu_tree_search_torch.engine import distributed as tdist
 from tpu_tree_search_torch.engine import incumbent as tinc
@@ -206,14 +206,15 @@ def test_cross_problem_resume_refused(tmp_path):
 
 
 # the arguments still refused; the rest of the cases below (the ladder,
-# the incumbent board, chunk=None, balance_period=None) were refused
-# naming A6 until its parts (a)-(c) were ported, and now run
-_REFUSED = {"tuner", "loop_cache", "overlap"}
+# the tuner, the incumbent board, chunk=None, balance_period=None) were
+# refused naming A6 until it was ported, and now run (a real `Autotuner`
+# without a cache directory resolves the open chunk to the defaults)
+_REFUSED = {"loop_cache", "overlap"}
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(ladder=True, chunk=256, segment_iters=4), "A6"),
-    (dict(tuner=object()), "A6"),
+    (dict(tuner=ttune.Autotuner(device="cpu"), chunk=None), "A6"),
     (dict(incumbent_board=tinc.IncumbentBoard()), "A6"),
     (dict(chunk=None), "A6"), (dict(balance_period=None), "A6"),
     (dict(loop_cache=object()), "A9"), (dict(overlap=True), "A5b")])

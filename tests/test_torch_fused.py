@@ -381,6 +381,59 @@ def test_fused_lb2_spill_matches_jax(jax_fused, monkeypatch):
     assert any(n <= N // 4 for n in survivors)
 
 
+# ------------------------------------------------------------ debug tap
+
+
+@pytest.mark.parametrize("fused", ["off", "interpret"])
+def test_debug_tap_matches_jax(jax_fused, monkeypatch, fused):
+    """JAX's TTS_DEBUG_STEP tap on ta021's shape (190 pairs: the head and
+    tail sweeps split), on the unfused `prefilter` route and the fused
+    tail, 5 steps from the root at chunk 32: each package writes the sums
+    of the live columns' head and tail bounds and the pushed count into
+    `sent`, `recv` and `steals`, equal after every step. The flag is read
+    at import in both packages, so the module attributes are set, and
+    JAX's traces dropped around each run. With the tap off the steps are
+    the same but for those counters, which stay 0."""
+    p = taillard.processing_times(21)
+    ub = taillard.optimal_makespan(21)
+    jt = jbatched.make_tables(p)
+    tt = tbatched.make_tables(p, device="cpu")
+    taps = ("sent", "recv", "steals")
+
+    def run(tap: bool) -> list:
+        monkeypatch.setattr(jdevice, "_DEBUG_STEP", tap)
+        monkeypatch.setattr(tdevice, "_DEBUG_STEP", tap)
+        jax.clear_caches()
+        jstep = jax.jit(jdevice.step, static_argnums=(1, 2),
+                        static_argnames=("tile", "fused"))
+        js = jdevice.init_state(20, 1 << 14, ub, p_times=p, telemetry=False)
+        ts = convert.state_from_numpy(_jnp_state(js), device="cpu")
+        out = []
+        for k in range(5):
+            js = jstep(jt, 2, 32, js, tile=32, fused=fused)
+            ts = tdevice.step(tt, 2, 32, ts, tile=32, fused=fused)
+            want, got = _jnp_state(js), convert.state_to_numpy(ts)
+            _assert_same(want, got, f"tap={tap} step {k + 1}")
+            assert [int(got[f]) for f in taps] == \
+                [int(want[f]) for f in taps], f"tap={tap} step {k + 1}"
+            out.append(got)
+        jax.clear_caches()
+        if tap:
+            # a step that is not active (past a graph's loop condition)
+            # keeps the tap of the last step that ran
+            idle = tdevice.step(tt, 2, 32, ts, tile=32, fused=fused,
+                                active=torch.zeros((), dtype=torch.bool))
+            assert [int(getattr(idle, f)) for f in taps] == \
+                [int(got[f]) for f in taps]
+        return out
+
+    on, off = run(True), run(False)
+    assert any(int(s["steals"]) > 0 and int(s["recv"]) > 0 for s in on)
+    for a, b in zip(on, off):
+        assert all(int(b[f]) == 0 for f in taps)
+        _assert_same(a, b, "tap off")
+
+
 # ---------------------------------------------------- fused equals unfused
 
 

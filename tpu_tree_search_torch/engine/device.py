@@ -5,17 +5,17 @@ Reproduces `tpu_tree_search/engine/device.py` for one device: the pool
 layout, `aux_dtype`, `row_limit`, `SearchState` (every counter a device
 scalar with the JAX dtype), `init_state`, `lb2_route`, `pop_chunk`,
 `_write_block` and `_commit` (the no-commit overflow contract and its
-scratch margin, at a device offset under selects), `_lb2_tail`,
-`_leaf_scan`, all three routes of `step` (LB1/LB1_d, LB2 `dense`, LB2
-`prefilter`) and the fused route (`_fused_step`, `ops/fused.py`), the
-search-telemetry updates of every route (`engine/telemetry.py`), `run`
-(with `drain_min` and a `max_iters` ceiling that needs no new capture),
-`run_growing`, `search` and `default_capacity`; and the problem-plugin
-engine (`problems/base.py`): `make_children`, `generic_step` (pop,
-the plugin's `branch` and `bound`, incumbent and solution accounting,
-the stable partition, the block write under the overflow contract,
-telemetry), `run_problem` (the plugin's step on the same graph loop as
-`run`) and `solve` (with grow-on-overflow).
+scratch margin, at a device offset under selects), `_lb2_tail` (with the
+TTS_DEBUG_STEP tap), `_leaf_scan`, all three routes of `step` (LB1/LB1_d,
+LB2 `dense`, LB2 `prefilter`) and the fused route (`_fused_step`,
+`ops/fused.py`), the search-telemetry updates of every route
+(`engine/telemetry.py`), `run` (with `drain_min` and a `max_iters` ceiling
+that needs no new capture), `run_growing`, `search` and
+`default_capacity`; and the problem-plugin engine (`problems/base.py`):
+`make_children`, `generic_step` (pop, the plugin's `branch` and `bound`,
+incumbent and solution accounting, the stable partition, the block write
+under the overflow contract, telemetry), `run_problem` (the plugin's step
+on the same graph loop as `run`) and `solve` (with grow-on-overflow).
 
 `step` reads nothing back to the host, on any route: the counts it
 branches on stay on the device. Where the JAX step picks a frame or a
@@ -60,6 +60,7 @@ import torch
 from ..ops import (batched, columns as cols, expand as ex, fused as fz,
                    kernels, reference as ref)
 from ..ops.batched import BoundTables
+from ..utils import config as _cfg
 from . import telemetry as tele
 
 I32_MAX = 2**31 - 1
@@ -69,6 +70,9 @@ _I64_MAX = 2**63 - 1
 GRAPH_STEPS = 32
 # captured graphs kept (each holds its steps' device memory)
 _GRAPH_CACHE = 4
+# the LB2 debug tap (`_lb2_tail`), read once at import as in the JAX
+# package: a graph captured with the tap keeps it
+_DEBUG_STEP = _cfg.env_flag("TTS_DEBUG_STEP")
 
 # the state's counters and their dtypes (the JAX package's)
 COUNTER_DTYPES = {"size": torch.int32, "best": torch.int32,
@@ -309,17 +313,29 @@ def _take_block(*rows_arrays):
     return take
 
 
+def _debug_tap(tables: BoundTables) -> bool:
+    """JAX's debug-tap condition: TTS_DEBUG_STEP at import, assertions on,
+    and a pair table split into head and tail sweeps."""
+    return bool(__debug__ and _DEBUG_STEP
+                and int(tables.ma0.shape[0]) > batched.PAIR_PREFILTER)
+
+
 def _lb2_tail(tables: BoundTables, state: SearchState, children, caux,
-              sched, ncand, best, start, limit: int, TELE: bool = False):
+              sched, ncand, best, start, limit: int, TELE: bool = False,
+              debug_tap: bool = False, active=None):
     """Everything after the LB1 prune of the two-phase LB2 route, over the
     frame of `children` (its first `ncand` columns live): the strong-pair
     head sweep, the mid prune+compact, the tail sweep, the final
     prune+compact and the pool block write. The unfused prefilter route
     and the fused route both end here. Each sweep takes its live count as
-    a device scalar and sweeps only those columns. Returns (n_push,
+    a device scalar and sweeps only those columns. Returns (state, n_push,
     tele_tail): with `TELE`, the (DB + 2*BB,) branched buckets,
-    pruned-bound and surviving-bound histograms of this part, else
-    None."""
+    pruned-bound and surviving-bound histograms of this part, else None.
+
+    `debug_tap` (`_debug_tap`) writes the sums of the head and tail bounds
+    over the live columns and `n_push` into the returned state's `sent`,
+    `recv` and `steals` (JAX's tap), on the device; a step that is not
+    `active` leaves them."""
     J, W_ = children.shape
     M = tables.p.shape[0]
     P = int(tables.ma0.shape[0])
@@ -354,6 +370,17 @@ def _lb2_tail(tables: BoundTables, state: SearchState, children, caux,
 
     push = (live_cols < live) & (lb2b.reshape(-1) < best)
     n_push = push.sum(dtype=torch.int32)
+    if debug_tap:
+        lv = live_cols < live
+        tap = {"sent": torch.where(lv, lb2h_c.reshape(-1), 0).sum(
+                   dtype=torch.int64),
+               "recv": torch.where(lv, lb2t.reshape(-1), 0).sum(
+                   dtype=torch.int64),
+               "steals": n_push.long()}
+        if active is not None:
+            tap = {f: torch.where(active, v, getattr(state, f))
+                   for f, v in tap.items()}
+        state = state._replace(**tap)
     tele_tail = None
     if TELE:
         # computed while caux still aligns column for column with push
@@ -367,7 +394,7 @@ def _lb2_tail(tables: BoundTables, state: SearchState, children, caux,
     children, child_aux = _take_block(children, caux)(cols.partition(push))
     _write_block(state, children, child_aux[M].to(torch.int16), child_aux,
                  start, n_push, limit)
-    return n_push, tele_tail
+    return state, n_push, tele_tail
 
 
 def _leaf_scan(tables: BoundTables, p_prmu, p_depth, p_aux, valid):
@@ -453,8 +480,9 @@ def _fused_step(tables: BoundTables, lb_kind: int, route, B: int, TB: int,
         return _commit(state, n_surv, best, sol, evals, limit, start,
                        tele_delta=delta, active=active)
 
-    n_push, tail = _lb2_tail(tables, state, kch, kaux, ksched, n_surv,
-                             best, start, limit, TELE)
+    state, n_push, tail = _lb2_tail(tables, state, kch, kaux, ksched,
+                                    n_surv, best, start, limit, TELE,
+                                    _debug_tap(tables), active)
     delta = None
     if TELE:
         delta = tele.step_delta(popped_b, tail[:DB], evalnl_b - tail[:DB],
@@ -541,8 +569,9 @@ def step(tables: BoundTables, lb_kind: int, chunk: int,
         children, caux, sched = cols.regather(
             tables, p_prmu, p_depth, p_aux, cols.partition(cand), TB,
             with_sched=True)
-        n_push, tail = _lb2_tail(tables, state, children, caux, sched,
-                                 ncand, best, start, limit, TELE)
+        state, n_push, tail = _lb2_tail(tables, state, children, caux,
+                                        sched, ncand, best, start, limit,
+                                        TELE, _debug_tap(tables), active)
         delta = None
         if TELE:
             # the LB1 prefilter's prunes bin at the bound that pruned them

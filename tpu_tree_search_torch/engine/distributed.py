@@ -46,13 +46,14 @@ every segment boundary.
 
 `_ladder_plan` builds the chunk ladder's rung drivers (`engine/ladder.py`)
 under one usable-row limit; `search` resolves `chunk=None` /
-`balance_period=None` from `tune/defaults.params_for("serving", ...)`,
-runs the ladder on segmented runs (`ladder`, or the TTS_LADDER flag) and
-joins an `engine/incumbent.IncumbentBoard`.
+`balance_period=None` through a `tune.Autotuner` (`tuner`) or from
+`tune/defaults.params_for("serving", ...)`, runs the ladder on segmented
+runs (`ladder`, or the TTS_LADDER flag) and joins an
+`engine/incumbent.IncumbentBoard`.
 
 Left out, each raising `NotImplementedError` naming its ROADMAP item: the
-tuner (the rest of A6); the executor cache (`loop_cache`, A9); the
-overlapped segment driver (`overlap=True`) and multi-process runs (A5b).
+executor cache (`loop_cache`, A9); the overlapped segment driver
+(`overlap=True`) and multi-process runs (A5b).
 """
 
 from __future__ import annotations
@@ -715,8 +716,11 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     steps. An overflow grows every pool x2 and resumes.
 
     `chunk=None` / `balance_period=None` take the value of
-    `tune/defaults.params_for("serving", ...)` for this problem and shape
-    (a `tuner.resolve` event with source "default").
+    `tuner.resolve(..., allow_probe=False)` (a `tune.Autotuner`: its cache
+    entry for this shape and worker count, with the probed `rung_modes`
+    feeding the ladder, else the defaults) or, without a tuner,
+    `tune/defaults.params_for("serving", ...)` for this problem and shape;
+    a `tuner.resolve` event names the source ("cache" or "default").
 
     With `segment_iters`, `checkpoint_path`, `stop_event` or
     `should_stop` the loop runs in segments (`checkpoint.run_segmented`):
@@ -768,8 +772,6 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     if host_fraction > 0 and not prob.supports_host_tier:
         from ..problems.base import HostTierUnsupported
         raise HostTierUnsupported(prob.name)
-    if tuner is not None:
-        raise _not_ported("the tuner", "A6")
     if loop_cache is not None:
         raise _not_ported("the executor cache (loop_cache)", "A9")
     if overlap:
@@ -783,9 +785,17 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     mode = fz.resolve_mode(None, on_cuda=devs[0].type == "cuda")
     rung_profile = None
     if chunk is None or balance_period is None:
+        # the knobs left open: the tuner's cache entry (its hot path never
+        # probes), else the serving defaults
         from ..tune import defaults as tune_defaults
-        params = tune_defaults.params_for("serving", jobs, table.shape[0],
-                                          problem=prob.name)
+        if tuner is not None:
+            params = tuner.resolve(jobs, table.shape[0], lb_kind,
+                                   n_workers=n_dev, allow_probe=False,
+                                   problem=prob.name, device=devs[0])
+        else:
+            params = tune_defaults.params_for("serving", jobs,
+                                              table.shape[0],
+                                              problem=prob.name)
         if chunk is None:
             chunk = params.chunk
             if transfer_cap is None and params.transfer_cap:

@@ -1,11 +1,12 @@
 """Environment knobs of the port.
 
 Reproduces the accessors of `tpu_tree_search/utils/config.py` (`env_flag`,
-`env_str`, `env_int`, `env_float`, `set_env`) with the same accepted
-spellings, and the rows of its knob registry for the knobs the port reads
-(among them `LADDER_FLAG`, `TTS_LADDER`): a `TTS_*` name must be
-registered, so a misspelt knob raises at its first read instead of never
-applying. The resilience defaults are the JAX package's.
+`env_str`, `env_int`, `env_float`, `env_ints`, `set_env`) with the same
+accepted spellings, and the rows of its knob registry for the knobs the
+port reads (among them `LADDER_FLAG`, `TTS_LADDER`, the tuner's and
+`TTS_DEBUG_STEP`): a `TTS_*` name must be registered, so a misspelt knob
+raises at its first read instead of never applying. The resilience and
+tuner defaults are the JAX package's.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ INCUMBENT_MAX_KEYS_DEFAULT = 4096
 # between pre-built chunk rungs at segment boundaries from the pool
 # occupancy
 LADDER_FLAG = "TTS_LADDER"
+
+# the tuner's probe knobs (tune/): TTS_TUNE_CHUNKS / TTS_TUNE_PERIODS
+# (comma lists), TTS_TUNE_WINDOW / TTS_TUNE_WARM (iterations)
+TUNE_WINDOW_ITERS_DEFAULT = 24    # measured iterations per probe candidate
+TUNE_WARM_ITERS_DEFAULT = 200     # warm-up iterations before the windows
 
 
 # the registered knobs and their defaults (None: no default / off)
@@ -61,6 +67,16 @@ KNOBS: dict[str, object] = {
     # instance keys (least recently updated evicted first)
     LADDER_FLAG: False,
     "TTS_INCUMBENT_MAX_KEYS": INCUMBENT_MAX_KEYS_DEFAULT,
+    # the tuner: the candidate ladders (comma lists; unset: the tuner's
+    # own), the measured and warm-up iterations of a probe, and probing
+    # the winner's ladder rungs when the fused route is off
+    "TTS_TUNE_CHUNKS": None,
+    "TTS_TUNE_PERIODS": None,
+    "TTS_TUNE_WINDOW": TUNE_WINDOW_ITERS_DEFAULT,
+    "TTS_TUNE_WARM": TUNE_WARM_ITERS_DEFAULT,
+    "TTS_TUNE_RUNGS": False,
+    # the LB2 debug tap (engine/device.py): read once at import
+    "TTS_DEBUG_STEP": False,
 }
 
 
@@ -114,6 +130,20 @@ def env_float(name: str, default: float | None = None) -> float | None:
         return float(raw)
     except ValueError:
         return default
+
+
+def env_ints(name: str, default: tuple = ()) -> tuple:
+    """Comma-separated integer-list knob (the tuner's candidate ladders,
+    TTS_TUNE_CHUNKS="64,256,1024"); a malformed list falls back whole."""
+    _knob_default(name, None)
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return tuple(default)
+    try:
+        vals = tuple(int(t) for t in raw.split(",") if t.strip())
+        return vals or tuple(default)
+    except ValueError:
+        return tuple(default)
 
 
 def set_env(name: str, value) -> None:
