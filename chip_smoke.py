@@ -159,20 +159,49 @@ Phases (one line each, then two JSON lines):
      TTS_DEBUG_STEP=1 (ta021 LB2 on both routes, the tap equal to the
      plain versions', graph equal to eager). The `kernels` line's
      `tune_launches` are the launches of the probes of (1), (3) and (4)
+ 14. the overlapped segment driver and multi-process runs
+     (`checkpoint.run_segmented(overlap=True)`,
+     `AsyncCheckpointWriter`, `_DistDriver.run_async`, `--multihost`):
+     (1) ta021 LB2 ub=opt at chunk 65536 on four workers, three one-step
+     segments from the same seeded state with a save after every one,
+     overlap off and on, and on with a save every second segment: every
+     segment report but its wall-clock field and every worker's final
+     counters and live rows equal; per run its wall seconds, the gaps
+     after checkpoint segments and after the others (count, sum, p50,
+     max), each save's seconds and thread and the writer's peak of
+     pending tasks; one macro-iteration replayed past its ceiling, by
+     device time; (2) ta014 LB2 ub=opt on four workers under overlap with
+     a save every 4-step segment, to the golden; (3) the same stopped
+     under overlap after two segments, resumed with overlap off and on,
+     both to the golden; (4) `python -m torch.distributed.run
+     --nproc-per-node 2 chip_smoke.py --mp-rank DIR --multihost pfsp -i
+     14 -l 2 -u 1 -D 4 ...` (each rank runs `cli.main` on that command
+     line and reports its launches, checkpoint writes, seconds and the
+     host time of each macro-iteration's cross-process part): truncated
+     after two macro-iterations with a checkpoint only rank 0 writes,
+     resumed by both ranks (the golden on each, and the `dist` CSV row's
+     per-worker trees equal to one process driving the same four
+     workers), and its copy resumed by one process to the golden. The
+     `kernels` line's `overlap_launches` and `mp_launches` are the
+     launches of (1)-(3) and of (4)
 The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import io
 import json
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -400,9 +429,66 @@ def debug_tap_child() -> None:
     print(json.dumps({"debug_tap": taps}), flush=True)
 
 
+def mp_rank_child(out_dir: str, argv: list) -> None:
+    """Phase 14 (5): one rank of a `python -m torch.distributed.run
+    --nproc-per-node 2 chip_smoke.py --mp-rank OUT_DIR --multihost pfsp
+    ...` job (two ranks sharing the card). Runs the command line `argv`
+    through `cli.main`, as `python -m tpu_tree_search_torch argv` runs
+    it, and writes to OUT_DIR/rank<r>.json its exit code, what it
+    printed, its kernel launches, its checkpoint writes, its seconds and
+    the host time of the cross-process part of each macro-iteration (the
+    incumbent minimum, the balance round and the status read, each timed
+    from a synchronized device)."""
+    round_s = {"pmin": 0.0, "balance": 0.0, "status": 0.0}
+    calls = {"balance": 0}
+
+    def timed(fn, key):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            round_s[key] += time.perf_counter() - t
+            if key in calls:
+                calls[key] += 1
+            return out
+        return wrapped
+
+    distributed._pmin = timed(distributed._pmin, "pmin")
+    distributed._balance_round = timed(distributed._balance_round,
+                                       "balance")
+    distributed._Comm.status = timed(distributed._Comm.status, "status")
+    writes = []
+    write_snapshot = checkpoint._write_snapshot
+
+    def counted(path, arrays):
+        writes.append(str(path))
+        return write_snapshot(path, arrays)
+
+    checkpoint._write_snapshot = counted
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    macros = max(calls["balance"], 1)
+    rank = mesh.process_index()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "world": mesh.process_count(), "rc": rc,
+        "stdout": buf.getvalue(), "launches": dict(kernels.LAUNCHES),
+        "writes": len(writes), "seconds": seconds,
+        "macro_iterations": calls["balance"],
+        "round_host_ms_per_macro_iteration": {
+            k: 1e3 * v / macros for k, v in round_s.items()}}))
+    sys.exit(rc)
+
+
 if sys.argv[1:] == ["--debug-tap"]:
     debug_tap_child()
     sys.exit(0)
+if sys.argv[1:2] == ["--mp-rank"]:
+    mp_rank_child(sys.argv[2], sys.argv[3:])
 
 # --- phase 1: the card ----------------------------------------------------
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2492,6 +2578,278 @@ shutil.rmtree(TUNE_DIR)
 say("phase 13 seconds", seconds=time.perf_counter() - t_phase13,
     tune_launches=TUNE)
 
+# --- phase 14: the overlapped segment driver and multi-process runs ----
+device.clear_graphs()
+t_phase14 = time.perf_counter()
+OVL = dict.fromkeys(kernels.LAUNCHES, 0)
+MPL = dict.fromkeys(kernels.LAUNCHES, 0)
+SEG14 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_overlap_"))
+
+
+def ovl_run(label, expect, fn):
+    """A path run of this phase's single-process searches (graphs dropped
+    first); its launches join OVL."""
+    device.clear_graphs()
+    out, counts, secs = path_run(label, expect, fn)
+    for k, v in counts.items():
+        OVL[k] += v
+    return out, counts, secs
+
+
+@contextlib.contextmanager
+def flight():
+    """A fresh flight recorder for the block; its records at exit."""
+    recs = []
+    prev = tracelog.install(tracelog.TraceLog(capacity=1 << 14))
+    try:
+        yield recs
+    finally:
+        recs += tracelog.install(prev).records()
+
+
+def stats(xs) -> dict:
+    xs = sorted(xs)
+    return {"count": len(xs), "sum": float(sum(xs)),
+            "p50": xs[len(xs) // 2] if xs else None,
+            "max": xs[-1] if xs else None}
+
+
+def gaps(recs, every: int) -> dict:
+    """The device-idle gaps between consecutive `segment` spans (the next
+    dispatch minus this segment's results-ready, clamped at 0; a
+    synchronous segment's save falls in its gap), split by whether the
+    earlier segment saved."""
+    segs = sorted((r for r in recs if r["name"] == "segment"),
+                  key=lambda r: r["segment"])
+    split = {"after_checkpoint": [], "others": []}
+    for a, b in zip(segs, segs[1:]):
+        split["after_checkpoint" if a["segment"] % every == 0
+              else "others"].append(max(0.0, b["ts"] - a["ts"] - a["dur"]))
+    return {k: stats(v) for k, v in split.items()}
+
+
+def report_rows(reps) -> list:
+    return [{**dataclasses.asdict(r), "elapsed": None} for r in reps]
+
+
+def same_files(label, a, b):
+    """Two checkpoints hold the same counters and live rows, worker by
+    worker."""
+    (x, _), (y, _) = (checkpoint.load(p, device="cpu") for p in (a, b))
+    for f in device.COUNTER_DTYPES:
+        check(torch.equal(getattr(x, f), getattr(y, f)),
+              f"{label}: worker {f} differs")
+    for d, n in enumerate(x.size.tolist()):
+        check(all(torch.equal(getattr(x, f)[d, ..., :n],
+                              getattr(y, f)[d, ..., :n])
+                  for f in checkpoint.POOL_FIELDS),
+              f"{label}: worker {d}'s live rows differ")
+
+
+# (1) ta021 LB2 ub=opt at the bench shape on four workers, a save after
+# every one-step segment (balance period 1), S14 segments from the same
+# seeded state (max_rounds: neither driver runs past them): overlap off,
+# on, and on with a save every second segment. The pools grow some 16
+# times a step from the warm-up's 32 nodes a worker, and a save of a
+# 4-step pool (1.15 M rows a worker) took 38-43 s, so the run stops
+# after three steps, its last save some 600,000 rows
+S14 = 3
+OV21 = dict(lb_kind=2, init_ub=taillard.optimal_makespan(21), chunk=C21,
+            capacity=CAP21, balance_period=1, segment_iters=1,
+            max_rounds=S14, devices=W4)
+OV = {}
+for label, overlap, every in (("off", False, 1), ("on", True, 1),
+                              ("on, save every 2", True, 2)):
+    reps, ck = [], SEG14 / f"ov21_{len(OV)}.npz"
+    with flight() as recs:
+        res, counts, secs = ovl_run(
+            f"ta021 overlap {label}", ("fused_expand", "lb2_sweep"),
+            lambda: distributed.search(
+                P21, overlap=overlap, checkpoint_path=str(ck),
+                checkpoint_every=every, heartbeat=reps.append, **OV21))
+    spans = [r for r in recs if r["name"] == "segment"]
+    check(len(spans) == S14 and all(bool(r.get("overlapped")) == overlap
+                                    for r in spans),
+          f"ta021 overlap {label}: segment spans {len(spans)}")
+    writer = [r for r in recs if r["name"] == "checkpoint.writer"]
+    OV[label] = dict(reps=report_rows(reps), file=ck, res=res)
+    say(f"ta021 lb2 D=4 overlap {label} ({S14} one-step segments, a save "
+        f"every {every})", wall_seconds=secs,
+        gaps=gaps(recs, every),
+        segment_ms=[round(1e3 * r["dur"], 3) for r in spans],
+        save_seconds=[(round(r["dur"], 4), r["thread"]) for r in recs
+                      if r["name"] == "checkpoint.save"],
+        save_bytes=[r.get("bytes") for r in recs
+                    if r["name"] == "checkpoint.save"],
+        # the writer's tasks queued or being written, at most
+        peak_pending=writer[0]["peak_pending"] if writer else None,
+        pool=reps[-1].pool_size, tree=reps[-1].tree, launches=counts,
+        card=CARD)
+for label in ("on", "on, save every 2"):
+    check(OV[label]["reps"] == OV["off"]["reps"],
+          f"ta021 overlap {label}: a segment report differs from overlap "
+          "off")
+    same_files(f"ta021 overlap {label}", OV[label]["file"],
+               OV["off"]["file"])
+# the trailing no-op macro-iteration (of a drained or unaligned segment):
+# one replay of phase 10's ta021 graph (period 4) past its ceiling,
+# against an active one (phase 10's ms a macro-iteration)
+NOOP = distributed._problem_driver(PF, W4, P21, 2, C21, BP21, TC21,
+                                   2 * C21, fused="hw")
+noop_states = NOOP.seed(FR21, CAP21, 20, min(FR21.best,
+                                             taillard.optimal_makespan(21)))
+noop_graph = NOOP._graph(noop_states, CAP21, 0)
+noop_ms = cuda_ms(noop_graph.graph.replay, 10)
+check(distributed.worker_counters(NOOP._graph_out(noop_states, noop_graph))
+      ["iters"].max() == 0, "ta021: a replay past the ceiling stepped")
+del NOOP, noop_states, noop_graph
+device.clear_graphs()
+say("ta021 lb2 D=4 period 4: one macro-iteration replay past its "
+    "ceiling (no-op)", device_ms=noop_ms, card=CARD)
+
+# (2) ta014 LB2 ub=opt on four workers, overlap on, a save after every
+# 4-step segment, to the golden
+ck14 = SEG14 / "ov14.npz"
+res, counts, secs = ovl_run("ta014 overlap", DENSE, lambda: (
+    distributed.search(P14, devices=W4, overlap=True, segment_iters=4,
+                       checkpoint_path=str(ck14), **DIST14)))
+dist_golden("ta014 overlap", res, (144639, 0, 1377))
+check(counts["fused_expand"] == 0 and counts["expand_bounds"] == 0,
+      f"ta014 overlap dense: launches {counts}")
+say("dist ta014 lb2 D=4 overlap (dense, 4-step segments, a save each)",
+    seconds=secs, launches=counts, card=CARD)
+
+# (3) a stop under overlap after two segments; the checkpoint resumed once
+# with overlap off and once with it on, both to the golden
+ev14 = threading.Event()
+stopped = []
+
+
+def stop_after_two(rep):
+    stopped.append(rep.segment)
+    if rep.segment >= 2:
+        ev14.set()
+
+
+ck_stop = SEG14 / "stop14.npz"
+part, _, _ = ovl_run("ta014 overlap stopped", DENSE, lambda: (
+    distributed.search(P14, devices=W4, overlap=True, segment_iters=4,
+                       checkpoint_path=str(ck_stop), stop_event=ev14,
+                       heartbeat=stop_after_two, **DIST14)))
+check(not part.complete and stopped[-1] <= 3,
+      f"ta014 overlap stop: segments {stopped}")
+for overlap in (False, True):
+    ck_copy = SEG14 / f"stop14_{int(overlap)}.npz"
+    shutil.copy(ck_stop, ck_copy)
+    res, counts, secs = ovl_run(
+        f"ta014 resumed, overlap {overlap}", DENSE, lambda: (
+            distributed.search(P14, devices=W4, overlap=overlap,
+                               segment_iters=64,
+                               checkpoint_path=str(ck_copy), **DIST14)))
+    dist_golden(f"ta014 resumed, overlap {overlap}", res,
+                (144639, 0, 1377))
+    say(f"dist ta014 stopped under overlap at segment {stopped[-1]}, "
+        f"resumed with overlap {'on' if overlap else 'off'}",
+        seconds=secs, launches=counts)
+
+# (4) two ranks sharing the card (`--multihost`, gloo): ta014 LB2 ub=opt,
+# -D 4 (two workers a rank), the golden's chunk and capacity, 4-step
+# segments: a run truncated after two macro-iterations, resumed by two
+# processes and, from a copy, by one
+
+
+def mp_job(label, argv, expect=DENSE, timeout=240):
+    """`python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
+    --mp-rank DIR argv`: both ranks must exit 0; returns their reports,
+    their launches joining MPL (each kernel of `expect` launched)."""
+    out = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_mp_"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    # its own process group, so a timeout stops the ranks with torchrun
+    job = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "localhost", "--master-port", str(port),
+         str(Path(__file__).resolve()), "--mp-rank", str(out), *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        start_new_session=True)
+    try:
+        stdout, stderr = job.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(job.pid, signal.SIGKILL)
+        stdout, stderr = job.communicate()
+    secs = time.perf_counter() - t
+    check(job.returncode == 0, f"{label}: rc {job.returncode}\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(out)
+    total = {k: sum(r["launches"][k] for r in ranks) for k in MPL}
+    for k, v in total.items():
+        MPL[k] += v
+    for k in expect:
+        check(total[k] > 0, f"{label}: kernel {k} never launched")
+    for r in ranks:
+        check(r["rc"] == 0 and r["world"] == 2,
+              f"{label}: rank {r['rank']} rc {r['rc']}")
+        say(f"{label}: rank {r['rank']}", seconds=r["seconds"],
+            macro_iterations=r["macro_iterations"],
+            round_host_ms_per_macro_iteration=r[
+                "round_host_ms_per_macro_iteration"],
+            writes=r["writes"], launches=r["launches"], card=CARD)
+    return ranks, secs
+
+
+MP14 = ["--multihost", "pfsp", "-i", "14", "-l", "2", "-u", "1", "-D", "4",
+        "--chunk", "4096", "--capacity", str(1 << 20), "--segment-iters",
+        "4"]
+# a truncated two-process run with a checkpoint (rank 0 alone writes)
+ck_mp = SEG14 / "mp14.npz"
+ranks, secs = mp_job("multihost ta014 D=4 truncated",
+                     MP14 + ["--checkpoint", str(ck_mp), "--max-iters", "2"])
+check(ranks[0]["writes"] > 0 and ranks[1]["writes"] == 0,
+      f"multihost checkpoint writes {[r['writes'] for r in ranks]}")
+check(all("truncated run" in r["stdout"] for r in ranks),
+      "multihost truncated: a rank did not stop")
+shutil.copy(ck_mp, SEG14 / "mp14_one.npz")
+say("multihost ta014 D=4 truncated (2 ranks sharing the card)",
+    seconds=secs, card=CARD)
+# resumed by the two processes: both print the golden, and rank 0's CSV row
+# (the `dist` schema) holds the per-worker trees of one process driving the
+# same four workers uninterrupted
+csv14 = SEG14 / "mp.csv"
+ranks, secs = mp_job("multihost ta014 D=4 resumed",
+                     MP14 + ["--checkpoint", str(ck_mp), "--csv", str(csv14)])
+for r in ranks:
+    cli_golden(f"multihost resume rank {r['rank']}", r["rc"], r["stdout"])
+one = distributed.search(P14, lb_kind=2, init_ub=1377, devices=W4,
+                         chunk=4096, capacity=1 << 20, balance_period=4,
+                         min_seed=25)
+dist_golden("one process, the command's ta014 D=4", one, (144639, 0, 1377))
+row = csv14.read_text().splitlines()
+check(row[0] == csv_stats.DIST_HEADER and len(row) == 2,
+      f"multihost csv: {row[:1]} ({len(row)} lines)")
+trees = json.loads(next(csv.reader([row[1]]))[13])
+check(trees == one.per_device["tree"].tolist(),
+      f"multihost per-worker tree {trees} != one process's "
+      f"{one.per_device['tree'].tolist()}")
+say("multihost ta014 D=4 resumed (2 ranks sharing the card)", seconds=secs,
+    per_worker_tree=trees, card=CARD)
+# the two-process checkpoint resumed by one process
+res, counts, _ = path_run("ta014 two-process checkpoint, one process",
+                          DENSE, lambda: distributed.search(
+    P14, lb_kind=2, init_ub=1377, devices=W4, chunk=4096,
+    capacity=1 << 20, balance_period=4, min_seed=25, segment_iters=64,
+    checkpoint_path=str(SEG14 / "mp14_one.npz")))
+for k, v in counts.items():
+    MPL[k] += v
+dist_golden("two-process checkpoint resumed in one process", res,
+            (144639, 0, 1377))
+shutil.rmtree(SEG14)
+say("phase 14 seconds", seconds=time.perf_counter() - t_phase14,
+    overlap_launches=OVL, mp_launches=MPL)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
@@ -2499,6 +2857,8 @@ for r in RESULTS:
     r["hybrid_launches"] = HYB[key]
     r["ladder_launches"] = LAD[key]
     r["tune_launches"] = TUNE[key]
+    r["overlap_launches"] = OVL[key]
+    r["mp_launches"] = MPL[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -207,9 +207,10 @@ def test_cross_problem_resume_refused(tmp_path):
 
 # the arguments still refused; the rest of the cases below (the ladder,
 # the tuner, the incumbent board, chunk=None, balance_period=None) were
-# refused naming A6 until it was ported, and now run (a real `Autotuner`
-# without a cache directory resolves the open chunk to the defaults)
-_REFUSED = {"loop_cache", "overlap"}
+# refused naming A6 until it was ported, and `overlap` naming A5b, and now
+# run (a real `Autotuner` without a cache directory resolves the open chunk
+# to the defaults; overlap without segments runs the one unsegmented loop)
+_REFUSED = {"loop_cache"}
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -10,11 +10,13 @@ updates the pool in place, so a segment that stepped and then failed is
 retried from the device copy `run_segmented` keeps (the oracle's totals);
 a CUDA runtime error and a watchdog timeout are not retried; the
 `pause_server` drill is a plain wedge without a `service/` package; the
-overlapped driver is refused; and the CLI's `[segment k]` lines equal the
+overlapped driver gives the synchronous driver's state and reports; and
+the CLI's `[segment k]` lines equal the
 JAX CLI's for the same run and resume. Every comparison is exact.
 """
 
 import contextlib
+import dataclasses
 import io
 import os
 import subprocess
@@ -367,11 +369,32 @@ def test_pause_server_is_a_plain_wedge_without_service(fault_plan):
     assert device.counters(paused) == device.counters(clean)
 
 
-def test_overlap_is_refused():
+def test_overlap_is_refused(tmp_path):
+    """Once a refusal, now a run: `run_segmented(overlap=True)` (the
+    pipelined driver, its checkpoints on the writer thread) against the
+    synchronous driver on one device, with a checkpoint every segment: the
+    same final state and file, the oracle's totals, and every segment
+    report but its wall-clock field, segment by segment (the pipelined
+    driver's last report is the drained no-op segment's, with the same
+    counts)."""
     inst, opt, tables = _setup()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        checkpoint.run_segmented(_run_fn(tables), _init(inst, opt),
-                                 heartbeat=None, overlap=True)
+    runs = []
+    for overlap in (False, True):
+        reports = []
+        path = tmp_path / f"overlap{int(overlap)}.npz"
+        out = checkpoint.run_segmented(
+            _run_fn(tables), _init(inst, opt), segment_iters=2,
+            heartbeat=reports.append, overlap=overlap,
+            checkpoint_path=str(path))
+        rows = [{**dataclasses.asdict(r), "elapsed": 0} for r in reports]
+        runs.append((out, rows, checkpoint.load(path, device="cpu")[0]))
+    (off, r_off, f_off), (on, r_on, f_on) = runs
+    assert device.counters(on) == device.counters(off)
+    assert device.counters(f_on) == device.counters(f_off)
+    assert _totals(on) == _want(inst, opt)
+    assert r_on[:len(r_off)] == r_off
+    assert [{**r, "segment": 0} for r in r_on[len(r_off):]] == \
+        [{**r_off[-1], "segment": 0}] * (len(r_on) - len(r_off))
 
 
 # --------------------------------------- retry of a segment run in place

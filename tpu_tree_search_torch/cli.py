@@ -32,7 +32,19 @@ or `--checkpoint` prints a `[segment k]` line with per-worker sizes and
 steals; its checkpoint is the stacked one either package resumes. With
 `TTS_LADDER=1` such a segmented run switches between chunk rungs at its
 segment boundaries (`engine/ladder.py`; the JAX CLI has no flag for it on
-`pfsp` either).
+`pfsp` either), and with `TTS_OVERLAP=1` it runs on the overlapped segment
+driver (the next segment dispatched before the last one's counters are
+read, checkpoints written on a thread; `distributed.search` reads the flag,
+as in the JAX CLI, which has no `pfsp` flag for it).
+
+`--multihost` (before the subcommand) joins a `torch.distributed` job of
+several processes, one per card or several sharing one, from the
+environment `python -m torch.distributed.run` sets (gloo backend;
+`parallel/mesh.py`): `-D` counts the job's workers and must divide evenly
+across the processes (exit 2 otherwise), each process drives its share,
+every process prints the job's results, and rank 0 alone writes the
+checkpoint and the `--csv` row, in the reference's distributed schema
+(`csv_stats.write_dist`).
 
 `pfsp -C 1` runs the host tier (`engine/hybrid.py`) beside the device
 search on every driver, in the JAX CLI's branch order: with `-D` above 1
@@ -54,6 +66,10 @@ on the card. `--csv` appends the reference's CSV row
     python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1 --device cpu -D 4
     TTS_LADDER=1 python -m tpu_tree_search_torch pfsp -i 14 -l 2 -u 1 \
         --chunk 4096 --device cpu -D 4 --segment-iters 8
+    TTS_OVERLAP=1 python -m tpu_tree_search_torch pfsp -i 3 -l 2 -u 1 \\
+        --device cpu -D 4 --segment-iters 64 --checkpoint c3.npz
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m tpu_tree_search_torch --multihost pfsp -i 14 -l 2 -u 1 -D 4
     python -m tpu_tree_search_torch pfsp -i 8 -l 2 -u 1 --chunk 65536 -C 1 \\
         --csv runs.csv
 """
@@ -114,6 +130,7 @@ def _host_tier(args, n_dev: int) -> tuple[int, int]:
 
 def run_pfsp(args) -> int:
     from .engine import device
+    from .parallel import mesh
     from .problems import taillard
     from .utils import faults
 
@@ -121,19 +138,20 @@ def run_pfsp(args) -> int:
     workers = _workers(args.D, dev)
     if workers is None:
         return 2
+    n_dev = _job_size(workers)
     p = taillard.processing_times(args.inst)
     jobs, machines = p.shape[1], p.shape[0]
     if args.capacity is None:
         args.capacity = device.default_capacity(jobs, machines)
     init_ub = taillard.optimal_makespan(args.inst) if args.ub == 1 else None
-    host_fraction, host_threads = _host_tier(args, len(workers))
+    host_fraction, host_threads = _host_tier(args, n_dev)
     segmented = args.segment_iters is not None or args.checkpoint is not None
-    if len(workers) == 1 and args.C and not segmented \
+    if n_dev == 1 and args.C and not segmented \
             and args.max_iters is not None:
         print("error: --max-iters is not supported with -C 1",
               file=sys.stderr)
         return 2
-    _print_pfsp_settings(args, machines, jobs, dev, len(workers))
+    _print_pfsp_settings(args, machines, jobs, dev, n_dev)
     t0 = time.perf_counter()
     # the fault plan is this call's (an in-process caller keeps its own)
     with (faults.scoped(args.faults) if args.faults
@@ -149,7 +167,8 @@ def run_pfsp(args) -> int:
     _print_results(best, tree, sol, elapsed, complete=complete)
     if summary is not None:
         print("Search telemetry: " + json.dumps(summary))
-    if args.csv:
+    if args.csv and mesh.process_index() == 0:
+        # rank 0 alone writes the row of a --multihost job
         from .utils import phase_timing
         phase_timing.write_csv_with_phases(args, p, init_ub, workers,
                                            elapsed, tree, sol, best,
@@ -167,7 +186,7 @@ def _run_pfsp_paths(args, p, init_ub, workers, host_fraction: int,
     from .engine import device, hybrid, telemetry
 
     dev = workers[0]
-    if len(workers) > 1:
+    if _job_size(workers) > 1:
         res = _run_pfsp_distributed(args, p, init_ub, workers,
                                     host_fraction, host_threads)
         return (res.explored_tree, res.explored_sol, res.best, res.complete,
@@ -338,12 +357,28 @@ def _run_pfsp_distributed(args, p, init_ub, workers, host_fraction: int = 0,
         host_fraction=host_fraction, host_threads=host_threads)
 
 
-def _workers(D: int, dev) -> list | None:
-    """The worker devices `-D` asks for: on the card, D visible cards (0:
-    every one); on the CPU, D workers on the CPU (0: one). None after
-    printing why they are not there."""
+def _job_size(workers: list) -> int:
+    """The job's workers: this process's, times the processes of a
+    `--multihost` job."""
     from .parallel import mesh
 
+    return len(workers) * mesh.process_count()
+
+
+def _workers(D: int, dev) -> list | None:
+    """This process's worker devices of the `-D` the command asks for: on
+    the card, D visible cards (0: every one); on the CPU, D workers on the
+    CPU (0: one); in a `--multihost` job, its equal share of D
+    (`mesh.local_worker_devices`). None after printing why they are not
+    there."""
+    from .parallel import mesh
+
+    if mesh.process_count() > 1:
+        try:
+            return mesh.local_worker_devices(D, dev)
+        except ValueError as e:
+            print(f"error: -D {D}: {e}", file=sys.stderr)
+            return None
     if D == 1:
         return [dev]
     try:
@@ -364,12 +399,12 @@ def run_nqueens(args) -> int:
     if workers is None:
         return 2
     print("=" * 49)
-    print(f"GPU N-Queens ({len(workers)} device(s))")
+    print(f"GPU N-Queens ({_job_size(workers)} device(s))")
     print(f"Resolution of the {args.N}-Queens instance")
     print(f"  with {args.g} safety check(s) per evaluation")
     print("=" * 49)
     t0 = time.perf_counter()
-    if len(workers) == 1:
+    if _job_size(workers) == 1:
         out = nq.search(args.N, g=args.g, chunk=args.chunk,
                         capacity=args.capacity, device=dev)
     else:
@@ -464,7 +499,7 @@ def run_solve(args) -> int:
           f"{'x'.join(map(str, table.shape))} lb={lb} D={args.D}")
     print("=" * 49)
     t0 = time.perf_counter()
-    if len(workers) == 1:
+    if _job_size(workers) == 1:
         out = device.solve(prob, table, lb_kind=lb, init_ub=init_ub,
                            chunk=args.chunk, capacity=args.capacity,
                            max_iters=args.max_iters, device=dev)
@@ -491,6 +526,14 @@ def _device_arg(p) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tpu_tree_search_torch")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join a multi-process job (one process per card, "
+                         "or several sharing one) from the environment, "
+                         "as `python -m torch.distributed.run` sets it "
+                         "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+                         "LOCAL_RANK), on the gloo backend; -D then counts "
+                         "the job's workers, split evenly across the "
+                         "processes; must precede the subcommand")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("pfsp", help="exact PFSP branch-and-bound")
     p.add_argument("-i", dest="inst", type=int, default=14,
@@ -619,6 +662,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.multihost:
+        from .parallel import mesh
+        mesh.init_processes()
     try:
         return args.fn(args)
     except (RuntimeError, ValueError) as e:

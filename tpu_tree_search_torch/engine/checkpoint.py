@@ -16,9 +16,12 @@ Reproduces the sync durability layer of
   snapshot, as the JAX multi-device driver writes it, re-homed onto one
   pool;
 - `grow`: lossless re-homing into a larger pool after an overflow;
-- `run_segmented`: the sync segment driver, with heartbeat reports,
+- `run_segmented`: the segment driver, with heartbeat reports,
   checkpoints, stall detection, retry of transient errors, a wall-clock
-  watchdog and the fault-injection points of `utils/faults.py`.
+  watchdog and the fault-injection points of `utils/faults.py`; with
+  `overlap=True` the pipelined driver (`_run_segmented_overlap`), which
+  dispatches segment N+1 before it reads segment N's counters and hands
+  compression, fsync and rotation to an `AsyncCheckpointWriter` thread.
 
 Every function that takes a state also takes a multi-worker search's
 list of worker states (`engine/distributed.py`): `save` writes it as the
@@ -38,6 +41,22 @@ pool, and `run` replays the same graph. `load`, `grow` and
 graph for a state they return (`device.clear_graphs()` drops the old
 ones).
 
+Under overlap `run_fn` dispatches without reading anything back
+(`distributed._DistDriver.run_async`) and returns a `DispatchedStates`:
+the worker list with a `CounterBlock`, its report fields copied into
+pinned host memory behind a CUDA event right after the segment's last
+replay. The next dispatch rewrites the same counter and pool tensors in
+place, so the driver reads the counters only from that block, and reads a
+checkpoint segment's live rows before it dispatches the next segment.
+
+In a multi-process job (`parallel/mesh.py`: a gloo process group, each
+rank driving its share of the workers), a worker list holds the rank's
+workers: every per-segment fetch gathers every rank's counters, a save
+gathers the stacked state on rank 0, which alone writes the file, a torn
+file is quarantined by rank 0 only, and `run_segmented` makes one attempt
+and never overlaps (a retry or a speculative dispatch would reorder the
+collectives across ranks), as the JAX multi-controller tier does.
+
 Entry points that make a state take `device` ("cuda" unless the caller
 passes "cpu").
 """
@@ -48,6 +67,7 @@ import contextlib
 import dataclasses
 import os
 import pathlib
+import queue
 import threading
 import time
 import warnings
@@ -60,6 +80,7 @@ import torch
 from .. import convert
 from ..obs import metrics as obs_metrics
 from ..obs import tracelog
+from ..parallel import mesh
 from ..utils import faults
 from ..utils.retry import retry_call
 from . import telemetry as tele
@@ -192,6 +213,106 @@ def _fetch_many(xs: tuple, fire: bool = True) -> tuple:
     return tuple(out)
 
 
+# the per-segment report fields, in the order every driver reads them
+REPORT_FIELDS = ("iters", "tree", "sol", "size", "best", "steals",
+                 "overflow", "evals")
+
+
+class PinnedRing:
+    """Two pinned host buffers, taken in turn by successive
+    `CounterBlock`s of one driver: the block of segment N and the block of
+    the speculative N+1 can be in flight together. A buffer taken again
+    first has its previous block read out of it."""
+
+    def __init__(self):
+        self._slots: list = [None, None]
+        self._next = 0
+
+    def take(self, n: int, block: "CounterBlock") -> torch.Tensor:
+        i, self._next = self._next, self._next ^ 1
+        buf = None
+        if self._slots[i] is not None:
+            buf, owner = self._slots[i]
+            owner.read()
+            if buf.numel() < n:
+                buf = None
+        if buf is None:
+            buf = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        self._slots[i] = (buf, block)
+        return buf[:n]
+
+
+class CounterBlock:
+    """A worker list's report fields (`REPORT_FIELDS`) and telemetry
+    vectors on their way to the host. On a card, one copy into pinned host
+    memory (from `ring`) is enqueued on the stream right after the
+    segment's last replay, and an event is recorded behind it: `read` waits
+    for that event only, so a segment dispatched after it, which rewrites
+    the same device tensors in place, neither stalls the read nor leaks
+    into it. On the CPU the values are taken at once."""
+
+    def __init__(self, states: list, ring: PinnedRing | None = None):
+        dev = states[0].prmu.device
+        self.n = len(states)
+        self.tele_w = int(states[0].telemetry.shape[-1])
+        flat = torch.cat(
+            [torch.stack([getattr(s, f).to(dev).long() for s in states])
+             for f in REPORT_FIELDS]
+            + [torch.stack([s.telemetry.to(dev) for s in states])
+               .reshape(-1)])
+        self._values: np.ndarray | None = None
+        self._event = None
+        if dev.type == "cuda":
+            self._host = (ring or PinnedRing()).take(flat.numel(), self)
+            self._host.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+        else:
+            self._host = flat
+
+    def read(self, fields: tuple = REPORT_FIELDS) -> tuple:
+        """`fields` (report fields or "telemetry") as numpy arrays of the
+        JAX dtypes, (D,) each and (D, WIDTH) for the telemetry."""
+        if self._values is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._values = self._host.numpy().copy()
+        n, out = self.n, []
+        for f in fields:
+            if f == "telemetry":
+                at = len(REPORT_FIELDS) * n
+                out.append(self._values[at:].reshape(n, self.tele_w))
+            else:
+                i = REPORT_FIELDS.index(f)
+                out.append(self._values[i * n:(i + 1) * n].astype(
+                    convert.np_dtype(COUNTER_DTYPES[f])))
+        return tuple(out)
+
+
+class DispatchedStates(list):
+    """The worker list an asynchronous segment dispatch returns, with the
+    `CounterBlock` of its report fields (`counter_block`)."""
+
+    def __init__(self, states: list, block: CounterBlock):
+        super().__init__(states)
+        self.counter_block = block
+
+
+def _fetch_fields(state, fields: tuple, fire: bool = True) -> tuple:
+    """Fields of a state as numpy arrays in one transfer (`_fetch_many`);
+    a worker list's stacked over its workers and, in a multi-process job,
+    over every rank's workers. A `DispatchedStates` is read from its
+    counter block."""
+    if isinstance(state, DispatchedStates):
+        if fire:
+            faults.fire("host_fetch")
+        return state.counter_block.read(fields)
+    out = _fetch_many(tuple(_field(state, f) for f in fields), fire=fire)
+    if isinstance(state, list):
+        out = mesh.gather_rows(out)
+    return out
+
+
 def _payload_crc(arrays: dict) -> int:
     """CRC32 over every stored array's name, dtype, shape and raw bytes
     (sorted by name, `meta_crc32` itself excluded): the end-to-end
@@ -237,15 +358,17 @@ GAP_HELP = ("device-idle gap between consecutive segments: dispatch of "
 
 
 def save(path: str | pathlib.Path, state: SearchState,
-         meta: dict | None = None):
+         meta: dict | None = None) -> dict | None:
     """Snapshot a search state: one `checkpoint.save` span carrying the
     written byte count, plus the save-latency and bytes histograms. See
-    `_save_impl` for the format and durability story."""
+    `_save_impl` for the format and durability story. Returns the payload
+    written (None on a rank of a multi-process job that writes nothing)."""
     with tracelog.span("checkpoint.save", path=str(path)) as sp:
-        _save_impl(path, state, meta)
-        nbytes = os.path.getsize(path)
+        arrays = _save_impl(path, state, meta)
+        nbytes = os.path.getsize(path) if arrays is not None else 0
         sp.set(bytes=nbytes)
     _record_save_metrics(sp.dur, nbytes)
+    return arrays
 
 
 def _record_save_metrics(dur: float, nbytes: int) -> None:
@@ -261,7 +384,7 @@ def _record_save_metrics(dur: float, nbytes: int) -> None:
 
 
 def _save_impl(path: str | pathlib.Path, state: SearchState,
-               meta: dict | None = None):
+               meta: dict | None = None) -> dict | None:
     """Snapshot a search state (single-device or stacked).
 
     Only the live pool rows (below the cursor) are fetched and written:
@@ -274,17 +397,27 @@ def _save_impl(path: str | pathlib.Path, state: SearchState,
     rename; the previous snapshot rotates to a `.prev` last-good sibling
     and the temp file renames into place. A crash at any point leaves the
     old snapshot, the rotated last-good, or the new snapshot, never a
-    half-written file under the resume path."""
-    _write_snapshot(path, snapshot_arrays(state, meta))
+    half-written file under the resume path. Only rank 0 of a
+    multi-process job writes; the others return None."""
+    arrays = snapshot_arrays(state, meta)
+    if arrays is not None:
+        _write_snapshot(path, arrays)
+    return arrays
 
 
-def snapshot_arrays(state, meta: dict | None = None) -> dict:
+def snapshot_arrays(state, meta: dict | None = None) -> dict | None:
     """The checkpoint payload of a state (or a worker list, stacked), up to
     (not including) the schema and CRC stamps: `size` read once, then the
     live rows `[..., :size]` of each pool and the counters and telemetry
-    vector (the counters in one transfer)."""
-    n = int(_field(state, "size").max())
+    vector (the counters in one transfer). In a multi-process job every
+    rank takes part, every rank's workers are stacked on rank 0, and the
+    other ranks get None (they write nothing)."""
+    n = int(np.max(_fetch_fields(state, ("size",), fire=False)[0]))
     arrays = convert.state_to_numpy(state, rows=n)
+    if isinstance(state, list):
+        arrays = mesh.gather_stacked(arrays, dst=0)
+        if arrays is None:
+            return None
     arrays["meta_capacity"] = np.asarray(_pool(state).shape[-1])
     arrays["meta_pool_layout"] = np.asarray(1)   # 1 = feature-major
     if meta:
@@ -346,6 +479,159 @@ def _write_snapshot(path: str | pathlib.Path, arrays: dict) -> None:
             os.close(dfd)
     except OSError:
         pass   # not every filesystem supports directory fsync
+
+
+class AsyncCheckpointWriter:
+    """One writer thread that takes checkpoint compression, fsync and
+    rotation off the segment dispatch thread (JAX
+    `AsyncCheckpointWriter`; the overlapped driver's half of TTS_OVERLAP).
+
+    - One thread (`tts-ckpt-writer`) and a FIFO queue: snapshots land in
+      submission order, so the current/`.prev` rotation of
+      `_write_snapshot` holds exactly as on the synchronous path.
+    - The queue is bounded (`config.ASYNC_CKPT_QUEUE_DEPTH`): a dispatch
+      thread that outruns the disk blocks in `enqueue`, and no snapshot is
+      ever dropped.
+    - `prepare` reads the state on the calling thread (`snapshot_arrays`:
+      the next dispatch rewrites the pools in place); only the host work on
+      the fetched arrays crosses to the thread.
+    - `drain` blocks until everything queued is on disk and re-raises the
+      first writer error; every exit of the overlapped driver drains, so a
+      returned state has its last checkpoint on disk.
+
+    The thread re-installs the submitting thread's fault plan and trace
+    context (`submesh` dropped) and runs the synchronous path's post-write
+    hooks in the same order: the round-trip audit, against the counter sums
+    taken in `prepare`, then the `post_checkpoint` fault point."""
+
+    def __init__(self, retry_attempts: int | None = None,
+                 retry_base_s: float | None = None,
+                 max_pending: int | None = None):
+        from ..utils import config as _cfg
+
+        if retry_attempts is None:
+            retry_attempts = _cfg.env_int("TTS_RETRY_ATTEMPTS")
+        if retry_base_s is None:
+            retry_base_s = _cfg.env_float("TTS_RETRY_BASE_S")
+        self.retry_attempts = retry_attempts
+        self.retry_base_s = retry_base_s
+        self._q: queue.Queue = queue.Queue(
+            maxsize=max_pending or _cfg.ASYNC_CKPT_QUEUE_DEPTH)
+        # two locks on purpose: _close_lock makes the closed check and the
+        # put atomic against close() (a task put after the shutdown
+        # sentinel would never be marked done, hanging a later drain), and
+        # the writer thread never takes it, so a submitter blocked on the
+        # full queue while holding it still drains; _err_lock hands the
+        # error over between the writer and the submitter. One shared lock
+        # would deadlock: a submitter holding it while blocked in the full
+        # queue's put(), and the writer's error path waiting for it before
+        # task_done(), form an ABBA cycle between the lock and the queue's
+        # capacity.
+        self._close_lock = threading.Lock()
+        self._err_lock = threading.Lock()
+        self._err: BaseException | None = None   # guarded-by: _err_lock
+        self._closed = False                     # guarded-by: _close_lock
+        # the most tasks queued or being written at once, since creation
+        self.peak_pending = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="tts-ckpt-writer")
+        self._thread.start()
+
+    def prepare(self, path, state, meta: dict | None = None,
+                segment: int | None = None) -> dict | None:
+        """Read the snapshot on the calling thread; returns the task for
+        `enqueue`, or None on a rank that writes nothing."""
+        from ..obs import audit as obs_audit
+
+        arrays = snapshot_arrays(state, meta)
+        if arrays is None:
+            return None
+        sums = (obs_audit.array_sums(arrays)
+                if obs_audit.roundtrip_enabled() else None)
+        ctx = {**tracelog.current_context(), "submesh": None}
+        return {"path": str(path), "arrays": arrays, "sums": sums,
+                "segment": segment, "plan": faults.active(), "ctx": ctx}
+
+    def enqueue(self, task: dict | None) -> None:
+        """Queue a prepared task, blocking at the queue's bound. The first
+        pending writer error is raised first (a failed write is never
+        papered over by later ones)."""
+        self._raise_pending()
+        if task is None:
+            return
+        with self._close_lock:
+            if self._closed:
+                raise RuntimeError("AsyncCheckpointWriter is closed")
+            self._q.put(task)
+            self.peak_pending = max(self.peak_pending,
+                                    self._q.unfinished_tasks)
+
+    def submit(self, path, state, meta: dict | None = None,
+               segment: int | None = None) -> None:
+        """`prepare` and `enqueue` in one call."""
+        self.enqueue(self.prepare(path, state, meta, segment=segment))
+
+    def drain(self) -> None:
+        """Block until every queued snapshot is on disk; raise the first
+        writer error (a failed last save fails the run, as it would on the
+        synchronous path)."""
+        self._q.join()
+        self._raise_pending()
+
+    def close(self, raise_pending: bool = True) -> None:
+        """Drain and stop the thread; raise a pending writer error unless
+        `raise_pending` is False (on an exception's way out, where it would
+        hide the first error)."""
+        with self._close_lock:
+            was_closed = self._closed
+            if not was_closed:
+                self._closed = True
+                self._q.put(None)
+        if not was_closed:
+            self._thread.join()
+        if raise_pending:
+            self._raise_pending()
+
+    def _raise_pending(self) -> None:
+        with self._err_lock:
+            err, self._err = self._err, None
+        if err is not None:
+            raise err
+
+    def _loop(self) -> None:
+        while True:
+            task = self._q.get()
+            try:
+                if task is None:
+                    return
+                self._write_one(task)
+            except BaseException as e:  # noqa: BLE001 — raised at the
+                with self._err_lock:    # next enqueue() or drain()
+                    if self._err is None:
+                        self._err = e
+            finally:
+                self._q.task_done()
+
+    def _write_one(self, task: dict) -> None:
+        from ..obs import audit as obs_audit
+
+        path = task["path"]
+        with faults.scoped(task["plan"]), \
+                tracelog.get().context(**task["ctx"]):
+            with tracelog.span("checkpoint.save", path=path,
+                               async_write=True) as sp:
+                _retry(lambda: _write_snapshot(path, task["arrays"]),
+                       "checkpoint save", self.retry_attempts,
+                       self.retry_base_s)
+                nbytes = os.path.getsize(path)
+                sp.set(bytes=nbytes)
+            _record_save_metrics(sp.dur, nbytes)
+            if task["sums"] is not None:
+                # the audit comes before the fault point, which may
+                # corrupt the file on purpose, as on the synchronous path
+                obs_audit.check_checkpoint_roundtrip(path, task["sums"])
+            faults.fire("post_checkpoint", segment=task["segment"],
+                        path=path)
 
 
 def load(path: str | pathlib.Path, p_times: np.ndarray | None = None,
@@ -475,9 +761,10 @@ def load_resilient(path: str | pathlib.Path,
             obs_metrics.default().counter(
                 "tts_checkpoint_corrupt_total",
                 "torn/corrupt snapshots skipped on load").inc()
-            if cand == path:
+            if cand == path and mesh.process_index() == 0:
                 # renamed aside, not unlinked: the damage stays available
-                # for forensics
+                # for forensics; by rank 0 only, since every rank of a
+                # multi-process job resumes the same file
                 try:
                     os.replace(cand, str(cand) + ".corrupt")
                     tracelog.event("checkpoint.quarantine",
@@ -673,8 +960,8 @@ class _ReportFolder:
         self.tele_w = int(_field(state, "telemetry").shape[-1])
         # a resumed state carries cumulative totals: the throughput counter
         # and the telemetry deltas count only this run's progress
-        tree, telem = _fetch_many((_field(state, "tree"),
-                                   _field(state, "telemetry")), fire=False)
+        tree, telem = _fetch_fields(state, ("tree", "telemetry"),
+                                    fire=False)
         self.prev_tree = int(tree.sum())
         self.prev_tele = tele.merge(telem) if self.tele_w else None
         self.nodes_c = obs_metrics.default().counter(
@@ -766,7 +1053,9 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
                   retry_attempts: int | None = None,
                   retry_base_s: float | None = None,
                   segment_timeout_s: float | None = None,
-                  overlap: bool = False):
+                  overlap: bool = False,
+                  grow_fn=None,
+                  stop_pending=None):
     """Drive `run_fn(state, target_total_iters) -> state` to exhaustion in
     bounded segments. `state` is one device's SearchState or a worker list
     (`engine/distributed.py`, whose `_DistDriver.run` is then `run_fn`;
@@ -807,26 +1096,67 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
     TTS_SEG_TIMEOUT_S (0 = off). Fault injection: utils/faults.py
     (TTS_FAULTS).
 
-    `overlap=True` (the pipelined driver) is not ported yet and raises."""
-    from ..obs import audit as obs_audit
+    Overlap (`overlap=True`, the pipelined driver; `distributed.search`
+    resolves TTS_OVERLAP and supplies the hooks): `run_fn` is then an
+    asynchronous dispatch (`_DistDriver.run_async`, which returns a
+    `DispatchedStates`; a synchronous `run_fn` also works, without
+    overlap), and segment N+1 is dispatched before segment N's counters
+    are read, so the heartbeat takes segment N's report while the device
+    runs N+1. Checkpoint compression and fsync go to an
+    `AsyncCheckpointWriter` thread; a checkpoint segment reads its live
+    rows before it dispatches the next one (the one synchronization a
+    checkpoint needs). `grow_fn(state) -> state` is the lossless overflow
+    recovery; `stop_pending() -> bool` is a stop probe that skips the
+    speculative dispatch once a stop was asked for. The exit conditions
+    are read one segment later than on the synchronous path, and the
+    speculative segment in flight is drained, never dropped (a no-op on an
+    empty or overflowed pool), so a stop costs at most one extra segment
+    and the totals and every report but its wall-clock fields are the
+    synchronous driver's. Overlap does not take `post_segment` (ValueError:
+    the host tier's merge changes a state the pipeline has moved past), and
+    it cannot retry a segment's execution in place (the next dispatch has
+    already rewritten its pools): its retries cover the counter fetch, the
+    checkpoint fetch and the writes; a failed segment is recovered from
+    the checkpoint.
+
+    In a multi-process job (`mesh.process_count() > 1`) the call makes one
+    attempt of everything and runs synchronously: the segment, the fetches
+    and the saves hold collectives, and a retry or a speculative dispatch
+    on one rank would reorder them against the others."""
     from ..utils import config as _cfg
 
-    if overlap:
-        raise NotImplementedError(
-            "run_segmented(overlap=True): the pipelined segment driver and "
-            "its asynchronous checkpoint writer are not yet ported (ROADMAP "
-            "A5b); run with overlap=False")
     if retry_attempts is None:
         retry_attempts = _cfg.env_int("TTS_RETRY_ATTEMPTS")
     if retry_base_s is None:
         retry_base_s = _cfg.env_float("TTS_RETRY_BASE_S")
     if segment_timeout_s is None:
         segment_timeout_s = _cfg.env_float("TTS_SEG_TIMEOUT_S")
+    if mesh.process_count() > 1:
+        retry_attempts = 1
+        overlap = False
+    if overlap:
+        if post_segment is not None:
+            raise ValueError(
+                "overlap=True is incompatible with post_segment (the host "
+                "tier's merge changes a state the pipeline has moved "
+                "past); run the host tier with overlap off")
+        return _run_segmented_overlap(
+            run_fn, state, segment_iters=segment_iters,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, heartbeat=heartbeat,
+            max_segments=max_segments, max_total_iters=max_total_iters,
+            stall_limit=stall_limit, raise_on_overflow=raise_on_overflow,
+            checkpoint_meta=checkpoint_meta, should_stop=should_stop,
+            retry_attempts=retry_attempts, retry_base_s=retry_base_s,
+            segment_timeout_s=segment_timeout_s, grow_fn=grow_fn,
+            stop_pending=stop_pending)
+    from ..obs import audit as obs_audit
+
     dev = _pool(state).device
     t0 = time.perf_counter()
     seg = 0
-    start_iters, live = (int(x.max()) for x in _fetch_many(
-        (_field(state, "iters"), _field(state, "size")), fire=False))
+    start_iters, live = (int(x.max()) for x in _fetch_fields(
+        state, ("iters", "size"), fire=False))
     folder = _ReportFolder(state, t0, stall_limit, start_iters)
     # the time the device waits on the host between segments (heartbeat,
     # checkpoint, stop checks)
@@ -840,12 +1170,15 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
         return {**base, "segment": seg}
 
     def do_save(s, seg_no):
-        _retry(lambda: save(checkpoint_path, s, meta=meta_now(seg_no)),
-               "checkpoint save", retry_attempts, retry_base_s)
+        arrays = _retry(
+            lambda: save(checkpoint_path, s, meta=meta_now(seg_no)),
+            "checkpoint save", retry_attempts, retry_base_s)
         # the audit re-reads the snapshot BEFORE the fault injection
-        # below, which may corrupt the file on purpose
-        if obs_audit.roundtrip_enabled():
-            obs_audit.check_checkpoint_roundtrip(checkpoint_path, s)
+        # below, which may corrupt the file on purpose (on the rank that
+        # wrote it)
+        if arrays is not None and obs_audit.roundtrip_enabled():
+            obs_audit.check_checkpoint_roundtrip(
+                checkpoint_path, obs_audit.array_sums(arrays))
         faults.fire("post_checkpoint", segment=seg_no, path=checkpoint_path)
 
     def final_save(s, seg):
@@ -885,11 +1218,9 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
             # ONE transfer of every per-segment scalar (and the telemetry)
             fetched = _retry(
                 lambda: _with_watchdog(
-                    lambda: _fetch_many(tuple(
-                        _field(state, f) for f in
-                        ("iters", "tree", "sol", "size", "best", "steals",
-                         "overflow", "evals")
-                        + (("telemetry",) if folder.tele_w else ()))),
+                    lambda: _fetch_fields(
+                        state, REPORT_FIELDS
+                        + (("telemetry",) if folder.tele_w else ())),
                     segment_timeout_s, f"segment {seg} result fetch", dev),
                 "per-segment host fetch", retry_attempts, retry_base_s)
             results_ready_t = time.monotonic()
@@ -939,3 +1270,189 @@ def run_segmented(run_fn, state: SearchState, segment_iters: int = 2048,
                 and iters >= start_iters + max_total_iters):
             final_save(state, seg)
             return state
+
+
+def _run_segmented_overlap(run_fn, state, *, segment_iters, checkpoint_path,
+                           checkpoint_every, heartbeat, max_segments,
+                           max_total_iters, stall_limit, raise_on_overflow,
+                           checkpoint_meta, should_stop, retry_attempts,
+                           retry_base_s, segment_timeout_s, grow_fn,
+                           stop_pending):
+    """The pipelined driver behind `run_segmented(overlap=True)` (JAX
+    `_run_segmented_overlap`).
+
+    Segment N+1 is dispatched before segment N's counter block is read;
+    the heartbeat then takes N's report while the device runs N+1. An exit
+    found in N's report drains the segment in flight (a no-op when the
+    pool is empty or overflowed: the loop condition on the device checks
+    both) instead of dropping it, so the node accounting is the
+    synchronous driver's. A checkpoint segment synchronizes only for its
+    live-row fetch (`AsyncCheckpointWriter.prepare`), then dispatches, then
+    queues the write.
+
+    `segment` spans carry explicit [dispatch, results-ready] times
+    (`tracelog.span_at`, `overlapped=True`): consecutive spans overlap in
+    wall time exactly when the device ran back to back, which is what
+    `tts_segment_gap_seconds` measures."""
+    t0 = time.perf_counter()
+    seg = 0
+    dev = _pool(state).device
+    start_iters = int(np.max(_fetch_fields(state, ("iters",),
+                                           fire=False)[0]))
+    folder = _ReportFolder(state, t0, stall_limit, start_iters)
+    reg = obs_metrics.default()
+    gap_hist = reg.histogram("tts_segment_gap_seconds", GAP_HELP,
+                             buckets=GAP_BUCKETS)
+    seg_hist = reg.histogram("tts_segment_seconds",
+                             "segment wall latency (execute+fetch)")
+    writer = (AsyncCheckpointWriter(retry_attempts=retry_attempts,
+                                    retry_base_s=retry_base_s)
+              if checkpoint_path else None)
+    fields = REPORT_FIELDS + (("telemetry",) if folder.tele_w else ())
+
+    def target_for(k: int) -> int:
+        t = start_iters + k * segment_iters
+        if max_total_iters is not None:
+            t = min(t, start_iters + max_total_iters)
+        return t
+
+    def meta_now(seg_no):
+        base = checkpoint_meta() if callable(checkpoint_meta) \
+            else dict(checkpoint_meta or {})
+        return {**base, "segment": seg_no}
+
+    def fetch_counters(cur, seg_no):
+        # the only per-segment read on the hot path: the counter block
+        # (the pools are read on checkpoint segments only, by prepare())
+        return _retry(
+            lambda: _with_watchdog(
+                lambda: _fetch_fields(cur, fields),
+                segment_timeout_s, f"segment {seg_no} result fetch", dev),
+            "per-segment host fetch", retry_attempts, retry_base_s)
+
+    try:
+        faults.fire("segment_start", segment=1)
+        dispatch_t = time.monotonic()
+        cur = run_fn(state, target_for(1))
+        halting = False
+        results_ready_t = None
+        while True:
+            seg += 1
+            this_dispatch_t = dispatch_t
+            is_ckpt = bool(checkpoint_path) and seg % checkpoint_every == 0
+
+            def can_speculate():
+                return (not halting
+                        and (max_segments is None or seg < max_segments)
+                        and target_for(seg + 1) > target_for(seg)
+                        and not (stop_pending is not None
+                                 and stop_pending()))
+
+            spec = spec_t = None
+            next_fired = False   # segment_start fired for seg + 1 yet?
+            if not is_ckpt and can_speculate():
+                faults.fire("segment_start", segment=seg + 1)
+                next_fired = True
+                spec_t = time.monotonic()
+                spec = run_fn(cur, target_for(seg + 1))
+
+            fetched = fetch_counters(cur, seg)
+            prev_ready_t = results_ready_t
+            results_ready_t = time.monotonic()
+            f_ovf = fetched[6]
+
+            # lossless overflow recovery: the speculative segment was a
+            # no-op on the overflow flag, so adopt it, grow every pool and
+            # run the same segment target again from where the loop stopped
+            while bool(f_ovf.any()) and grow_fn is not None:
+                if spec is not None:
+                    cur, spec = spec, None
+                cur = run_fn(grow_fn(cur), target_for(seg))
+                fetched = fetch_counters(cur, seg)
+                results_ready_t = time.monotonic()
+                f_ovf = fetched[6]
+
+            if is_ckpt:
+                # the live rows are read before the next dispatch rewrites
+                # the pools: prepare() here, then dispatch, then hand the
+                # compression and fsync to the writer (enqueue may block on
+                # the queue's bound while the device already runs)
+                task = _retry(
+                    lambda: _with_watchdog(
+                        lambda: writer.prepare(checkpoint_path, cur,
+                                               meta_now(seg), segment=seg),
+                        segment_timeout_s,
+                        f"segment {seg} checkpoint fetch", dev),
+                    "checkpoint state fetch", retry_attempts, retry_base_s)
+                if can_speculate():
+                    faults.fire("segment_start", segment=seg + 1)
+                    next_fired = True
+                    spec_t = time.monotonic()
+                    spec = run_fn(cur, target_for(seg + 1))
+                writer.enqueue(task)
+
+            tracelog.span_at("segment", this_dispatch_t, results_ready_t,
+                             segment=seg, iters=int(fetched[0].max()),
+                             tree=int(fetched[1].sum()),
+                             sol=int(fetched[2].sum()),
+                             pool=int(fetched[3].sum()),
+                             best=int(fetched[4].min()), overlapped=True)
+            if prev_ready_t is not None:
+                gap_hist.observe(max(0.0, this_dispatch_t - prev_ready_t))
+            seg_hist.observe(max(results_ready_t - this_dispatch_t, 0.0))
+            report = folder.fold(fetched, seg)
+            if heartbeat is not None:
+                heartbeat(report)
+            faults.fire("post_segment", segment=seg)
+
+            overflow_exit = bool(f_ovf.any())
+            exit_now = halting or overflow_exit or report.pool_size == 0
+            if not exit_now and should_stop is not None \
+                    and should_stop(report):
+                exit_now = True
+            if not exit_now and max_segments is not None \
+                    and seg >= max_segments:
+                exit_now = True
+            if not exit_now and max_total_iters is not None \
+                    and report.iters >= start_iters + max_total_iters:
+                exit_now = True
+            if exit_now:
+                if spec is not None:
+                    # drain the speculative segment first: a no-op on an
+                    # empty or overflowed pool, one segment of extra work
+                    # on a stop; its output is the state this exit keeps
+                    halting = True
+                    cur, dispatch_t = spec, spec_t
+                    continue
+                if checkpoint_path and seg % checkpoint_every != 0:
+                    writer.submit(checkpoint_path, cur, meta_now(seg),
+                                  segment=seg)
+                if writer is not None:
+                    writer.drain()
+                if overflow_exit and raise_on_overflow:
+                    hint = (f"resume from {checkpoint_path} with a larger "
+                            "capacity" if checkpoint_path else
+                            "rerun with a larger capacity, or catch "
+                            "PoolOverflow and grow() its .state")
+                    raise PoolOverflow(
+                        f"pool overflow at segment {seg} "
+                        f"(pool={report.pool_size}): search incomplete; "
+                        f"{hint}", cur)
+                return cur
+            folder.check_stall(report)
+            if spec is not None:
+                cur, dispatch_t = spec, spec_t
+            else:
+                if not next_fired:
+                    # a speculation dropped by the overflow recovery
+                    # already fired this segment's injection point
+                    faults.fire("segment_start", segment=seg + 1)
+                dispatch_t = time.monotonic()
+                cur = run_fn(cur, target_for(seg + 1))
+    finally:
+        if writer is not None:
+            # the success paths drained above; on an exception's way out a
+            # writer error must not hide the first one
+            writer.close(raise_pending=False)
+            tracelog.event("checkpoint.writer",
+                           peak_pending=writer.peak_pending)

@@ -6,8 +6,9 @@ Reproduces `tpu_tree_search/engine/distributed.py`: `Frontier`,
 Python warm-up after one warning), `_shard_frontier` (round-robin
 stripes `d::D`), `_balance_round`, `member_body` (one macro-iteration),
 the loop of `build_dist_loop`, `DistResult`, `fetch_state`,
-`_DistDriver` (`limit`, `seed`, `commit`, and `run`, which grows every
-pool x2 and resumes on overflow), `_problem_driver` and `search`.
+`_DistDriver` (`limit`, `seed`, `commit`, `run`, which grows every pool
+x2 and resumes on overflow, and `run_async`, the overlapped driver's
+dispatch), `_problem_driver` and `search`.
 
 The JAX engine is one `shard_map`ped program over a mesh; here a search
 holds a list of single-device `SearchState`s, one per worker, and each
@@ -38,6 +39,30 @@ macro-iteration are the JAX loop's, worker by worker.
 stacked `(D, ...)` layout of `DistResult.per_device`, `fetch_state` and
 the checkpoint file.
 
+`_DistDriver.run_async` (the overlapped segment driver's dispatch,
+`checkpoint.run_segmented(overlap=True)`) replays a number of
+macro-iterations the host fixes from the segment length and the balance
+period alone, reads nothing back and checks no overflow: each
+macro-iteration past the loop condition is a no-op on the device. It
+returns the worker list with a `checkpoint.CounterBlock`, the counters
+copied into pinned host memory behind a CUDA event, since the next
+dispatch rewrites the counters and pools in place.
+
+A multi-process job (`parallel/mesh.py`: one process per card, or
+several sharing one, in a gloo process group) runs the same search: rank
+r drives the global workers `r*D_local ...`, the warm-up runs on every
+rank, and a macro-iteration's local steps run on each rank's workers
+while the collectives of its host loop (`_Comm`) cross the ranks on CPU
+tensors: `pmin(best)` is an `all_reduce(MIN)`, the size `all_gather` an
+`all_gather`, the `all_to_all` of the transfer blocks an
+`all_to_all_single` and the termination and overflow `psum` an
+`all_reduce(SUM)`, read once a macro-iteration. The plan
+(`balance.exchange_plan`) is computed on every rank from the gathered
+sizes, so every rank's rows and counters are those of one process driving
+all D workers. `worker_counters`, `fetch_state` and the checkpoints
+gather every rank's workers; rank 0 alone writes. The ladder, the host
+tier and overlap stay off there.
+
 `search(..., host_fraction > 0)` runs the `-C` host tier beside the
 workers (`engine/hybrid.py`): a host session seeded with a stride share of
 the warm-up frontier (or, on a resume, with the checkpoint's saved share
@@ -51,9 +76,8 @@ under one usable-row limit; `search` resolves `chunk=None` /
 runs (`ladder`, or the TTS_LADDER flag) and joins an
 `engine/incumbent.IncumbentBoard`.
 
-Left out, each raising `NotImplementedError` naming its ROADMAP item: the
-executor cache (`loop_cache`, A9); the overlapped segment driver
-(`overlap=True`) and multi-process runs (A5b).
+Left out, raising `NotImplementedError` naming its ROADMAP item: the
+executor cache (`loop_cache`, A9).
 """
 
 from __future__ import annotations
@@ -65,12 +89,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import convert
 from ..obs import tracelog
 from ..ops import columns as cols, fused as fz, kernels
 from ..ops import reference as ref
-from ..parallel import balance as bal
+from ..parallel import balance as bal, mesh
 from ..parallel.mesh import worker_devices
 from . import device, sequential as seq, telemetry as tele
 from .device import COUNTER_DTYPES, SearchState
@@ -197,19 +222,22 @@ def unstack_state(stacked: SearchState, devices) -> list[SearchState]:
 
 def worker_counters(states: list[SearchState]) -> dict:
     """Every worker's counters as (D,) numpy arrays of the JAX dtypes, read
-    in one transfer."""
+    in one transfer (in a multi-process job, every rank's workers, on
+    every rank)."""
     dev0 = states[0].prmu.device
     flat = torch.stack([getattr(s, f).to(dev0).long()
                         for f in COUNTER_DTYPES for s in states])
     vals = flat.cpu().numpy().reshape(len(COUNTER_DTYPES), len(states))
+    (rows,) = mesh.gather_rows((vals.T,))       # (D, fields)
     return {f: v.astype(convert.np_dtype(dt))
-            for v, (f, dt) in zip(vals, COUNTER_DTYPES.items())}
+            for v, (f, dt) in zip(rows.T, COUNTER_DTYPES.items())}
 
 
 def fetch_state(states: list[SearchState]) -> SearchState:
     """Every worker's state on the host as one stacked SearchState of numpy
-    arrays (the JAX `fetch_state`'s layout)."""
-    return SearchState(**convert.state_to_numpy(states))
+    arrays (the JAX `fetch_state`'s layout; in a multi-process job every
+    rank's workers, on every rank)."""
+    return SearchState(**mesh.gather_stacked(convert.state_to_numpy(states)))
 
 
 # ---------------------------------------------------------------------------
@@ -234,10 +262,83 @@ def _status(states: list[SearchState]) -> torch.Tensor:
     return torch.stack([size, ovf.long(), states[0].iters])
 
 
-def _pmin(states: list[SearchState], active) -> list[SearchState]:
-    """`pmin(best)`: the workers' minimum incumbent, written to each."""
+class _Comm:
+    """The cross-process collectives of a macro-iteration, for a rank that
+    drives `n_local` of the job's workers (global workers `first ...
+    first + n_local - 1`). Each runs on the gloo group over CPU tensors,
+    staged through the host; a rank's tensors leave its card in one copy
+    per collective."""
+
+    def __init__(self, n_local: int):
+        self.rank, self.world = mesh.process_index(), mesh.process_count()
+        counts = self.all_gather(torch.tensor([n_local]))
+        if bool((counts != n_local).any()):
+            raise ValueError(f"every rank must drive the same number of "
+                             f"workers, got {counts.tolist()}")
+        self.n_local = n_local
+        self.first = self.rank * n_local
+        self.n_global = self.world * n_local
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        """`pmin`: the minimum over the ranks (`all_reduce(MIN)`)."""
+        out = x.cpu().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MIN)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of `x`, concatenated in rank order."""
+        x = x.cpu()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """`psum`: the sum over the ranks (`all_reduce(SUM)`)."""
+        out = x.cpu().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out
+
+    def status(self, states: list[SearchState]) -> list:
+        """(total size, any overflow, iters) of the whole job, in one read
+        of this rank's workers and one `all_reduce(SUM)`."""
+        local = _status(states).cpu()
+        total = self.psum(local[:2])
+        return [int(total[0]), int(total[1] > 0), int(local[2])]
+
+    def exchange(self, blocks: list, tc: int, devices) -> list:
+        """The `all_to_all` of a balance round: `blocks[d]` is local donor
+        d's (prmu, aux, depth) transfer blocks, block e (columns
+        `e*tc ... e*tc + tc - 1`) for global receiver e. Returns, for each
+        local receiver, the blocks of every global donor in donor order,
+        concatenated (the single-process round's layout), on its device.
+        One `all_to_all_single` of the blocks packed into int32 rows (gloo
+        has no int16)."""
+        J, A = blocks[0][0].shape[0], blocks[0][1].shape[0]
+        dtypes = (blocks[0][0].dtype, blocks[0][1].dtype, blocks[0][2].dtype)
+        R, W, L = J + A + 1, self.world, self.n_local
+        send = torch.stack([
+            torch.cat([p.int(), a.int(), dp.int()[None]]).cpu()
+            .reshape(R, W, L, tc).permute(1, 2, 0, 3)
+            for p, a, dp in blocks], 1)        # (to rank, donor, to, R, tc)
+        recv = torch.empty_like(send)          # (from rank, donor, to, ...)
+        dist.all_to_all_single(recv.reshape(-1), send.reshape(-1))
+        out = []
+        for e, dev in enumerate(devices):
+            got = (recv[:, :, e].reshape(W * L, R, tc).permute(1, 0, 2)
+                   .reshape(R, W * L * tc).to(dev))
+            out.append((got[:J].to(dtypes[0]), got[J:J + A].to(dtypes[1]),
+                        got[J + A].to(dtypes[2])))
+        return out
+
+
+def _pmin(states: list[SearchState], active,
+          comm: _Comm | None = None) -> list[SearchState]:
+    """`pmin(best)`: the workers' minimum incumbent, written to each (over
+    every rank's workers with a `comm`)."""
     dev0 = states[0].prmu.device
     best = torch.stack([s.best.to(dev0) for s in states]).min()
+    if comm is not None:
+        best = comm.pmin(best)
     return [s._replace(best=torch.where(active.to(s.prmu.device),
                                         best.to(s.prmu.device), s.best))
             for s in states]
@@ -245,7 +346,8 @@ def _pmin(states: list[SearchState], active) -> list[SearchState]:
 
 def _balance_round(states: list[SearchState], transfer_cap: int,
                    min_transfer: int, limit: int,
-                   active: torch.Tensor) -> list[SearchState]:
+                   active: torch.Tensor,
+                   comm: _Comm | None = None) -> list[SearchState]:
     """One steal-half exchange across the workers (JAX `_balance_round`),
     a no-op unless `active`.
 
@@ -259,12 +361,21 @@ def _balance_round(states: list[SearchState], transfer_cap: int,
     would pass `limit`, no worker exchanges or commits and every worker's
     overflow flag is set (the driver grows every pool and resumes). A
     round that does not flow writes its block at `limit`, in the headroom
-    the driver reserves above it, which no live row reaches."""
-    D = len(states)
+    the driver reserves above it, which no live row reaches.
+
+    With a `comm`, `states` are this rank's workers of a multi-process job:
+    the sizes are gathered from every rank (`all_gather`) and the plan is
+    computed on the host, the same on every rank, and the blocks cross the
+    ranks in one `all_to_all_single`."""
     dev0 = states[0].prmu.device
     capacity = states[0].prmu.shape[-1]
     tc = transfer_cap
     sizes = torch.stack([s.size.to(dev0) for s in states])
+    first = 0
+    if comm is not None:
+        sizes, first = comm.all_gather(sizes), comm.first
+        dev0 = sizes.device
+    D = sizes.shape[0]
     plan = bal.exchange_plan(sizes, tc, min_transfer)
     total_out = plan.sum(1, dtype=torch.int32)
     total_in = plan.sum(0, dtype=torch.int32)
@@ -279,31 +390,36 @@ def _balance_round(states: list[SearchState], transfer_cap: int,
     blocks = []
     for d, s in enumerate(states):
         dev = s.prmu.device
-        r = rows[d].reshape(-1).long().to(dev)
-        hole = ~send[d].reshape(-1).to(dev)
+        r = rows[first + d].reshape(-1).long().to(dev)
+        hole = ~send[first + d].reshape(-1).to(dev)
         blocks.append((s.prmu.index_select(1, r), s.aux.index_select(1, r),
                        s.depth.index_select(0, r).masked_fill(hole, -1)))
+    if comm is not None:
+        received = comm.exchange(blocks, tc, [s.prmu.device for s in states])
 
     out = []
     n_cols = D * tc
     for e, s in enumerate(states):
         dev = s.prmu.device
-        blk = slice(e * tc, (e + 1) * tc)
-        r_prmu = torch.cat([b[0][:, blk].to(dev) for b in blocks], 1)
-        r_aux = torch.cat([b[1][:, blk].to(dev) for b in blocks], 1)
-        r_depth = torch.cat([b[2][blk].to(dev) for b in blocks])
+        if comm is not None:
+            r_prmu, r_aux, r_depth = received[e]
+        else:
+            blk = slice(e * tc, (e + 1) * tc)
+            r_prmu = torch.cat([b[0][:, blk].to(dev) for b in blocks], 1)
+            r_aux = torch.cat([b[1][:, blk].to(dev) for b in blocks], 1)
+            r_depth = torch.cat([b[2][blk].to(dev) for b in blocks])
         push = r_depth >= 0
         order = cols.partition(push)
         n_push = push.sum(dtype=torch.int32)
         flow = do_flow.to(dev)
-        my_base = base[e].to(dev)
+        my_base = base[first + e].to(dev)
         at = torch.where(flow, my_base, limit).long()
         cols_at = at + torch.arange(n_cols, device=dev)
         s.prmu.index_copy_(1, cols_at, r_prmu[:, order])
         s.depth.index_copy_(0, cols_at, r_depth[order])
         s.aux.index_copy_(1, cols_at, r_aux[:, order])
 
-        sent = total_out[e].to(dev).long()
+        sent = total_out[first + e].to(dev).long()
         got = n_push.long()
 
         def keep(new, old, flow=flow):
@@ -327,12 +443,13 @@ def _balance_round(states: list[SearchState], transfer_cap: int,
 
 
 def member_body(step_fns, balance_period: int, transfer_cap: int,
-                min_transfer: int, limit: int):
+                min_transfer: int, limit: int, comm: _Comm | None = None):
     """One macro-iteration (JAX `member_body`): `balance_period` local
     steps on every worker, the incumbent minimum and one balance round,
     all a no-op unless the device bool `active`. `step_fns[d]` is worker
     d's step (`Problem.make_step` at the tightened `limit`). Steps are
-    issued step-major, so workers on different devices run together."""
+    issued step-major, so workers on different devices run together. With
+    a `comm` the minimum and the round cross the ranks."""
 
     def body(states: list[SearchState], active) -> list[SearchState]:
         acts = [active.to(s.prmu.device) for s in states]
@@ -340,9 +457,9 @@ def member_body(step_fns, balance_period: int, transfer_cap: int,
         for _ in range(balance_period):
             for d, fn in enumerate(step_fns):
                 states[d] = fn(states[d], active=acts[d])
-        states = _pmin(states, active)
+        states = _pmin(states, active, comm)
         return _balance_round(states, transfer_cap, min_transfer, limit,
-                              active)
+                              active, comm)
 
     return body
 
@@ -421,8 +538,14 @@ class _DistDriver:
     it so the balance round's D*transfer_cap receive block also fits above
     it, and both the local steps and the round's commit use the tightened
     limit. `host_reads` counts the status reads of `run` (one per
-    macro-iteration), `macro_iters` the macro-iterations it issued and
-    `captures` the CUDA graphs it captured, by pool capacity."""
+    macro-iteration), `macro_iters` the macro-iterations it and `run_async`
+    issued and `captures` the CUDA graphs it captured, by pool capacity.
+
+    In a multi-process job the driver's `devices` are this rank's workers
+    of `n_global` in all (`comm`, a `_Comm`): the receive block, the
+    warm-up stripes and a committed stacked state are the whole job's, and
+    `run` drives each macro-iteration from the host (local steps, then the
+    collectives), reading the job's status once a macro-iteration."""
 
     def __init__(self, devices, make_tables, make_local_step,
                  balance_period: int, transfer_cap: int, min_transfer: int,
@@ -440,11 +563,15 @@ class _DistDriver:
         self.limit_fn = limit_fn
         self.name = name
         self.key = tuple(key)
-        self.n_recv = self.n_dev * transfer_cap
+        self.comm = _Comm(self.n_dev) if mesh.process_count() > 1 else None
+        self.n_global = self.comm.n_global if self.comm else self.n_dev
+        self.first = self.comm.first if self.comm else 0
+        self.n_recv = self.n_global * transfer_cap
         self._bodies: dict[int, object] = {}
         self.host_reads = 0
         self.macro_iters = 0
         self.captures: dict[int, int] = {}
+        self._ring = None          # run_async's pinned counter buffers
 
     def limit(self, capacity: int) -> int:
         return min(self.limit_fn(capacity), capacity - self.n_recv)
@@ -457,29 +584,33 @@ class _DistDriver:
                      for dev in self.devices]
             self._bodies[capacity] = member_body(
                 steps, self.balance_period, self.transfer_cap,
-                self.min_transfer, lim)
+                self.min_transfer, lim, self.comm)
         return self._bodies[capacity]
 
     def commit(self, state: SearchState) -> list[SearchState]:
-        """A stacked (D, ...) state (any device) as the worker list."""
-        return unstack_state(state, self.devices)
+        """A stacked (D, ...) state (any device) as the worker list (this
+        rank's workers of it in a multi-process job)."""
+        mine = slice(self.first, self.first + self.n_dev)
+        return unstack_state(SearchState(*(x[mine] for x in state)),
+                             self.devices)
 
     def seed(self, frontier: Frontier, capacity: int, jobs: int,
              init_best: int) -> list[SearchState]:
         """Stripe a warm-up frontier across the workers, pre-growing the
         pool until a stripe fits under the usable-row limit."""
-        stripe = -(-max(len(frontier.depth), 1) // self.n_dev)
+        stripe = -(-max(len(frontier.depth), 1) // self.n_global)
         while self.limit(capacity) < max(stripe, 1):
             capacity *= 2
-        arrays = _shard_frontier(frontier, self.n_dev, jobs, init_best,
+        arrays = _shard_frontier(frontier, self.n_global, jobs, init_best,
                                  self.limit(capacity))
-        return [convert.state_from_numpy({f: a[d] for f, a in arrays.items()},
-                                         dev, capacity=capacity)
-                for d, dev in enumerate(self.devices)]
+        return [convert.state_from_numpy(
+            {f: a[self.first + d] for f, a in arrays.items()}, dev,
+            capacity=capacity) for d, dev in enumerate(self.devices)]
 
     def _graph_ok(self, states) -> bool:
         devs = {s.prmu.device for s in states}
-        return len(devs) == 1 and next(iter(devs)).type == "cuda"
+        return (self.comm is None and len(devs) == 1
+                and next(iter(devs)).type == "cuda")
 
     def _graph_key(self, states, capacity: int) -> tuple:
         tensors = []
@@ -529,7 +660,9 @@ class _DistDriver:
             [s.telemetry for s in static], max_iters, status,
             kernels.take_captured())
 
-    def _run_graph(self, states, ceiling: int, capacity: int, going):
+    def _graph(self, states, capacity: int, ceiling: int) -> _DistGraph:
+        """The cached (or newly captured) macro-iteration graph of
+        `states`' pools, loaded with their counters and `ceiling`."""
         key = self._graph_key(states, capacity)
         g = device._GRAPHS.pop(key, None)
         if g is None:
@@ -542,6 +675,18 @@ class _DistDriver:
                 t.copy_(getattr(s, f))
             tv.copy_(s.telemetry)
         g.max_iters.fill_(ceiling)
+        return g
+
+    @staticmethod
+    def _graph_out(states, g: _DistGraph) -> list[SearchState]:
+        """The states after `g`'s replays: their pools, with copies of the
+        graph's counters and telemetry (a later replay rewrites those)."""
+        return [s._replace(**{f: t.clone() for f, t in ctr.items()},
+                           telemetry=tv.clone())
+                for s, ctr, tv in zip(states, g.counters, g.telemetry)]
+
+    def _run_graph(self, states, ceiling: int, capacity: int, going):
+        g = self._graph(states, capacity, ceiling)
         while True:
             kernels.replay(g.graph, g.launches)
             self.macro_iters += 1
@@ -549,10 +694,7 @@ class _DistDriver:
             self.host_reads += 1
             if not going(status):
                 break
-        out = [s._replace(**{f: t.clone() for f, t in ctr.items()},
-                          telemetry=tv.clone())
-               for s, ctr, tv in zip(states, g.counters, g.telemetry)]
-        return out, status
+        return self._graph_out(states, g), status
 
     def _drive(self, states, ceiling: int, capacity: int):
         """Macro-iterations until the loop condition fails, reading (total
@@ -566,6 +708,17 @@ class _DistDriver:
         if self._graph_ok(states):
             return self._run_graph(states, ceiling, capacity, going)
         body = self.body(capacity)
+        if self.comm is not None:
+            # the host gates each macro-iteration on the job's status
+            status = self.comm.status(states)
+            self.host_reads += 1
+            active = torch.ones((), dtype=torch.bool)
+            while going(status):
+                states = body(states, active)
+                self.macro_iters += 1
+                status = self.comm.status(states)
+                self.host_reads += 1
+            return states, status
         lim = torch.full((), ceiling, dtype=torch.int64,
                          device=states[0].prmu.device)
         while True:
@@ -590,6 +743,48 @@ class _DistDriver:
             if not status[1]:
                 return states
             states = [checkpoint.grow(s, capacity * 2) for s in states]
+
+    def run_async(self, states: list[SearchState], max_iters: int,
+                  macro_iters: int):
+        """Issue `macro_iters` macro-iterations toward the cumulative
+        per-worker ceiling `max_iters` (JAX `run_async`: the overlapped
+        driver's dispatch), reading nothing back and checking no overflow:
+        each macro-iteration past the loop condition (the pool drained or
+        overflowed, or `max_iters` reached) is a no-op on the device. On a
+        card they are replays of the captured macro-iteration, left queued
+        on the stream; the pools are updated in place, and the returned
+        `checkpoint.DispatchedStates` carries the counters' copy into
+        pinned host memory (two buffers in turn, as the block of the next
+        dispatch can be in flight beside this one). On CPU workers the
+        same macro-iterations run eagerly, each past the condition
+        skipped."""
+        from . import checkpoint
+
+        if self.comm is not None:
+            raise RuntimeError("run_async is single-process: a "
+                               "multi-process job runs synchronously")
+        capacity = states[0].prmu.shape[-1]
+        if self._graph_ok(states):
+            g = self._graph(states, capacity, int(max_iters))
+            for _ in range(macro_iters):
+                kernels.replay(g.graph, g.launches)
+                self.macro_iters += 1
+            out = self._graph_out(states, g)
+            if self._ring is None:
+                self._ring = checkpoint.PinnedRing()
+        else:
+            body = self.body(capacity)
+            lim = torch.full((), int(max_iters), dtype=torch.int64,
+                             device=states[0].prmu.device)
+            out, cpu = list(states), states[0].prmu.device.type == "cpu"
+            for _ in range(macro_iters):
+                cond = _loop_cond(out, lim)
+                self.macro_iters += 1
+                if cpu and not bool(cond):
+                    continue          # a no-op: skipped on the host
+                out = body(out, cond)
+        return checkpoint.DispatchedStates(
+            out, checkpoint.CounterBlock(out, self._ring))
 
 
 def _resolve_problem(problem):
@@ -764,7 +959,28 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     `host_depth`): a resume with `-C` re-seeds the session from it (or,
     lacking it, from rows carved off the pools), one without `-C` pushes
     it back into a pool. A plugin without a host tier raises
-    `HostTierUnsupported`."""
+    `HostTierUnsupported`.
+
+    `overlap` (None: the TTS_OVERLAP flag) runs a segmented search on the
+    overlapped driver (`checkpoint.run_segmented(overlap=True)`): each
+    segment is one `_DistDriver.run_async` of `ceil(segment_iters /
+    balance_period)` macro-iterations with the board's ceiling folded in
+    at dispatch, the next one dispatched before this one's counters are
+    read, checkpoints written on a thread, and an overflow grown x2 in the
+    middle of the pipeline. The counts and every segment report but its
+    wall-clock fields are the synchronous driver's. A ladder rung chosen at
+    a boundary then lands one segment later. It does not engage beside a
+    host tier or in a multi-process job.
+
+    In a multi-process job (`parallel/mesh.py`, every rank calling
+    `search` alike) `devices` are this rank's workers (by default
+    `mesh.local_worker_devices(n_devices)`, `n_devices` then counting the
+    whole job's workers, one a rank if None): every rank runs the warm-up,
+    seeds its stripes of the job's D workers and drives them through the
+    cross-process collectives (`_Comm`), gathers every worker's counters
+    into the result, and reads and (rank 0) writes the stacked checkpoint.
+    The ladder and overlap stay off, and `host_fraction > 0` raises
+    ValueError (each rank would search the same host share)."""
     from ..utils import config as _cfg
     from . import checkpoint, hybrid, incumbent as inc_mod
 
@@ -774,13 +990,17 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
         raise HostTierUnsupported(prob.name)
     if loop_cache is not None:
         raise _not_ported("the executor cache (loop_cache)", "A9")
-    if overlap:
-        raise _not_ported("the overlapped segment driver (overlap=True)",
-                          "A5b")
+    n_procs = mesh.process_count()
+    if n_procs > 1 and host_fraction > 0:
+        raise ValueError("the -C host tier does not run in a multi-process "
+                         "job: every rank would search the same share")
 
     table = np.asarray(p_times)
-    devs = worker_devices(n_devices, devices)
-    n_dev = len(devs)
+    if n_procs > 1 and devices is None:
+        devs = mesh.local_worker_devices(n_devices or n_procs)
+    else:
+        devs = worker_devices(n_devices, devices)
+    n_dev = len(devs) * n_procs             # the job's workers
     jobs = prob.slots(table)
     mode = fz.resolve_mode(None, on_cuda=devs[0].type == "cuda")
     rung_profile = None
@@ -828,9 +1048,10 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     if ladder is None:
         ladder = _cfg.env_flag(_cfg.LADDER_FLAG)
     # the ladder switches at segment boundaries, so it engages only on a
-    # segmented run; a host tier keeps the single driver
+    # segmented run; a host tier keeps the single driver, and a
+    # multi-process job the one synchronous loop
     ladder_drivers = None
-    if (ladder and host_fraction == 0
+    if (ladder and host_fraction == 0 and n_procs == 1
             and (segment_iters is not None or checkpoint_path is not None
                  or stop_event is not None or should_stop is not None)):
         # the rungs get the caller's explicit transfer knobs (None derives
@@ -911,6 +1132,12 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 width, dtype=torch.int64, device=s.prmu.device))
                 for s in states]
 
+    if overlap is None:
+        overlap = _cfg.env_flag(_cfg.OVERLAP_FLAG)
+    # the host tier's per-segment merge needs the synchronous boundary, and
+    # a multi-process job stays synchronous (run_segmented's own rule)
+    use_overlap = bool(overlap) and session is None and n_procs == 1
+
     ladder_ctl = client = None
     if ladder_drivers is not None or incumbent_board is not None:
         c0 = worker_counters(states)
@@ -964,13 +1191,37 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                         if ladder_ctl is not None else {})
                 return {**base_meta, **extra, **rung}
 
-        def run_fn(s, target):
-            drv = ladder_ctl.driver() if ladder_ctl is not None else driver
-            return drv.run(_fold_cap(s, cap()), max_iters=target)
+        grow_fn = stop_pending = None
+        seg_iters = segment_iters or 2048
+        if use_overlap:
+            # one dispatch a segment, its macro-iteration count fixed from
+            # the segment length alone (the ones past the ceiling are
+            # device no-ops); overflow recovery and draining live in the
+            # overlapped driver
+            n_macro = -(-seg_iters // balance_period)
+
+            def run_fn(s, target):
+                drv = (ladder_ctl.driver() if ladder_ctl is not None
+                       else driver)
+                return drv.run_async(_fold_cap(s, cap()), target, n_macro)
+
+            def grow_fn(s):
+                capacity = s[0].prmu.shape[-1]
+                return [checkpoint.grow(x, capacity * 2) for x in s]
+
+            if stop_event is not None:
+                stop_pending = stop_event.is_set
+        else:
+            def run_fn(s, target):
+                drv = (ladder_ctl.driver() if ladder_ctl is not None
+                       else driver)
+                return drv.run(_fold_cap(s, cap()), max_iters=target)
 
         def hb(rep):
             if ladder_ctl is not None:
                 # the rung of the next dispatch, from this boundary's pool
+                # (under overlap the next segment is already in flight, so
+                # the switch lands one boundary later)
                 ladder_ctl.observe(rep.pool_size, segment=rep.segment)
             if client is not None:
                 client.publish(rep.best)
@@ -978,13 +1229,14 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 heartbeat(rep)
 
         out = checkpoint.run_segmented(
-            run_fn, states, segment_iters=segment_iters or 2048,
+            run_fn, states, segment_iters=seg_iters,
             checkpoint_path=checkpoint_path, heartbeat=hb,
             checkpoint_every=checkpoint_every, max_total_iters=max_iters,
             checkpoint_meta=ckpt_meta, should_stop=stop_fn,
             post_segment=session.post_segment if session else None,
             retry_attempts=retry_attempts,
-            segment_timeout_s=segment_timeout_s)
+            segment_timeout_s=segment_timeout_s, overlap=use_overlap,
+            grow_fn=grow_fn, stop_pending=stop_pending)
 
     c = worker_counters(out)
     best = int(c["best"].min())
@@ -1003,8 +1255,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
         steals=int(c["steals"].sum()), complete=complete)
     summary = None
     if out[0].telemetry.shape[-1] > 0:
-        summary = tele.summarize(torch.stack(
-            [s.telemetry.cpu() for s in out]))
+        summary = tele.summarize(mesh.gather_rows(
+            (torch.stack([s.telemetry.cpu() for s in out]).numpy(),))[0])
     return DistResult(
         explored_tree=tree,
         explored_sol=int(c["sol"].sum()) + fr.sol + h_sol,

@@ -2,13 +2,14 @@
 
 Reproduces `enabled`, `roundtrip_enabled`, `check_checkpoint_roundtrip`
 and `check_incumbent_fold` of `tpu_tree_search/obs/audit.py`, with the
-pieces they stand on (`record`, `state_sums`, `AuditError`, `Finding`):
-after a save, `run_segmented` re-reads the snapshot and requires the
-counters it was written from (`TTS_AUDIT=full` or `TTS_AUDIT_CKPT=1`);
-`engine/incumbent.BoardClient` requires that a pruning ceiling it hands
-out never loosens (`TTS_AUDIT`, on by default). Every check lands in the metrics
-registry (`tts_audit_checks_total` / `tts_audit_failures_total` by
-invariant) and the flight recorder (`audit.check` / `audit.fail` events);
+pieces they stand on (`record`, `state_sums`, `array_sums`, `AuditError`,
+`Finding`): after a save, `run_segmented` (or its checkpoint writer thread)
+re-reads the snapshot and requires the counters it was written from
+(`TTS_AUDIT=full` or `TTS_AUDIT_CKPT=1`); `engine/incumbent.BoardClient`
+requires that a pruning ceiling it hands out never loosens (`TTS_AUDIT`,
+on by default). Every check lands in the metrics registry
+(`tts_audit_checks_total` / `tts_audit_failures_total` by invariant) and
+the flight recorder (`audit.check` / `audit.fail` events);
 `TTS_AUDIT_HARD=1` makes a failed one raise. The rest of the JAX module
 (the result and reshard checks, the findings ring the health layer reads)
 belongs to the observability layer, which is not ported yet.
@@ -93,9 +94,16 @@ def state_sums(state) -> dict:
     counters read in one transfer): the conserved quantities a checkpoint
     round trip must keep exactly."""
     from .. import convert
-    from ..engine import telemetry as tele
 
-    a = convert.state_to_numpy(state, rows=0)
+    return array_sums(convert.state_to_numpy(state, rows=0))
+
+
+def array_sums(a: dict) -> dict:
+    """`state_sums` of a state already on the host, as a dict of numpy
+    arrays keyed by field (a checkpoint payload): the async checkpoint
+    writer takes them where the arrays were fetched, so the round trip
+    it audits on its own thread spans the async edge."""
+    from ..engine import telemetry as tele
 
     def s(x):
         return int(np.asarray(x, np.int64).sum())
@@ -105,7 +113,7 @@ def state_sums(state) -> dict:
            "iters_max": int(np.atleast_1d(a["iters"]).max()),
            "sent": s(a["sent"]), "recv": s(a["recv"]),
            "best": int(np.atleast_1d(a["best"]).min())}
-    if a["telemetry"].shape[-1]:
+    if np.asarray(a["telemetry"]).shape[-1]:
         block = np.atleast_2d(np.asarray(a["telemetry"], np.int64))
         # only the additive slots: the high-water mark and the ring merge
         out["telemetry_counts"] = int(block[:, :tele.O_POOL_HW].sum())

@@ -42,9 +42,11 @@ QUARANTINE_SUFFIX = ".corrupt"
 def tuning_fingerprint(extra: dict | None = None, device="cuda") -> dict:
     """The hardware and topology a tuned optimum is valid on: the
     platform of `device` ("cuda" or "cpu"), the visible card count, each
-    card's name with its SM count, and the process count (1: one process
-    drives every worker). On the CPU it asks nothing of `torch.cuda`."""
+    card's name with its SM count, and the process count (the
+    `torch.distributed` group's size, 1 without one, as JAX reads
+    `jax.process_count()`). On the CPU it asks nothing of `torch.cuda`."""
     from ..engine.device import resolve_device
+    from ..parallel import mesh
 
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -57,7 +59,7 @@ def tuning_fingerprint(extra: dict | None = None, device="cuda") -> dict:
               "device_kinds": sorted(kinds)}
     else:
         fp = {"platform": "cpu", "device_count": 1, "device_kinds": ["cpu"]}
-    fp["process_count"] = 1
+    fp["process_count"] = mesh.process_count()
     if extra:
         fp.update(extra)
     return fp

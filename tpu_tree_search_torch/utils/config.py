@@ -3,10 +3,10 @@
 Reproduces the accessors of `tpu_tree_search/utils/config.py` (`env_flag`,
 `env_str`, `env_int`, `env_float`, `env_ints`, `set_env`) with the same
 accepted spellings, and the rows of its knob registry for the knobs the
-port reads (among them `LADDER_FLAG`, `TTS_LADDER`, the tuner's and
-`TTS_DEBUG_STEP`): a `TTS_*` name must be registered, so a misspelt knob
-raises at its first read instead of never applying. The resilience and
-tuner defaults are the JAX package's.
+port reads (among them `LADDER_FLAG`, `TTS_LADDER`, `OVERLAP_FLAG`, the
+tuner's and `TTS_DEBUG_STEP`): a `TTS_*` name must be registered, so a
+misspelt knob raises at its first read instead of never applying. The
+resilience and tuner defaults are the JAX package's.
 """
 
 from __future__ import annotations
@@ -33,6 +33,16 @@ INCUMBENT_MAX_KEYS_DEFAULT = 4096
 # between pre-built chunk rungs at segment boundaries from the pool
 # occupancy
 LADDER_FLAG = "TTS_LADDER"
+
+# pipelined segmented execution (engine/checkpoint.run_segmented's
+# overlapped driver): STATIC, default off. On, the next segment is
+# dispatched before the previous segment's counters are read, and
+# checkpoint compression and fsync move to a writer thread; the counts are
+# the same either way
+OVERLAP_FLAG = "TTS_OVERLAP"
+# the checkpoint writer thread's queue bound: a dispatch thread that
+# outruns the disk blocks in `enqueue` (no snapshot is ever dropped)
+ASYNC_CKPT_QUEUE_DEPTH = 2
 
 # the tuner's probe knobs (tune/): TTS_TUNE_CHUNKS / TTS_TUNE_PERIODS
 # (comma lists), TTS_TUNE_WINDOW / TTS_TUNE_WARM (iterations)
@@ -66,6 +76,8 @@ KNOBS: dict[str, object] = {
     # chunk-ladder execution, and the incumbent board's bound on distinct
     # instance keys (least recently updated evicted first)
     LADDER_FLAG: False,
+    # the overlapped segment driver (distributed.search(overlap=None))
+    OVERLAP_FLAG: False,
     "TTS_INCUMBENT_MAX_KEYS": INCUMBENT_MAX_KEYS_DEFAULT,
     # the tuner: the candidate ladders (comma lists; unset: the tuner's
     # own), the measured and warm-up iterations of a probe, and probing

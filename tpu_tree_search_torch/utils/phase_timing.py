@@ -260,15 +260,20 @@ def write_csv_with_phases(args, p, init_ub, workers: list, elapsed: float,
                           per_device: dict) -> None:
     """Append the `pfsp --csv` row with MEASURED phase columns: the
     reference's single-device schema for one worker, its multi-device
-    (intra-node) schema for several (`csv_stats`). The unit costs are
-    timed on the first worker's device at the run's instance, bound and
-    chunk, and published as `tts_phase_seconds` gauges too."""
+    (intra-node) schema for several, its distributed schema for a
+    `--multihost` job (`csv_stats`; `workers` are then this rank's, and
+    `per_device` holds the job's). The unit costs are timed on the first
+    worker's device at the run's instance, bound and chunk, and published
+    as `tts_phase_seconds` gauges too; a multi-process job's balance round
+    crosses the ranks and is not profiled (its column stays 0)."""
     from ..engine import device
     from ..ops import batched
+    from ..parallel import mesh
     from . import csv_stats
 
     jobs = p.shape[1]
-    n_dev = len(workers)
+    ranks = mesh.process_count()
+    n_dev = len(workers) * ranks
     att = {}
     try:
         dev = workers[0]
@@ -282,7 +287,7 @@ def write_csv_with_phases(args, p, init_ub, workers: list, elapsed: float,
                                [max(1, int(e)) // (args.chunk * jobs)
                                 for e in evals])
         t_bal, rounds = 0.0, 0
-        if n_dev > 1 and (args.ws or args.L):
+        if n_dev > 1 and (args.ws or args.L) and ranks == 1:
             t_bal, rounds = _balance_profile(args, p, workers, best, iters)
         att = attribute(prof, elapsed, evals, iters, balance_rounds=rounds,
                         t_balance=t_bal)
@@ -298,6 +303,12 @@ def write_csv_with_phases(args, p, init_ub, workers: list, elapsed: float,
             args.csv, args.inst, args.lb, best, args.m, args.M, elapsed,
             float(att["kernel_time"][0]) if att else elapsed, tree, sol,
             gen_child_time=float(att["gen_child_time"][0]) if att else 0.0)
+    elif ranks > 1:
+        # the multi-process tier: the reference's dist_multigpu.csv schema
+        # (PFSP_statistic.c:123-167), its comm_size the process count
+        csv_stats.write_dist(args.csv, args.inst, args.lb, n_dev, args.C,
+                             args.L, ranks, best, args.m, args.M, args.T,
+                             elapsed, tree, sol, per_device)
     else:
         # one process driving several workers is the intra-node tier: the
         # reference's multigpu.csv schema (PFSP_statistic.c:69-112)
