@@ -184,6 +184,25 @@ Phases (one line each, then two JSON lines):
      workers), and its copy resumed by one process to the golden. The
      `kernels` line's `overlap_launches` and `mp_launches` are the
      launches of (1)-(3) and of (4)
+ 15. request megabatching (`engine/megabatch.serve_batch`, one worker a
+     member unless named): (1) the eight 20x5 instances with an LB2
+     ub=opt golden (ta001-ta004, ta007-ta010) in one batch, chunk 16384
+     a member, capacity 2^21, period 4, 64-step segments: every golden,
+     ta008 draining last and after the others, one capture, a replay
+     launching 8 times a solo replay's kernels (B4 fronts-only and B2, no
+     B5); the batch's wall against the eight solo searches' at the same
+     knobs, ms a macro-iteration, an all-frozen replay's device ms
+     against a solo no-op one, host reads a replay, peak memory; (2)
+     ta021-ta024 on the unfused prefilter route (B1, B2), chunk 65536,
+     capacity 2^22, stopped by `stop_event` after two 8-step segments,
+     each member's counters equal to its solo `_DistDriver.run(max_iters=
+     16)`; (3) leg (1)'s batch without ta008, ta010 stopped at segment 2
+     by `member_stop` and its checkpoint resumed by the solo search to
+     the golden, the batchmates to theirs; (4) ta003 and ta004 on two
+     workers each (goldens, rounds that move nodes, counters equal to
+     solo), and ta071/ta072 (B1, B3) at chunk 8192 stopped after two
+     4-step segments, equal to solo. The `kernels` line's `mb_launches`
+     are the batches' launches
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -217,6 +236,7 @@ from tpu_tree_search_torch import cli, native, problems  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
 from tpu_tree_search_torch.engine import distributed, hybrid  # noqa: E402
 from tpu_tree_search_torch.engine import incumbent, ladder  # noqa: E402
+from tpu_tree_search_torch.engine import megabatch  # noqa: E402
 from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
@@ -2850,6 +2870,236 @@ shutil.rmtree(SEG14)
 say("phase 14 seconds", seconds=time.perf_counter() - t_phase14,
     overlap_launches=OVL, mp_launches=MPL)
 
+# --- phase 15: request megabatching --------------------------------------
+device.clear_graphs()
+t_phase15 = time.perf_counter()
+MB = dict.fromkeys(kernels.LAUNCHES, 0)
+SEG15 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_mb_"))
+W1 = [DEV]
+# every 20x5 instance with an LB2 ub=opt golden
+GOLD_LB2 = {r["inst"]: (r["tree"], r["sol"], r["best"]) for r in map(
+    json.loads, (ROOT / "tests" / "golden" / "pfsp_lb2_ub1.jsonl")
+    .read_text().splitlines())}
+I20X5 = (1, 2, 3, 4, 7, 8, 9, 10)
+BIG, STOPPED = 8, 10       # the largest tree; the member stopped in (3)
+MB5 = dict(problem="pfsp", lb_kind=2, devices=W1, chunk=16384,
+           capacity=1 << 21, balance_period=4, segment_iters=64)
+DENSE_MB = ("expand_emit", "expand_fronts", "lb2_sweep")
+
+
+def mb_specs(insts, **kw):
+    return [megabatch.MemberSpec(table=taillard.processing_times(i),
+                                 init_ub=taillard.optimal_makespan(i), **kw)
+            for i in insts]
+
+
+def mb_run(label, expect, **kw):
+    """One `serve_batch` (graphs dropped first), its launches joining MB;
+    returns (results, launches, seconds, driver)."""
+    device.clear_graphs()
+    with recording(megabatch, "BatchedDriver") as drv:
+        res, counts, secs = path_run(label, expect,
+                                     lambda: megabatch.serve_batch(**kw))
+    for k, v in counts.items():
+        MB[k] += v
+    return res, counts, secs, drv[0]
+
+
+def mb_golden(label, insts, res):
+    for i, r in zip(insts, res):
+        dist_golden(f"{label} ta{i:03d}", r, GOLD_LB2[i])
+
+
+def last_graph(kind: str):
+    return next(g for k, g in reversed(device._GRAPHS.items())
+                if k[0] == kind)
+
+
+def per_replay(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+# (1) the whole 20x5 class in one batch, one worker a member
+beats: dict[int, int] = {}
+done_at: list = []
+torch.cuda.reset_peak_memory_stats(DEV)
+res1, counts, secs1, drv1 = mb_run(
+    "megabatch 20x5 B=8", DENSE_MB, specs=mb_specs(I20X5),
+    heartbeat=lambda b, rep: beats.__setitem__(b, rep.segment),
+    on_member_done=lambda b, r: done_at.append((I20X5[b], beats[b])), **MB5)
+peak1 = torch.cuda.max_memory_allocated(DEV)
+mb_golden("megabatch 20x5", I20X5, res1)
+check(counts["fused_expand"] == 0 and counts["expand_bounds"] == 0
+      and counts["expand_fronts"] == counts["expand_emit"],
+      f"megabatch 20x5: launches {counts}")
+seg_big = dict(done_at)[BIG]
+check(done_at[-1][0] == BIG
+      and all(s < seg_big for i, s in done_at if i != BIG),
+      f"megabatch 20x5: members drained at {done_at}")
+g1 = last_graph("batch")
+mb_replay = per_replay(g1.launches)
+# every member drained: a replay is a no-op for all eight
+frozen_ms = cuda_ms(g1.graph.replay, 10)
+del g1
+device.clear_graphs()
+solo_secs, solo_ms = {}, {}
+for i in I20X5:
+    p = taillard.processing_times(i)
+    with recording(distributed, "_DistDriver") as sd:
+        r, c, s = path_run(f"solo ta{i:03d}", DENSE_MB if GOLD_LB2[i][0]
+                           else (), lambda: distributed.search(
+            p, init_ub=taillard.optimal_makespan(i),
+            **{k: v for k, v in MB5.items() if k != "problem"}))
+    dist_golden(f"solo ta{i:03d}", r, GOLD_LB2[i])
+    solo_secs[i] = s
+    if i == BIG:
+        gs = last_graph("dist")
+        solo_replay = per_replay(gs.launches)
+        solo_frozen_ms = cuda_ms(gs.graph.replay, 10)
+        solo_ms[BIG] = 1e3 * s / max(sd[0].macro_iters, 1)
+        del gs
+    device.clear_graphs()
+check(mb_replay == {k: len(I20X5) * v for k, v in solo_replay.items()},
+      f"megabatch 20x5: a replay launches {mb_replay}, solo {solo_replay}")
+say("megabatch 20x5 B=8 (ta001-ta010 with goldens, LB2 ub=opt, chunk "
+    "16384 a member, capacity 2^21, 64-step segments, one worker each)",
+    batch_seconds=secs1, solo_seconds_sum=sum(solo_secs.values()),
+    solo_seconds=solo_secs, macro_iterations=drv1.macro_iters,
+    ms_per_macro_iteration=1e3 * secs1 / drv1.macro_iters,
+    solo_big_ms_per_macro_iteration=solo_ms[BIG],
+    frozen_batch_replay_device_ms=frozen_ms,
+    frozen_solo_replay_device_ms=solo_frozen_ms,
+    captures=drv1.captures,
+    host_reads_per_replay=drv1.host_reads / drv1.macro_iters,
+    launches_per_replay=mb_replay, solo_launches_per_replay=solo_replay,
+    drained_at_segment=done_at, peak_memory_bytes=peak1, launches=counts,
+    card=CARD)
+
+# (2) the unfused prefilter route, bounded: ta021-ta024, stopped by
+# stop_event after two 8-step segments, each member against a solo
+# `_DistDriver.run(max_iters=16)` from the same seeded state
+I20X20 = (21, 22, 23, 24)
+ev15 = threading.Event()
+res2, counts, secs2, drv2 = mb_run(
+    "megabatch 20x20 B=4", ("expand_bounds", "lb2_sweep"),
+    specs=mb_specs(I20X20), stop_event=ev15,
+    heartbeat=lambda b, rep: rep.segment >= 1 and ev15.set(),
+    problem="pfsp", lb_kind=2, devices=W1, chunk=65536, capacity=1 << 22,
+    balance_period=4, segment_iters=8)
+check(counts["fused_expand"] == 0 and counts["expand_emit"] == 0,
+      f"megabatch 20x20: launches {counts}")
+for i, r in zip(I20X20, res2):
+    p = taillard.processing_times(i)
+    tc = distributed.default_transfer_cap(
+        65536, 20, PF.aux_rows(p), 1, aux_itemsize=PF.aux_dtype(p).itemsize)
+    check(not r.complete and r.per_device["iters"].tolist() == [16],
+          f"megabatch ta{i:03d}: iters {r.per_device['iters']}")
+    drv = distributed._problem_driver(PF, W1, p, 2, 65536, 4, tc,
+                                      2 * 65536, fused="off")
+    fr = PF.warmup(p, 2, taillard.optimal_makespan(i), target=32)
+    fr.aux = PF.seed_aux(p, fr.prmu, fr.depth)
+    solo = distributed.worker_counters(drv.run(
+        drv.seed(fr, 1 << 22, 20, min(fr.best, taillard.optimal_makespan(i))),
+        max_iters=16))
+    for f in DIST_FIELDS:
+        check(np.array_equal(r.per_device[f], solo[f]),
+              f"megabatch ta{i:03d}: worker {f} differs from solo")
+    check(np.array_equal(r.per_device["final_size"], solo["size"])
+          and r.best == int(solo["best"].min()),
+          f"megabatch ta{i:03d}: pool or best differs from solo")
+    device.clear_graphs()
+say("megabatch 20x20 B=4 (ta021-ta024, LB2 ub=opt, unfused prefilter, chunk "
+    "65536, capacity 2^22, stopped after two 8-step segments)",
+    equal_to_solo=True, seconds=secs2, macro_iterations=drv2.macro_iters,
+    ms_per_macro_iteration=1e3 * secs2 / drv2.macro_iters,
+    captures=drv2.captures, trees=[r.explored_tree for r in res2],
+    launches=counts, card=CARD)
+
+# (3) stop and resume: leg (1)'s batch without ta008, ta010 stopped at
+# segment 2 with a checkpoint that the solo search resumes to the golden
+I7 = tuple(i for i in I20X5 if i != BIG)
+ck15 = SEG15 / "stopped.npz"
+specs3 = mb_specs(I7)
+specs3[I7.index(STOPPED)].checkpoint_path = str(ck15)
+stopped15 = []
+res3, counts, secs3, _ = mb_run(
+    "megabatch 20x5 stop", DENSE_MB, specs=specs3,
+    member_stop=lambda b, rep: I7[b] == STOPPED and rep.segment == 2,
+    on_member_stopped=lambda b, r: stopped15.append(I7[b]), **MB5)
+check(stopped15 == [STOPPED] and not res3[I7.index(STOPPED)].complete,
+      f"megabatch stop: stopped {stopped15}")
+mb_golden("megabatch stop batchmates", [i for i in I7 if i != STOPPED],
+          [r for i, r in zip(I7, res3) if i != STOPPED])
+device.clear_graphs()
+res_st, _, secs_st = path_run("stopped member resumed solo", DENSE_MB,
+                              lambda: distributed.search(
+    taillard.processing_times(STOPPED),
+    init_ub=taillard.optimal_makespan(STOPPED), checkpoint_path=str(ck15),
+    **{k: v for k, v in MB5.items() if k != "problem"}))
+dist_golden(f"ta{STOPPED:03d} stopped in a batch, resumed solo", res_st,
+            GOLD_LB2[STOPPED])
+say(f"megabatch 20x5 B={len(I7)}: ta{STOPPED:03d} stopped at segment 2, "
+    "resumed solo", batch_seconds=secs3, resume_seconds=secs_st,
+    stopped_tree=res3[I7.index(STOPPED)].explored_tree, launches=counts,
+    card=CARD)
+
+# (4a) per-member balance rounds on the card: ta003 and ta004, two workers
+# a member, to the goldens and to each member's solo search
+MB4 = dict(MB5, devices=W2, min_transfer=512)
+res4, counts, secs4, drv4 = mb_run("megabatch 20x5 B=2 D=2", DENSE_MB,
+                                   specs=mb_specs((3, 4)), **MB4)
+mb_golden("megabatch D=2", (3, 4), res4)
+check(int(res4[0].per_device["sent"].sum()) > 0,
+      "megabatch D=2: no balance round moved nodes")
+for i, r in zip((3, 4), res4):
+    device.clear_graphs()
+    solo = distributed.search(taillard.processing_times(i),
+                              init_ub=taillard.optimal_makespan(i),
+                              **{k: v for k, v in MB4.items()
+                                 if k != "problem"})
+    for f in DIST_FIELDS:
+        check(np.array_equal(r.per_device[f], solo.per_device[f]),
+              f"megabatch D=2 ta{i:03d}: worker {f} differs from solo")
+say("megabatch 20x5 B=2 D=2 (ta003, ta004, two workers a member)",
+    seconds=secs4, sent=[r.per_device["sent"].tolist() for r in res4],
+    captures=drv4.captures, launches=counts, card=CARD)
+
+# (4b) J > 64: ta071 and ta072, chunk 8192, capacity 2^21, stopped after
+# two 4-step segments, against solo at the same ceiling
+I100 = (71, 72)
+ev15b = threading.Event()
+res5, counts, secs5, _ = mb_run(
+    "megabatch 100x10 B=2", ("expand_bounds", "lb2_sweep_bigj"),
+    specs=mb_specs(I100), stop_event=ev15b,
+    heartbeat=lambda b, rep: rep.segment >= 1 and ev15b.set(),
+    problem="pfsp", lb_kind=2, devices=W1, chunk=8192, capacity=1 << 21,
+    balance_period=4, segment_iters=4)
+for i, r in zip(I100, res5):
+    p = taillard.processing_times(i)
+    tc = distributed.default_transfer_cap(
+        8192, 100, PF.aux_rows(p), 1, aux_itemsize=PF.aux_dtype(p).itemsize)
+    check(r.per_device["iters"].tolist() == [8],
+          f"megabatch ta{i:03d}: iters {r.per_device['iters']}")
+    drv = distributed._problem_driver(PF, W1, p, 2, 8192, 4, tc,
+                                      2 * 8192, fused="off")
+    fr = PF.warmup(p, 2, taillard.optimal_makespan(i), target=32)
+    fr.aux = PF.seed_aux(p, fr.prmu, fr.depth)
+    solo = distributed.worker_counters(drv.run(
+        drv.seed(fr, 1 << 21, 100, min(fr.best,
+                                       taillard.optimal_makespan(i))),
+        max_iters=8))
+    for f in DIST_FIELDS:
+        check(np.array_equal(r.per_device[f], solo[f]),
+              f"megabatch ta{i:03d}: worker {f} differs from solo")
+    device.clear_graphs()
+say("megabatch 100x10 B=2 (ta071, ta072, LB2 ub=opt, chunk 8192, capacity "
+    "2^21, stopped after two 4-step segments)", equal_to_solo=True,
+    seconds=secs5, trees=[r.explored_tree for r in res5], launches=counts,
+    card=CARD)
+shutil.rmtree(SEG15)
+say("phase 15 seconds", seconds=time.perf_counter() - t_phase15,
+    mb_launches=MB)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
@@ -2859,6 +3109,7 @@ for r in RESULTS:
     r["tune_launches"] = TUNE[key]
     r["overlap_launches"] = OVL[key]
     r["mp_launches"] = MPL[key]
+    r["mb_launches"] = MB[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from tpu_tree_search_torch import cli, tune as ttune
 from tpu_tree_search_torch.engine import checkpoint as tckpt
 from tpu_tree_search_torch.engine import distributed as tdist
 from tpu_tree_search_torch.engine import incumbent as tinc
+from tpu_tree_search_torch.engine import megabatch as tmb
 from tpu_tree_search_torch.engine import sequential as tseq
 from tpu_tree_search_torch.problems import nqueens as tnq
 from tpu_tree_search_torch.problems.pfsp import PFSPInstance
@@ -218,9 +219,16 @@ _REFUSED = {"loop_cache"}
     (dict(tuner=ttune.Autotuner(device="cpu"), chunk=None), "A6"),
     (dict(incumbent_board=tinc.IncumbentBoard()), "A6"),
     (dict(chunk=None), "A6"), (dict(balance_period=None), "A6"),
-    (dict(loop_cache=object()), "A9"), (dict(overlap=True), "A5b")])
+    (dict(loop_cache=object()), "A9"), (dict(overlap=True), "A5b"),
+    (dict(serve_batch=True, loop_cache=object()), "A9")])
 def test_left_out_arguments_name_their_roadmap_item(kw, item):
     inst = PFSPInstance.synthetic(7, 3, 0)
+    if kw.get("serve_batch"):
+        # megabatch.serve_batch refuses the executor cache as search does
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            tmb.serve_batch([tmb.MemberSpec(table=inst.p_times)],
+                            devices=["cpu"] * 2, loop_cache=kw["loop_cache"])
+        return
     if _REFUSED & set(kw):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tdist.search(inst.p_times, devices=["cpu"] * 2, **kw)

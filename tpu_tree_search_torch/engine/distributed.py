@@ -69,6 +69,9 @@ the warm-up frontier (or, on a resume, with the checkpoint's saved share
 or rows carved off the pools), merging incumbents with the workers at
 every segment boundary.
 
+`search` audits every result (`obs/audit.check_result`) and the reshard
+of an elastic resume (`check_reshard`) when `obs/audit.enabled()`.
+
 `_ladder_plan` builds the chunk ladder's rung drivers (`engine/ladder.py`)
 under one usable-row limit; `search` resolves `chunk=None` /
 `balance_period=None` through a `tune.Autotuner` (`tuner`) or from
@@ -92,6 +95,7 @@ import torch
 import torch.distributed as dist
 
 from .. import convert
+from ..obs import audit as obs_audit
 from ..obs import tracelog
 from ..ops import columns as cols, fused as fz, kernels
 from ..ops import reference as ref
@@ -874,9 +878,9 @@ def _fold_cap(states: list[SearchState], cap) -> list[SearchState]:
     return [s._replace(best=s.best.clamp_max(int(cap))) for s in states]
 
 
-def _not_ported(what: str, item: str):
+def _not_ported(what: str, item: str, where: str = "distributed.search"):
     return NotImplementedError(
-        f"distributed.search: {what} is not ported yet (ROADMAP {item})")
+        f"{where}: {what} is not ported yet (ROADMAP {item})")
 
 
 def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
@@ -1089,8 +1093,15 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 f"resharding checkpoint {checkpoint_path} from {old} to "
                 f"{n_dev} workers (elastic resume)", RuntimeWarning,
                 stacklevel=2)
+            # the elastic reshard must keep every summed counter, the
+            # pooled node count and the incumbent
+            pre_sums = (obs_audit.state_sums(host_state)
+                        if obs_audit.enabled() else None)
             host_state = checkpoint.reshard_state(host_state, n_dev,
                                                   device="cpu")
+            if pre_sums is not None:
+                obs_audit.check_reshard(pre_sums, host_state,
+                                        edge="elastic_resume")
         # re-home into a capacity whose usable-row limit covers the
         # fullest pool
         cap0 = cap = host_state.prmu.shape[-1]
@@ -1257,7 +1268,7 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     if out[0].telemetry.shape[-1] > 0:
         summary = tele.summarize(mesh.gather_rows(
             (torch.stack([s.telemetry.cpu() for s in out]).numpy(),))[0])
-    return DistResult(
+    res = DistResult(
         explored_tree=tree,
         explored_sol=int(c["sol"].sum()) + fr.sol + h_sol,
         best=best, telemetry=summary,
@@ -1267,3 +1278,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                     "final_size": c["size"], **host_stats},
         warmup_tree=fr.tree, warmup_sol=fr.sol, complete=complete,
         problem=prob.name)
+    if obs_audit.enabled():
+        # node conservation on every result (host-side sums of counters
+        # already fetched); a failure raises under TTS_AUDIT_HARD=1
+        obs_audit.check_result(res)
+    return res
