@@ -203,6 +203,26 @@ Phases (one line each, then two JSON lines):
      solo), and ta071/ta072 (B1, B3) at chunk 8192 stopped after two
      4-step segments, equal to solo. The `kernels` line's `mb_launches`
      are the batches' launches
+ 16. the observability layer (`utils/device_info`, `obs/resource`,
+     `obs/store`, `obs/health`, `obs/estimate`, the `devices` command):
+     (a) `python -m tpu_tree_search_torch devices` names the card and its
+     total memory; (b) ta021 LB2 ub=opt on four workers on the card, chunk
+     65536, capacity 2^22 a worker, 8-step segments, stopped after 4, with
+     TTS_TRACE_FILE set and an `ObsStore` listening to the flight
+     recorder: one `resource.sample` a segment in the trace, the
+     `tts_device_bytes_*` gauges against the pools' bytes and the card's
+     `total_memory`, the store read back as sent, in-use/limit at every
+     segment and the host ms of one `sample_now`; (c) a
+     `HealthMonitor(server=None, interval_s=0)` on those gauges: nothing
+     fires at the defaults, `mem_headroom` fires below the measured
+     in-use/limit naming device "0" and the card's memory, `audit` fires
+     on a failed finding and resolves once the ring is cleared; (d) ta008
+     LB2 ub=opt through `pfsp --segment-iters 8 --search-telemetry` at
+     chunk 16384 (one worker, the dense route: B4 fronts-only and B2),
+     every `SegmentReport` into a `ProgressEstimator`: the golden tree,
+     the estimate against it at each quarter of the run, and after the
+     pool drains the finalized estimate equal to the tree. The `kernels`
+     line's `obs_launches` are the launches of (b) and (d)
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -241,8 +261,10 @@ from tpu_tree_search_torch.engine import sequential  # noqa: E402
 from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
-from tpu_tree_search_torch.obs import audit  # noqa: E402
+from tpu_tree_search_torch.obs import audit, estimate, health  # noqa: E402
 from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
+from tpu_tree_search_torch.obs import resource as obs_resource  # noqa: E402
+from tpu_tree_search_torch.obs import store as obs_store  # noqa: E402
 from tpu_tree_search_torch.obs import tracelog  # noqa: E402
 from tpu_tree_search_torch.ops import batched, columns  # noqa: E402
 from tpu_tree_search_torch.ops import expand as ex  # noqa: E402
@@ -256,19 +278,12 @@ from tpu_tree_search_torch.tune.defaults import (  # noqa: E402
     BENCH_CHUNK_DEFAULT, CLI_CHUNK_DEFAULT)
 from tpu_tree_search_torch.utils import csv_stats, faults  # noqa: E402
 from tpu_tree_search_torch.utils import phase_timing  # noqa: E402
+# the H100's peak rates, the denominators of every bound below
+from tpu_tree_search_torch.utils.device_info import (  # noqa: E402
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S)
 
 ROOT = Path(__file__).resolve().parent
 DEV = torch.device("cuda", 0)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-# int32 add/min/max rate of the CUDA cores: 64 results per clock per SM
-# (compute capability 9.0), 132 SMs, 1.98 GHz boost clock
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# float32 rate: 128 adds per clock per SM (67 TFLOP/s counts an FMA as
-# two); float32 min/max run at most as fast, and an SM issues no more
-# than 128 thread-instructions a clock, so 128 per clock bounds a chain of
-# float32 adds and maxes however they mix (the LB2 sweep computes in
-# float32)
-FP32_OPS_PER_S = 128 * 132 * 1.98e9
 
 
 def check(ok: bool, what: str) -> None:
@@ -3100,6 +3115,276 @@ shutil.rmtree(SEG15)
 say("phase 15 seconds", seconds=time.perf_counter() - t_phase15,
     mb_launches=MB)
 
+# --- phase 16: the observability layer ------------------------------------
+device.clear_graphs()
+t_phase16 = time.perf_counter()
+OBS = dict.fromkeys(kernels.LAUNCHES, 0)
+OBS16 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_obs_"))
+LIMIT16 = int(torch.cuda.get_device_properties(DEV).total_memory)
+
+# (a) the devices command, as a user runs it
+dev16 = subprocess.run([sys.executable, "-m", "tpu_tree_search_torch",
+                        "devices"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+lines16 = dev16.stdout.splitlines()
+check(dev16.returncode == 0 and lines16
+      and torch.cuda.get_device_name(0) in lines16[0]
+      and f"/{LIMIT16 / 2**30:.2f} GiB" in lines16[0],
+      f"devices: rc {dev16.returncode}, {dev16.stdout!r} {dev16.stderr!r}")
+say("devices command", lines=lines16, total_memory=LIMIT16, card=CARD)
+
+
+def gauge16(name: str) -> dict:
+    """device label -> value of a tts_device_bytes_* gauge of the default
+    registry; every series on this card must be labelled platform gpu."""
+    out = {}
+    for m in obs_metrics.default().metrics():
+        if m.name == name:
+            for _, key, v in m.samples():
+                lb = dict(key)
+                check(lb.get("platform") == "gpu", f"{name}: labels {lb}")
+                out[lb["device"]] = v
+    return out
+
+
+# (b) the memory sample on the slice's path: ta021 on four workers on the
+# card, traced to a file, an ObsStore listening to the recorder and sent
+# one sample record a segment
+prev_reg16 = obs_metrics.install(obs_metrics.Registry("tts"))
+trace16 = OBS16 / "trace.jsonl"
+os.environ["TTS_TRACE_FILE"] = str(trace16)
+prev_log16 = tracelog.install(None)
+log16 = tracelog.get()                     # built from TTS_TRACE_FILE
+store16 = obs_store.ObsStore(OBS16 / "store", "chip-smoke")
+sent16 = [("boot", {"pid": os.getpid()})]
+append16 = store16.append
+
+
+def sent_append(kind, **fields):
+    sent16.append((kind, fields))
+    append16(kind, **fields)
+
+
+store16.append = sent_append
+log16.add_listener(store16.on_trace_event)
+reps16, frac16 = [], []
+
+
+def obs_hb(rep):
+    """After the search's own sample: this segment's in-use/limit, and a
+    store sample of the gauges the server persists."""
+    use, lim = gauge16("tts_device_bytes_in_use"), gauge16(
+        "tts_device_bytes_limit")
+    reps16.append(rep)
+    frac16.append(use["0"] / lim["0"])
+    store16.append("sample", segment=rep.segment, gauges=[
+        [n, dict(k), v] for m in obs_metrics.default().metrics()
+        if m.kind == "gauge" and m.name in obs_store.SAMPLE_GAUGES
+        for n, k, v in m.samples()])
+
+
+WORKERS16 = mesh.worker_devices(devices=[DEV] * 4)
+try:
+    with recording(checkpoint, "run_segmented") as segs16:
+        res16, counts, secs16 = path_run(
+            "obs ta021 D=4", ("fused_expand", "lb2_sweep"),
+            lambda: distributed.search(
+                taillard.processing_times(21), lb_kind=2,
+                init_ub=taillard.optimal_makespan(21), devices=WORKERS16,
+                chunk=65536, capacity=1 << 22, balance_period=4,
+                segment_iters=8, heartbeat=obs_hb,
+                should_stop=lambda rep: rep.segment >= 4))
+    for k, v in counts.items():
+        OBS[k] += v
+    log16.set_sink(None)
+    samples16 = [r for r in map(json.loads, trace16.read_text().splitlines())
+                 if r.get("name") == "resource.sample"]
+    check(len(reps16) == 4 and not res16.complete
+          and len(samples16) == len(reps16),
+          f"obs: {len(samples16)} resource.sample events for "
+          f"{len(reps16)} segments")
+    check(all(len(r["devices"]) == 1 and r["devices"][0]["platform"] == "gpu"
+              and r["host_rss_bytes"] for r in samples16),
+          f"obs: a sample's fields {samples16[-1]}")
+    pools16 = sum(t.nbytes for st in segs16[0] for t in st
+                  if isinstance(t, torch.Tensor))
+    use16 = gauge16("tts_device_bytes_in_use")
+    peak16 = gauge16("tts_device_bytes_peak")
+    lim16 = gauge16("tts_device_bytes_limit")
+    check(set(use16) == set(peak16) == set(lim16) == {"0"},
+          f"obs: gauge devices {use16} {peak16} {lim16}")
+    check(pools16 <= use16["0"] <= lim16["0"],
+          f"obs: in-use {use16['0']} against pools {pools16}, limit "
+          f"{lim16['0']}")
+    check(peak16["0"] >= use16["0"], f"obs: peak {peak16} < in-use {use16}")
+    check(lim16["0"] == LIMIT16, f"obs: limit {lim16} != {LIMIT16}")
+    # the host cost of one sample (allocator stats, RSS, gauges, event)
+    obs_resource.sample_now(platform="gpu")
+    t16 = time.perf_counter()
+    for _ in range(200):
+        obs_resource.sample_now(platform="gpu")
+    sample_ms = 1e3 * (time.perf_counter() - t16) / 200
+    say("obs ta021 D=4 (LB2 ub=opt, chunk 65536, capacity 2^22 a worker, "
+        "8-step segments, stopped after 4)", seconds=secs16,
+        segments=len(reps16), resource_samples=len(samples16),
+        in_use_over_limit=frac16, in_use_bytes=use16["0"],
+        peak_bytes=peak16["0"], limit_bytes=lim16["0"],
+        pool_bytes=pools16, sample_now_host_ms=sample_ms,
+        tree=res16.explored_tree, launches=counts, card=CARD)
+
+    # (c) health rules on the card's numbers, no daemon thread
+    trans16 = []
+    mon16 = health.HealthMonitor(server=None, interval_s=0)
+    mon16.add_listener(lambda rule, tr, a: trans16.append((rule, tr, a)))
+    check(mon16._thread is None, "health: a daemon thread started")
+    quiet16 = mon16.evaluate_now()
+    check(quiet16["firing"] == 0 and not trans16,
+          f"health: at the defaults {quiet16['alerts']}")
+    ratio16 = use16["0"] / lim16["0"]
+    mem16 = health.HealthMonitor(
+        server=None, interval_s=0,
+        thresholds=health.Thresholds(mem_frac=ratio16 / 2))
+    mem_alerts = {a["rule"]: a for a in mem16.evaluate_now()["alerts"]}
+    mem_a = mem_alerts.get("mem_headroom") or {}
+    check(mem_a.get("state") == "firing"
+          and mem_a["detail"]["device"] == "0"
+          and mem_a["detail"]["bytes_limit"] == LIMIT16,
+          f"health: mem_headroom {mem_a}")
+    mem16.close()
+    audit.record("chip_smoke_probe", False, phase=16)
+    fired16 = [a["rule"] for a in mon16.evaluate_now()["alerts"]
+               if a["state"] == "firing"]
+    audit.clear_findings()
+    mon16.evaluate_now()
+    check(fired16 == ["audit"]
+          and [(r, t) for r, t, _ in trans16] == [
+              ("audit", "pending"), ("audit", "firing"),
+              ("audit", "resolved")],
+          f"health: audit fired {fired16}, transitions {trans16}")
+    mon16.close()
+    say("health on the card's numbers", quiet_firing=quiet16["firing"],
+        mem_frac_threshold=ratio16 / 2, mem_headroom=mem_a["detail"],
+        audit_transitions=[t for _, t, _ in trans16], card=CARD)
+finally:
+    log16.remove_listener(store16.on_trace_event)
+    log16.set_sink(None)
+    store16.close()
+    tracelog.install(prev_log16)
+    del os.environ["TTS_TRACE_FILE"]
+    obs_metrics.install(prev_reg16)
+got16 = [(r["k"], {k: v for k, v in r.items() if k not in ("k", "t", "w")})
+         for r in obs_store.read_store(OBS16 / "store")]
+want16 = json.loads(json.dumps(sent16))
+check([[k, f] for k, f in got16] == want16,
+      f"obs store: read back {len(got16)} records, sent {len(want16)}")
+check(sum(k == "sample" for k, _ in got16) == len(reps16)
+      and any(f.get("name") == "alert.firing" for _, f in got16),
+      f"obs store: {[(k, f.get('name')) for k, f in got16]}")
+say("obs store read back", records=len(got16), store=store16.snapshot(),
+    card=CARD)
+
+# (d) the estimator on the slice's path: ta008 to completion through the
+# command (no -D: the single-device route), every SegmentReport into a
+# ProgressEstimator built as the server builds it
+P8 = taillard.processing_times(8)
+reps8 = []
+run_seg16 = checkpoint.run_segmented
+
+
+def run_seg_reports(run_fn, state, **kw):
+    hb = kw.get("heartbeat")
+
+    def both(rep):
+        reps8.append(rep)
+        if hb is not None:
+            hb(rep)
+
+    return run_seg16(run_fn, state, **dict(kw, heartbeat=both))
+
+
+device.clear_graphs()
+checkpoint.run_segmented = run_seg_reports
+try:
+    (rc8, text8, err8), counts, secs8 = path_run(
+        "obs ta008 estimator", ("expand_fronts", "lb2_sweep"),
+        lambda: cli_run(["pfsp", "-i", "8", "-l", "2", "-u", "1",
+                         "--chunk", "16384", "--capacity", str(1 << 22),
+                         "--segment-iters", "8", "--search-telemetry"]))
+finally:
+    checkpoint.run_segmented = run_seg16
+for k, v in counts.items():
+    OBS[k] += v
+check(rc8 == 0 and "Size of the explored tree: 13940189" in text8
+      and "Optimal makespan: 1206" in text8
+      and "Number of explored solutions: 0" in text8,
+      f"obs ta008: rc {rc8}\n{text8}\n{err8}")
+check(counts["fused_expand"] == 0 and reps8
+      and all(r.telemetry is not None for r in reps8),
+      f"obs ta008: launches {counts}, {len(reps8)} reports")
+# the server's depth hint is the table's first axis (5, the machines, for
+# a PFSP table); a second estimator takes the tree's depth (20 jobs), and
+# a third is the first's model unsmoothed (alpha 1)
+est8 = estimate.ProgressEstimator(depth_hint=int(P8.shape[0]))
+est8j = estimate.ProgressEstimator(depth_hint=int(P8.shape[1]))
+est8r = estimate.ProgressEstimator(depth_hint=int(P8.shape[0]), alpha=1.0)
+seq8, seq8j, seq8r = [], [], []
+for rep in reps8:
+    before8 = est8.remaining
+    for e, seq in ((est8, seq8), (est8j, seq8j), (est8r, seq8r)):
+        shown = e.progress
+        e.update(tree=rep.tree, pool=rep.pool_size, elapsed=rep.elapsed,
+                 telemetry=rep.telemetry)
+        seq.append(e.est_total)
+        # every published value: at least the nodes already explored,
+        # progress in [0, 0.999] and never moving backwards
+        check(e.est_total is None
+              or (e.est_total >= rep.tree and 0.0 <= e.progress <= 0.999
+                  and (shown is None or e.progress >= shown)),
+              f"obs ta008: segment {rep.segment}: estimate {e.est_total}, "
+              f"progress {shown} -> {e.progress}, tree {rep.tree}")
+tree8 = reps8[-1].tree
+check(reps8[-1].pool_size == 0 and tree8 == 13_940_189,
+      f"obs ta008: last report pool {reps8[-1].pool_size}, tree {tree8}")
+# the estimator's own output once the pool has drained: its raw remaining
+# is 0, so the unsmoothed model gives exactly the tree, and the server's
+# smoothed one exactly the tree plus the EWMA's residue, (1 - alpha) of
+# its previous remaining
+last8, last8r = est8.est_total, est8r.est_total
+check(last8r == tree8,
+      f"obs ta008: unsmoothed estimate with the pool drained {last8r} "
+      f"!= tree {tree8}")
+check(last8 == tree8 + (1.0 - est8.alpha) * before8,
+      f"obs ta008: smoothed estimate with the pool drained {last8} != "
+      f"tree {tree8} + (1 - {est8.alpha}) * {before8}")
+# the terminal pin (the server's finalize at DONE), an API check apart
+est8.finalize()
+check(est8.est_total == tree8 and est8.progress == 1.0
+      and est8.eta_s() == 0.0,
+      f"obs ta008: finalized estimate {est8.est_total} != tree {tree8}")
+quarters8 = {}
+for q in (1, 2, 3, 4):
+    i = max(q * len(seq8) // 4 - 1, 0)
+    quarters8[f"{q}/4"] = {
+        "segment": reps8[i].segment, "tree_so_far": reps8[i].tree,
+        "estimate": seq8[i],
+        "relative_error": (None if seq8[i] is None
+                           else seq8[i] / tree8 - 1.0),
+        "estimate_depth_20": seq8j[i],
+        "relative_error_depth_20": (None if seq8j[i] is None
+                                    else seq8j[i] / tree8 - 1.0)}
+say("obs ta008 estimator (LB2 ub=opt, chunk 16384, 8-step segments, "
+    "telemetry on, one worker)", seconds=secs8, segments=len(reps8),
+    tree=tree8, last_estimate_before_finalize=last8,
+    last_unsmoothed_estimate=last8r,
+    ewma_residue_relative=last8 / tree8 - 1.0,
+    finalized_estimate=est8.est_total, quarters=quarters8,
+    launches=counts, card=CARD)
+shutil.rmtree(OBS16)
+for key in ("lb2_sweep", "fused_expand", "expand_fronts", "expand_emit"):
+    check(OBS[key] > 0, f"phase 16: {key} never launched")
+say("phase 16 seconds", seconds=time.perf_counter() - t_phase16,
+    obs_launches=OBS)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
@@ -3110,6 +3395,7 @@ for r in RESULTS:
     r["overlap_launches"] = OVL[key]
     r["mp_launches"] = MPL[key]
     r["mb_launches"] = MB[key]
+    r["obs_launches"] = OBS[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

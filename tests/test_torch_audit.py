@@ -200,3 +200,36 @@ def test_arrays_sums_equal_state_sums(sound):
     assert taudit.array_sums(convert.state_to_numpy(state)) == \
         taudit.state_sums(state)
     assert np.asarray(state.size).sum() == taudit.state_sums(state)["size"]
+
+
+@pytest.mark.parametrize("tamper", [None, "tree", "sent", "evals",
+                                    "telemetry", "off"])
+def test_check_state_matches_jax(sound, tamper):
+    """A state's telemetry against its own counters: the same findings,
+    details and `edge` in both packages, sound and tampered; none without
+    the telemetry vector."""
+    from tpu_tree_search_torch.engine import telemetry as ttele
+
+    arrays = dict(convert.state_to_numpy(sound[1]))
+    if tamper == "telemetry":
+        arrays["telemetry"] = arrays["telemetry"].copy()
+        arrays["telemetry"][0, ttele.O_BRANCHED] += 1
+    elif tamper == "off":
+        arrays["telemetry"] = arrays["telemetry"][..., :0]
+    elif tamper is not None:
+        arrays[tamper] = arrays[tamper] + 1
+    want = jaudit.check_state(JState(**arrays), edge="segment")
+    got = taudit.check_state(convert.state_from_numpy(arrays, "cpu"),
+                             edge="segment")
+    assert [(f.invariant, f.ok, f.detail) for f in got] == \
+        [(f.invariant, f.ok, f.detail) for f in want]
+    if tamper == "off":
+        assert got == []
+    else:
+        assert {f.invariant for f in got} == {
+            "branched_is_tree", "children_conservation", "bound_hist_exact",
+            "steal_flow"}
+        assert all(f.detail["edge"] == "segment" for f in got)
+        assert all(f.ok for f in got) == (tamper is None)
+    assert outcomes(taudit.findings()[-len(got):] if got else []) == \
+        outcomes(got)

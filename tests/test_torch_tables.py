@@ -155,13 +155,15 @@ def test_port_imports_no_jax():
     names = set(out.stdout.split())
     for want in ("cli", "convert", "engine.checkpoint", "engine.device",
                  "engine.sequential", "engine.telemetry", "kernel_times",
-                 "obs.audit", "obs.metrics", "obs.tracelog", "ops.batched",
+                 "obs.audit", "obs.capacity", "obs.estimate", "obs.health",
+                 "obs.metric_names", "obs.metrics", "obs.resource",
+                 "obs.store", "obs.tracelog", "ops.batched",
                  "ops.columns", "ops.expand", "ops.fused", "ops.kernels",
                  "ops.nqueens_ops", "ops.reference", "parallel.balance",
                  "problems.base", "problems.knapsack", "problems.nqueens",
                  "problems.pfsp", "problems.taillard", "problems.tsp",
                  "profile_step", "tune.defaults", "utils.config",
-                 "utils.faults", "utils.retry"):
+                 "utils.device_info", "utils.faults", "utils.retry"):
         assert f"tpu_tree_search_torch.{want}" in names, want
     smoke = (ROOT / "chip_smoke.py").read_text()
     for line in smoke.splitlines():

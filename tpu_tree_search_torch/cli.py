@@ -1,4 +1,4 @@
-"""Command line of the port: the `pfsp`, `nqueens` and `solve`
+"""Command line of the port: the `pfsp`, `nqueens`, `solve` and `devices`
 subcommands, on one device or on several workers (`-D`).
 
 Reproduces these paths of `tpu_tree_search/cli.py`:
@@ -23,10 +23,15 @@ and JSON fields, with "GPU" for "TPU".
 
 `-D n` above 1 runs the multi-worker search (`engine/distributed.py`,
 the JAX CLI's distributed branches): on the card it needs n visible cards
-(`-D 0`: all of them) and exits 2 naming the count otherwise; with
-`--device cpu` it runs n workers on the CPU. `pfsp -D n` takes `-m` (the
-warm-up's nodes per worker), `--balance-period`, `-w`/`-L` (`-w 0 -L 0`
-turns balancing off: no surplus reaches the transfer threshold 2**30),
+and exits 2 naming the count otherwise; with `--device cpu` it runs n
+workers on the CPU. `pfsp` and `nqueens` default to `-D 0`, as the JAX
+CLI's do: every visible card, so a one-card host takes the single-device
+route of `-D 1`, as does `--device cpu`; `solve` defaults to `-D 1`.
+`devices` prints one line per visible card (its name, process, and
+allocated and total memory; `utils/device_info.py`), in the JAX CLI's
+format. `pfsp -D n` takes `-m` (the warm-up's nodes per worker),
+`--balance-period`, `-w`/`-L` (`-w 0 -L 0` turns balancing off: no
+surplus reaches the transfer threshold 2**30),
 `--max-iters` as a ceiling on balance rounds, and with `--segment-iters`
 or `--checkpoint` prints a `[segment k]` line with per-worker sizes and
 steals; its checkpoint is the stacked one either package resumes. With
@@ -40,11 +45,11 @@ as in the JAX CLI, which has no `pfsp` flag for it).
 `--multihost` (before the subcommand) joins a `torch.distributed` job of
 several processes, one per card or several sharing one, from the
 environment `python -m torch.distributed.run` sets (gloo backend;
-`parallel/mesh.py`): `-D` counts the job's workers and must divide evenly
-across the processes (exit 2 otherwise), each process drives its share,
-every process prints the job's results, and rank 0 alone writes the
-checkpoint and the `--csv` row, in the reference's distributed schema
-(`csv_stats.write_dist`).
+`parallel/mesh.py`): `-D` counts the job's workers (0: one a process) and
+must divide evenly across the processes (exit 2 otherwise), each process
+drives its share, every process prints the job's results, and rank 0
+alone writes the checkpoint and the `--csv` row, in the reference's
+distributed schema (`csv_stats.write_dist`).
 
 `pfsp -C 1` runs the host tier (`engine/hybrid.py`) beside the device
 search on every driver, in the JAX CLI's branch order: with `-D` above 1
@@ -367,15 +372,16 @@ def _job_size(workers: list) -> int:
 
 def _workers(D: int, dev) -> list | None:
     """This process's worker devices of the `-D` the command asks for: on
-    the card, D visible cards (0: every one); on the CPU, D workers on the
-    CPU (0: one); in a `--multihost` job, its equal share of D
-    (`mesh.local_worker_devices`). None after printing why they are not
-    there."""
+    the card, D visible cards (0: every one, and on a one-card host the
+    single-device route `-D 1` takes, on `dev`); on the CPU, D workers on
+    the CPU (0: one); in a `--multihost` job, its equal share of D (0: one
+    a process; `mesh.local_worker_devices`). None after printing why they
+    are not there."""
     from .parallel import mesh
 
     if mesh.process_count() > 1:
         try:
-            return mesh.local_worker_devices(D, dev)
+            return mesh.local_worker_devices(D or mesh.process_count(), dev)
         except ValueError as e:
             print(f"error: -D {D}: {e}", file=sys.stderr)
             return None
@@ -383,7 +389,8 @@ def _workers(D: int, dev) -> list | None:
         return [dev]
     try:
         if dev.type == "cuda":
-            return mesh.worker_devices(D if D > 0 else None)
+            cards = mesh.worker_devices(D if D > 0 else None)
+            return [dev] if len(cards) == 1 else cards
         return mesh.worker_devices(devices=[dev] * max(D, 1))
     except ValueError as e:
         print(f"error: -D {D}: {e} (visible CUDA devices)", file=sys.stderr)
@@ -536,15 +543,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "processes; must precede the subcommand")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("pfsp", help="exact PFSP branch-and-bound")
-    p.add_argument("-i", dest="inst", type=int, default=14,
+    p.add_argument("-i", "--inst", type=int, default=14,
                    help="Taillard instance number (1..120)")
-    p.add_argument("-l", dest="lb", type=int, choices=(0, 1, 2), default=1,
+    p.add_argument("-l", "--lb", type=int, choices=(0, 1, 2), default=1,
                    help="lower bound: 0 lb1_d, 1 lb1, 2 lb2")
-    p.add_argument("-u", dest="ub", type=int, choices=(0, 1), default=1,
+    p.add_argument("-u", "--ub", type=int, choices=(0, 1), default=1,
                    help="initial upper bound: 1 the optimum, 0 infinity")
-    p.add_argument("-D", type=int, default=1,
-                   help="workers: on the card, visible cards (0: all); "
-                        "with --device cpu, workers on the CPU")
+    p.add_argument("-D", type=int, default=0,
+                   help="workers: on the card, visible cards (0, the "
+                        "default: all); with --device cpu, workers on the "
+                        "CPU (0: one)")
     p.add_argument("-m", type=int, default=25,
                    help="with -D > 1: warm-up frontier nodes per worker; "
                         "with -C 1 on one device: the pool size below "
@@ -631,9 +639,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-N", type=int, default=14, help="board size")
     p.add_argument("-g", type=int, default=1,
                    help="safety-check repetitions (work scaling)")
-    p.add_argument("-D", type=int, default=1,
-                   help="workers: on the card, visible cards (0: all); "
-                        "with --device cpu, workers on the CPU")
+    p.add_argument("-D", type=int, default=0,
+                   help="workers: on the card, visible cards (0, the "
+                        "default: all); with --device cpu, workers on the "
+                        "CPU (0: one)")
     p.add_argument("--chunk", type=int, default=CLI_CHUNK_DEFAULT)
     p.add_argument("--capacity", type=int, default=1 << 20)
     _device_arg(p)
@@ -657,7 +666,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="truncate the search (debugging)")
     _device_arg(p)
     p.set_defaults(fn=run_solve)
+
+    p = sub.add_parser("devices",
+                       help="describe the visible devices (the reference's "
+                            "gpu_info, common/gpu_util.cu:5-17)")
+    p.set_defaults(fn=run_devices)
     return ap
+
+
+def run_devices(args) -> int:
+    from .utils.device_info import print_device_info
+
+    print_device_info()
+    return 0
 
 
 def main(argv=None) -> int:

@@ -929,7 +929,9 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     dict or a callable returning one, merged in), and a stop at the next
     segment boundary. An existing checkpoint is resumed, on any worker
     count (elastic: `checkpoint.reshard_state`); one written by another
-    problem is refused.
+    problem is refused. Each segment's heartbeat also takes one memory
+    sample (`obs/resource.sample_now`: the `tts_device_bytes_*` and
+    `tts_host_rss_bytes` gauges and a `resource.sample` trace event).
 
     `ladder` (None: the TTS_LADDER flag) runs a segmented search on the
     chunk ladder (`engine/ladder.py`): a driver per rung under one
@@ -1234,6 +1236,16 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
                 # (under overlap the next segment is already in flight, so
                 # the switch lands one boundary later)
                 ladder_ctl.observe(rep.pool_size, segment=rep.segment)
+            # one device-memory and host-RSS sample a segment, of the
+            # workers' backend: the tts_device_bytes_* gauges and a
+            # resource.sample trace event. Observation only: a failed
+            # sample never stops the search
+            try:
+                from ..obs import resource as obs_resource
+                obs_resource.sample_now(platform="gpu"
+                                        if devs[0].type == "cuda" else "cpu")
+            except Exception:  # noqa: BLE001
+                pass
             if client is not None:
                 client.publish(rep.best)
             if heartbeat is not None:

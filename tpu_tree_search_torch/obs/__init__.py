@@ -1,3 +1,6 @@
 """Port of `tpu_tree_search.obs`: the flight recorder (`tracelog`), the
-metrics registry (`metrics`) and the checkpoint round-trip check of
-`audit` (see the package docstring)."""
+metrics registry (`metrics`) and its name table (`metric_names`), the
+engine's invariant checks (`audit`), the device-memory sampler
+(`resource`), the durable observability store (`store`), the health rules
+(`health`), lane and capacity accounting (`capacity`) and the progress
+estimator (`estimate`)."""

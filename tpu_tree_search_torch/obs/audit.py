@@ -1,7 +1,6 @@
 """Node-conservation auditor: machine-checked engine invariants.
 
-Reproduces `tpu_tree_search/obs/audit.py` but for `check_state` (the
-per-segment check the health layer reads): every check lands as a
+Reproduces `tpu_tree_search/obs/audit.py`: every check lands as a
 `Finding` in a bounded process-wide ring (`findings`, `recent_failures`,
 `clear_findings`), in the metrics registry (`tts_audit_checks_total` /
 `tts_audit_failures_total` by invariant) and in the flight recorder
@@ -17,7 +16,9 @@ Invariants (exact equalities, JAX's names):
   == evals, or without sol where a problem counts leaves among popped
   nodes: `Problem.leaf_in_evals`), `bound_hist_exact` and `steal_flow`:
   the telemetry summary against the engine's counters (`check_result`,
-  with telemetry on);
+  with telemetry on; `check_state`, a state's own telemetry against its
+  own counters, the per-segment check the health layer's `audit` rule
+  reads through the findings ring);
 - `<edge>_conservation`: a reshard keeps every summed counter, the pooled
   node count and the incumbent (`check_reshard`);
 - `checkpoint_roundtrip`: a just-written snapshot loads back with the
@@ -289,3 +290,24 @@ def check_incumbent_fold(key: str, prev_cap, new_cap) -> Finding:
     return record("incumbent_monotone", ok, key=str(key),
                   prev_cap=(None if prev_cap is None else int(prev_cap)),
                   new_cap=int(new_cap))
+
+
+def check_state(state, edge: str = "segment",
+                problem: str = "pfsp") -> list[Finding]:
+    """Audit a state's telemetry against its own counters (a SearchState,
+    or a list of worker states, read in one transfer each): the per-segment
+    hook; no findings without the telemetry vector."""
+    from .. import convert
+    from ..engine import telemetry as tele
+
+    a = convert.state_to_numpy(state, rows=0)
+    if not np.asarray(a["telemetry"]).shape[-1]:
+        return []
+    sums = array_sums(a)
+    out = _check_telemetry(tele.summarize(a["telemetry"]), tree=sums["tree"],
+                           sol=sums["sol"], evals=sums["evals"],
+                           sent=sums["sent"], recv=sums["recv"],
+                           sol_in_evals=_sol_in_evals(problem))
+    for f in out:
+        f.detail["edge"] = edge
+    return out

@@ -4,9 +4,11 @@ Reproduces the accessors of `tpu_tree_search/utils/config.py` (`env_flag`,
 `env_str`, `env_int`, `env_float`, `env_ints`, `set_env`) with the same
 accepted spellings, and the rows of its knob registry for the knobs the
 port reads (among them `LADDER_FLAG`, `TTS_LADDER`, `OVERLAP_FLAG`, the
-tuner's and `TTS_DEBUG_STEP`): a `TTS_*` name must be registered, so a
-misspelt knob raises at its first read instead of never applying. The
-resilience and tuner defaults are the JAX package's.
+tuner's, `TTS_DEBUG_STEP`, and the `TTS_HEALTH_*`, `TTS_SLO_*`,
+`TTS_CAPACITY*` and `TTS_PROGRESS*` knobs of `obs/health`, `obs/capacity`
+and `obs/estimate`): a `TTS_*` name must be registered, so a misspelt
+knob raises at its first read instead of never applying. The resilience,
+tuner and observability defaults are the JAX package's.
 """
 
 from __future__ import annotations
@@ -49,6 +51,42 @@ ASYNC_CKPT_QUEUE_DEPTH = 2
 TUNE_WINDOW_ITERS_DEFAULT = 24    # measured iterations per probe candidate
 TUNE_WARM_ITERS_DEFAULT = 200     # warm-up iterations before the windows
 
+# the SLO burn-rate rules (obs/health.py): the error budget, the latency
+# target (0: the latency SLO is off) and budget, the fast and slow
+# windows, and the burn multiple both windows must exceed
+SLO_ERROR_BUDGET_DEFAULT = 0.01
+SLO_LATENCY_TARGET_S_DEFAULT = 0.0
+SLO_LATENCY_BUDGET_DEFAULT = 0.05
+SLO_BURN_FAST_S_DEFAULT = 300.0
+SLO_BURN_SLOW_S_DEFAULT = 3600.0
+SLO_BURN_THRESHOLD_DEFAULT = 2.0
+
+# the health rules' thresholds (obs/health.py); an interval <= 0 runs no
+# daemon thread
+OBS_HEALTH_INTERVAL_S_DEFAULT = 2.0
+HEALTH_QUEUE_WAIT_P99_S_DEFAULT = 60.0
+HEALTH_STALL_S_DEFAULT = 30.0
+HEALTH_STALL_WARMUP_S_DEFAULT = 300.0
+HEALTH_MEM_FRAC_DEFAULT = 0.92
+HEALTH_COMPILE_STORM_DEFAULT = 6
+HEALTH_PRUNING_MIN_RATE_DEFAULT = 0.0005
+HEALTH_PRUNING_MIN_NODES_DEFAULT = 100_000
+HEALTH_AUDIT_WINDOW_S_DEFAULT = 300.0
+
+# progress estimation (obs/estimate.py): the warm-up gate (segments and
+# nodes) and the EWMA weight of the newest segment's raw estimate
+PROGRESS_WARMUP_SEGMENTS_DEFAULT = 3
+PROGRESS_WARMUP_NODES_DEFAULT = 2000
+PROGRESS_EWMA_DEFAULT = 0.3
+
+# capacity and utilization (obs/capacity.py): the arrival-rate window,
+# the service-rate EWMA weight, and the saturation rule's threshold and
+# dwell
+CAPACITY_WINDOW_S_DEFAULT = 300.0
+CAPACITY_EWMA_DEFAULT = 0.3
+HEALTH_SATURATION_DEFAULT = 0.85
+HEALTH_SATURATION_FOR_S_DEFAULT = 6.0
+
 
 # the registered knobs and their defaults (None: no default / off)
 KNOBS: dict[str, object] = {
@@ -89,6 +127,39 @@ KNOBS: dict[str, object] = {
     "TTS_TUNE_RUNGS": False,
     # the LB2 debug tap (engine/device.py): read once at import
     "TTS_DEBUG_STEP": False,
+    # the SLO burn-rate rules (obs/health.py)
+    "TTS_SLO_ERROR_BUDGET": SLO_ERROR_BUDGET_DEFAULT,
+    "TTS_SLO_LATENCY_TARGET_S": SLO_LATENCY_TARGET_S_DEFAULT,
+    "TTS_SLO_LATENCY_BUDGET": SLO_LATENCY_BUDGET_DEFAULT,
+    "TTS_SLO_BURN_FAST_S": SLO_BURN_FAST_S_DEFAULT,
+    "TTS_SLO_BURN_SLOW_S": SLO_BURN_SLOW_S_DEFAULT,
+    "TTS_SLO_BURN_THRESHOLD": SLO_BURN_THRESHOLD_DEFAULT,
+    # the health monitor's interval and rule thresholds (obs/health.py);
+    # the perf rule's verdict file and per-tenant overrides (JSON)
+    "TTS_HEALTH_INTERVAL_S": OBS_HEALTH_INTERVAL_S_DEFAULT,
+    "TTS_HEALTH_QUEUE_WAIT_P99_S": HEALTH_QUEUE_WAIT_P99_S_DEFAULT,
+    "TTS_HEALTH_STALL_S": HEALTH_STALL_S_DEFAULT,
+    "TTS_HEALTH_STALL_WARMUP_S": HEALTH_STALL_WARMUP_S_DEFAULT,
+    "TTS_HEALTH_MEM_FRAC": HEALTH_MEM_FRAC_DEFAULT,
+    "TTS_HEALTH_COMPILE_STORM": HEALTH_COMPILE_STORM_DEFAULT,
+    "TTS_HEALTH_PRUNING_MIN_RATE": HEALTH_PRUNING_MIN_RATE_DEFAULT,
+    "TTS_HEALTH_PRUNING_MIN_NODES": HEALTH_PRUNING_MIN_NODES_DEFAULT,
+    "TTS_HEALTH_AUDIT_WINDOW_S": HEALTH_AUDIT_WINDOW_S_DEFAULT,
+    "TTS_HEALTH_PERF_JSON": None,
+    "TTS_HEALTH_TENANT_OVERRIDES": None,
+    # progress estimation (obs/estimate.py; the deadline_risk and
+    # slo_latency_risk rules exist only while it is on)
+    "TTS_PROGRESS": True,
+    "TTS_PROGRESS_WARMUP_SEGMENTS": PROGRESS_WARMUP_SEGMENTS_DEFAULT,
+    "TTS_PROGRESS_WARMUP_NODES": PROGRESS_WARMUP_NODES_DEFAULT,
+    "TTS_PROGRESS_EWMA": PROGRESS_EWMA_DEFAULT,
+    # capacity and utilization (obs/capacity.py; the saturation rule
+    # exists only while it is on)
+    "TTS_CAPACITY": True,
+    "TTS_CAPACITY_WINDOW_S": CAPACITY_WINDOW_S_DEFAULT,
+    "TTS_CAPACITY_EWMA": CAPACITY_EWMA_DEFAULT,
+    "TTS_HEALTH_SATURATION": HEALTH_SATURATION_DEFAULT,
+    "TTS_HEALTH_SATURATION_FOR_S": HEALTH_SATURATION_FOR_S_DEFAULT,
 }
 
 
