@@ -223,6 +223,23 @@ Phases (one line each, then two JSON lines):
      the estimate against it at each quarter of the run, and after the
      pool drains the finalized estimate equal to the tree. The `kernels`
      line's `obs_launches` are the launches of (b) and (d)
+ 17. the search server (`service/`: request, queueing, batching, spool,
+     executors, remediate, server; the `serve` and `client` commands):
+     (a) `serve --submeshes 1` in a subprocess, the eight 20x5 LB2 ub=opt
+     goldens through eight `client` processes at chunk 16384: each DONE
+     and golden, the last status snapshot's executor cache 1 miss and 7
+     hits and its one loop captured once; (b) in process, ta008 with
+     8-step segments preempted by a high-priority ta001, both golden, and
+     ta021 at chunk 65536 (the fused route) with `deadline_s` 3 ending in
+     DEADLINE with its partial counters and its checkpoint; (c) ta007
+     LB1_d golden (B1) and ta071 (B3) with a deadline; (d) ta010 whose
+     fault plan kills its first dispatch, redispatched to its golden, the
+     observe-mode journal holding its `exclude_submesh`; (e) under
+     megabatching the eight goldens as one batch. It prints each request's
+     queue wait, execution seconds and wall, a cache hit's time to its
+     first segment against the miss's, the captures, the scheduler's host
+     ms a tick and the peak memory. The `kernels` line's `serve_launches`
+     are the launches of (b)-(e); each of B1-B5 must launch in them
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -231,6 +248,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -253,6 +271,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
 
 from tpu_tree_search_torch import cli, native, problems  # noqa: E402
+from tpu_tree_search_torch import service  # noqa: E402
+from tpu_tree_search_torch.service import spool as srv_spool  # noqa: E402
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
 from tpu_tree_search_torch.engine import distributed, hybrid  # noqa: E402
 from tpu_tree_search_torch.engine import incumbent, ladder  # noqa: E402
@@ -2733,7 +2753,7 @@ NOOP = distributed._problem_driver(PF, W4, P21, 2, C21, BP21, TC21,
                                    2 * C21, fused="hw")
 noop_states = NOOP.seed(FR21, CAP21, 20, min(FR21.best,
                                              taillard.optimal_makespan(21)))
-noop_graph = NOOP._graph(noop_states, CAP21, 0)
+noop_states, noop_graph = NOOP._graph(noop_states, CAP21, 0)
 noop_ms = cuda_ms(noop_graph.graph.replay, 10)
 check(distributed.worker_counters(NOOP._graph_out(noop_states, noop_graph))
       ["iters"].max() == 0, "ta021: a replay past the ceiling stepped")
@@ -2925,9 +2945,9 @@ def mb_golden(label, insts, res):
         dist_golden(f"{label} ta{i:03d}", r, GOLD_LB2[i])
 
 
-def last_graph(kind: str):
-    return next(g for k, g in reversed(device._GRAPHS.items())
-                if k[0] == kind)
+def last_graph(drv):
+    """The newest graph of a driver's own loop at its largest capacity."""
+    return list(drv._loops[max(drv._loops)].graphs.values())[-1]
 
 
 def per_replay(launches: dict) -> dict:
@@ -2951,7 +2971,7 @@ seg_big = dict(done_at)[BIG]
 check(done_at[-1][0] == BIG
       and all(s < seg_big for i, s in done_at if i != BIG),
       f"megabatch 20x5: members drained at {done_at}")
-g1 = last_graph("batch")
+g1 = last_graph(drv1)
 mb_replay = per_replay(g1.launches)
 # every member drained: a replay is a no-op for all eight
 frozen_ms = cuda_ms(g1.graph.replay, 10)
@@ -2968,7 +2988,7 @@ for i in I20X5:
     dist_golden(f"solo ta{i:03d}", r, GOLD_LB2[i])
     solo_secs[i] = s
     if i == BIG:
-        gs = last_graph("dist")
+        gs = last_graph(sd[0])
         solo_replay = per_replay(gs.launches)
         solo_frozen_ms = cuda_ms(gs.graph.replay, 10)
         solo_ms[BIG] = 1e3 * s / max(sd[0].macro_iters, 1)
@@ -3385,6 +3405,421 @@ for key in ("lb2_sweep", "fused_expand", "expand_fronts", "expand_emit"):
 say("phase 16 seconds", seconds=time.perf_counter() - t_phase16,
     obs_launches=OBS)
 
+# --- phase 17: the search server -----------------------------------------
+device.clear_graphs()
+t_phase17 = time.perf_counter()
+SRV = dict.fromkeys(kernels.LAUNCHES, 0)
+SRV17 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_srv_"))
+torch.cuda.reset_peak_memory_stats(DEV)
+SRV_KW = dict(chunk=16384, capacity=1 << 22, balance_period=4)
+
+
+def srv_run(label, expect, fn):
+    """One in-process server scenario, its launches joining SRV."""
+    out, counts, secs = path_run(label, expect, fn)
+    for k, v in counts.items():
+        SRV[k] += v
+    return out, counts, secs
+
+
+def req17(i, lb=2, **kw):
+    return service.SearchRequest(p_times=taillard.processing_times(i),
+                                 lb_kind=lb,
+                                 init_ub=taillard.optimal_makespan(i),
+                                 **{**SRV_KW, **kw})
+
+
+def served(label, rec, want):
+    got = (rec.result.explored_tree, rec.result.explored_sol,
+           rec.result.best) if rec.result is not None else None
+    check(rec.state == "DONE" and got == want,
+          f"{label}: {rec.state} {got} != {want} ({rec.error})")
+
+
+@contextlib.contextmanager
+def fresh_log():
+    """A flight recorder of one scenario's own (request ids repeat across
+    servers)."""
+    prev = tracelog.install(tracelog.TraceLog(capacity=1 << 16))
+    try:
+        yield tracelog.get()
+    finally:
+        tracelog.install(prev)
+
+
+def timings(log, recs) -> dict:
+    """Per request: the queue wait (admit to first dispatch, from the
+    scenario's flight recorder), its execution seconds and its wall."""
+    admit, disp = {}, {}
+    for r in log.records():
+        rid = r.get("request_id")
+        if r.get("name") == "request.admit":
+            admit.setdefault(rid, r["ts"])
+        elif r.get("name") == "request.dispatch":
+            disp.setdefault(rid, r["ts"])
+    return {rec.id: {"queue_wait_s": disp.get(rec.id, 0.0)
+                     - admit.get(rec.id, 0.0),
+                     "execution_s": rec.spent_s(),
+                     "wall_s": (rec.finished_t or 0.0) - rec.submitted_t,
+                     "dispatches": rec.dispatches, "state": rec.state}
+            for rec in recs}
+
+
+def instrument(srv):
+    """Time the scheduler's ticks and each dispatch's time to its first
+    segment, on a server built with autostart=False."""
+    ticks, first = [], {}
+    tick = srv._tick
+    progress = srv._progress_update
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        tick()
+        ticks.append(time.perf_counter() - t0)
+
+    def first_segment(rec, rep):
+        if rec.dispatch_heartbeats == 1 and rec.started_t is not None:
+            first.setdefault((rec.id, rec.dispatches),
+                             time.monotonic() - rec.started_t)
+        progress(rec, rep)
+
+    srv._tick = timed_tick
+    srv._progress_update = first_segment
+    return ticks, first
+
+
+def tick_ms(ticks) -> dict:
+    xs = sorted(1e3 * t for t in ticks)
+    return {"ticks": len(xs), "mean": sum(xs) / max(len(xs), 1),
+            "p50": xs[len(xs) // 2] if xs else None,
+            "max": xs[-1] if xs else None}
+
+
+# (a) the commands: `serve` in a subprocess on the card, the eight 20x5
+# LB2 ub=opt goldens through `client` at chunk 16384 (the instances phase
+# 15 batches), all one class on one submesh
+# (the clients' request files are in the spool before the server starts,
+# so its idle clock cannot end it before they are read)
+spool17 = SRV17 / "spool"
+t17 = time.perf_counter()
+clients17 = {i: subprocess.Popen(
+    [sys.executable, "-m", "tpu_tree_search_torch", "client", "--spool",
+     str(spool17), "-i", str(i), "-l", "2", "-u", "1", "--chunk", "16384",
+     "--capacity", str(1 << 22), "--timeout", "300"],
+    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for i in I20X5}
+serve17 = None
+try:
+    while len(list(spool17.glob("*.req.json"))) < len(I20X5):
+        check(time.perf_counter() - t17 < 120
+              and all(p.poll() is None for p in clients17.values()),
+              "client: request files not written")
+        time.sleep(0.1)
+    # its status lines (a snapshot a second) go to files: a pipe nobody
+    # reads while the clients wait would fill and stop the server
+    with open(SRV17 / "serve.out", "w") as fo, \
+            open(SRV17 / "serve.err", "w") as fe:
+        serve17 = subprocess.Popen(
+            [sys.executable, "-m", "tpu_tree_search_torch", "serve",
+             "--spool", str(spool17), "--submeshes", "1", "--idle-exit",
+             "4", "--status-every", "1", "--workdir", str(SRV17 / "wd_a")],
+            cwd=ROOT, stdout=fo, stderr=fe, text=True)
+    outs17 = {i: p.communicate(timeout=300) for i, p in clients17.items()}
+    serve17.wait(timeout=120)
+finally:
+    for p in [serve17, *clients17.values()]:
+        if p is not None and p.poll() is None:
+            p.kill()
+out_srv = (SRV17 / "serve.out").read_text()
+err_srv = (SRV17 / "serve.err").read_text()
+cli_secs17 = time.perf_counter() - t17
+check(serve17.returncode == 0, f"serve: rc {serve17.returncode}\n"
+      f"{out_srv[-3000:]}\n{err_srv[-3000:]}")
+res17 = {}
+for i, (o, e) in outs17.items():
+    check(clients17[i].returncode == 0,
+          f"client ta{i:03d}: rc {clients17[i].returncode}\n{o}\n{e}")
+    r = json.loads(o[o.index("{"):])
+    got = (r["result"]["explored_tree"], r["result"]["explored_sol"],
+           r["result"]["best"])
+    check(r["state"] == "DONE" and got == GOLD_LB2[i],
+          f"client ta{i:03d}: {r['state']} {got} != {GOLD_LB2[i]}")
+    res17[i] = r
+snaps17 = [json.loads(ln) for ln in out_srv.splitlines()
+           if ln.startswith("{") and '"executor_cache"' in ln]
+final17 = snaps17[-1]
+check(final17["counters"]["done"] == len(I20X5),
+      f"serve: last status counters {final17['counters']}")
+ledger17 = final17["compile_ledger"]
+check(final17["executor_cache"] == {"entries": 1, "hits": 7, "misses": 1},
+      f"serve: executor cache {final17['executor_cache']}, ledger "
+      f"{[(r['key'], r['captures']) for r in ledger17]}")
+check([r["captures"] for r in ledger17] == [1]
+      and ledger17[0]["method"] == "capture",
+      f"serve: captures {[(r['key'], r['captures']) for r in ledger17]}")
+say("serve + client (8 x 20x5 LB2 ub=opt, chunk 16384, one submesh)",
+    seconds=cli_secs17, cache=final17["executor_cache"],
+    ledger=[{k: r[k] for k in ("key", "compile_s", "nvcc_s", "captures",
+                               "method")} for r in ledger17],
+    requests={f"ta{i:03d}": {"spent_s": r["spent_s"],
+                             "dispatches": r["dispatches"],
+                             "tree": r["result"]["explored_tree"]}
+              for i, r in res17.items()},
+    serve_tail=out_srv.splitlines()[-1], card=CARD)
+
+# (b) in process: a preemption and its resume, and a deadline on the fused
+# route (ta021 at chunk 65536)
+srv_b = service.SearchServer(n_submeshes=1, devices=[DEV],
+                             workdir=SRV17 / "wd_b", autostart=False,
+                             share_incumbent=False)
+ticks_b, first_b = instrument(srv_b)
+
+
+def scenario_b():
+    low = srv_b.submit(req17(8, segment_iters=8, priority=0))
+    srv_b.start()
+    t0 = time.monotonic()
+    while srv_b.status(low)["progress"].get("segment", 0) < 2:
+        check(time.monotonic() - t0 < 120, "preempt: ta008 never ran")
+        time.sleep(0.01)
+    hi = srv_b.submit(req17(1, priority=10))
+    rec_hi = srv_b.result(hi, timeout=240)
+    rec_lo = srv_b.result(low, timeout=240)
+    dl = srv_b.submit(req17(21, chunk=65536, deadline_s=3.0))
+    rec_dl = srv_b.result(dl, timeout=240)
+    return rec_lo, rec_hi, rec_dl
+
+
+try:
+    with recording(distributed, "_DistDriver") as drv_b, fresh_log() as log_b:
+        (lo17, hi17, dl17), counts, secs = srv_run(
+            "serve preempt+deadline", ("expand_fronts", "lb2_sweep",
+                                       "fused_expand"), scenario_b)
+    snap_b = srv_b.status_snapshot()
+finally:
+    srv_b.close()
+served("preempted ta008", lo17, GOLD_LB2[8])
+served("preempting ta001", hi17, GOLD_LB2[1])
+check(lo17.preemptions >= 1 and lo17.dispatches >= 2,
+      f"ta008: preemptions {lo17.preemptions}, dispatches "
+      f"{lo17.dispatches}")
+check(dl17.state == "DEADLINE" and dl17.result is not None
+      and not dl17.result.complete and dl17.result.explored_tree > 0
+      and os.path.exists(dl17.checkpoint_path),
+      f"ta021 deadline: {dl17.state} {dl17.error}")
+# the resume and ta001 took the loop ta008's first dispatch captured
+caps_b = [dict(d.captures) for d in drv_b]
+say("serve preempt + deadline (ta008 low, ta001 high, ta021 chunk 65536 "
+    "deadline 3 s)", seconds=secs, launches=counts,
+    requests=timings(log_b, [lo17, hi17, dl17]),
+    ta021_partial={"tree": dl17.result.explored_tree,
+                   "best": dl17.result.best},
+    first_segment_s={f"{k[0]}/{k[1]}": v for k, v in first_b.items()},
+    captures_by_driver=caps_b, cache=snap_b["executor_cache"],
+    ledger=[{k: r[k] for k in ("key", "compile_s", "nvcc_s", "captures")}
+            for r in snap_b["compile_ledger"]],
+    tick_host_ms=tick_ms(ticks_b), card=CARD)
+check(sum(sum(c.values()) for c in caps_b) == len(snap_b["compile_ledger"]),
+      f"serve: captures {caps_b} against ledger "
+      f"{[r['key'] for r in snap_b['compile_ledger']]}")
+
+# (c) routes: LB1_d (the bounds-only kernel) and a J > 64 request with a
+# deadline
+srv_c = service.SearchServer(n_submeshes=1, devices=[DEV],
+                             workdir=SRV17 / "wd_c")
+try:
+    def scenario_c():
+        r7 = srv_c.submit(req17(7, lb=0, chunk=4096, capacity=1 << 20))
+        r71 = srv_c.submit(req17(71, chunk=8192, capacity=1 << 20,
+                                 deadline_s=1.0, segment_iters=4))
+        return srv_c.result(r7, timeout=240), srv_c.result(r71, timeout=240)
+
+    with fresh_log() as log_c:
+        (rec7, rec71), counts, secs = srv_run(
+            "serve routes", ("expand_bounds", "lb2_sweep_bigj"), scenario_c)
+    ledger_c = srv_c.status_snapshot()["compile_ledger"]
+finally:
+    srv_c.close()
+served("LB1_d ta007", rec7, (271602, 28447, 1234))
+check(rec71.state == "DEADLINE" and rec71.result is not None
+      and rec71.result.explored_tree > 0, f"ta071: {rec71.state}")
+say("serve routes (ta007 LB1_d chunk 4096; ta071 LB2 chunk 8192, "
+    "4-step segments, deadline 1 s)", seconds=secs, launches=counts,
+    requests=timings(log_c, [rec7, rec71]),
+    ta071_partial={"tree": rec71.result.explored_tree,
+                   "segments": rec71.progress.get("segment")},
+    ledger=[{k: r[k] for k in ("key", "compile_s", "nvcc_s", "captures")}
+            for r in ledger_c], card=CARD)
+
+# (d) retries: a first dispatch killed by the request's fault plan, the
+# request redispatched to its golden, the exclusion journaled (observe)
+srv_d = service.SearchServer(n_submeshes=1, devices=[DEV],
+                             workdir=SRV17 / "wd_d",
+                             service_retry_base_s=0.01)
+try:
+    def scenario_d():
+        rid = srv_d.submit(req17(10, segment_iters=64,
+                                 faults="kill_submesh=1:1"))
+        return srv_d.result(rid, timeout=240)
+
+    rec_d, counts, secs = srv_run("serve retry", DENSE, scenario_d)
+    journal_d = srv_d.status_snapshot()["remediation"]["actions"]
+finally:
+    srv_d.close()
+served("redispatched ta010", rec_d, GOLD_LB2[10])
+check(rec_d.dispatches == 2 and rec_d.failures == 1
+      and rec_d.failure_log[0]["attempt"] == 1,
+      f"retry: dispatches {rec_d.dispatches}, log {rec_d.failure_log}")
+check([(a["rule"], a["action"], a["outcome"], a["detail"])
+       for a in journal_d] == [("retry", "exclude_submesh", "observed",
+                                {"request_id": rec_d.id, "submesh": 0})],
+      f"retry: journal {journal_d}")
+say("serve retry (ta010, kill_submesh=1:1)", seconds=secs, launches=counts,
+    failure_log=rec_d.failure_log, journal=journal_d, card=CARD)
+
+# (e) megabatching: the eight goldens in one batch dispatch
+srv_e = service.SearchServer(n_submeshes=1, devices=[DEV],
+                             workdir=SRV17 / "wd_e", autostart=False,
+                             megabatch=True, batch_max=len(I20X5),
+                             batch_age_s=60.0)
+ticks_e, _ = instrument(srv_e)
+try:
+    def scenario_e():
+        rids = [srv_e.submit(req17(i, capacity=1 << 21, segment_iters=64))
+                for i in I20X5]
+        srv_e.start()
+        return [srv_e.result(r, timeout=240) for r in rids]
+
+    with fresh_log() as log_e:
+        recs_e, counts, secs = srv_run("serve megabatch", DENSE_MB,
+                                       scenario_e)
+    snap_e = srv_e.status_snapshot()
+finally:
+    srv_e.close()
+for i, rec in zip(I20X5, recs_e):
+    served(f"batched ta{i:03d}", rec, GOLD_LB2[i])
+check(len({r.batch_id for r in recs_e}) == 1 and recs_e[0].batch_id
+      and all(r.dispatches == 1 for r in recs_e)
+      and snap_e["metrics"]["tts_batches_formed_total"]
+      == {'{reason="size"}': 1},
+      f"megabatch: batches {[r.batch_id for r in recs_e]}, "
+      f"{snap_e['metrics'].get('tts_batches_formed_total')}")
+say("serve megabatch (8 x 20x5 LB2 ub=opt, one batch)", seconds=secs,
+    launches=counts, requests=timings(log_e, recs_e),
+    cache=snap_e["executor_cache"],
+    ledger=[{k: r[k] for k in ("key", "compile_s", "nvcc_s", "captures")}
+            for r in snap_e["compile_ledger"]],
+    tick_host_ms=tick_ms(ticks_e), card=CARD)
+# (f) two submeshes of one worker each on the card, the overlapped driver
+# on: a boot pre-warm of the class waiting in the spool (a capture on each
+# submesh), a request of it that replays its warmed loop with no new
+# capture, a new class captured on one executor thread while the other
+# replays, then more classes than the loops that keep device memory
+device.clear_graphs()
+gc.collect()
+torch.cuda.empty_cache()
+torch.cuda.synchronize()
+mem_f0 = torch.cuda.memory_allocated(DEV)
+spool_f = SRV17 / "spool_f"
+srv_spool.submit_file(spool_f, srv_spool.payload_from_request(
+    req17(BIG, segment_iters=8)))
+srv_f = service.SearchServer(n_submeshes=2, devices=[DEV, DEV],
+                             workdir=SRV17 / "wd_f", autostart=False,
+                             overlap=True, share_incumbent=False)
+ticks_f, first_f = instrument(srv_f)
+MORE_F = ((1, 1024), (2, 2048), (1, 4096), (2, 32768))
+
+
+def scenario_f():
+    warm = srv_f.prewarm_boot("spool", spool_dir=str(spool_f))
+    warmed = {r["key"]: r["captures"] for r in srv_f.cache.ledger_snapshot()}
+    long = srv_f.submit(req17(BIG, segment_iters=8))
+    srv_f.start()
+    t0 = time.monotonic()
+    while srv_f.status(long)["progress"].get("segment", 0) < 2:
+        check(time.monotonic() - t0 < 120, "two submeshes: ta008 never ran")
+        time.sleep(0.01)
+    new = srv_f.submit(req17(3, chunk=8192))
+    recs = [srv_f.result(long, timeout=240), srv_f.result(new, timeout=240)]
+    for i, c in MORE_F:
+        recs.append(srv_f.result(srv_f.submit(req17(i, chunk=c)),
+                                 timeout=240))
+    return warm, warmed, recs
+
+
+try:
+    with fresh_log() as log_f:
+        (warm_f, warmed_f, recs_f), counts, secs = srv_run(
+            "serve two submeshes", ("expand_fronts", "lb2_sweep"),
+            scenario_f)
+    snap_f = srv_f.status_snapshot()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_f1 = torch.cuda.memory_allocated(DEV)
+    kept_f = device.resident()
+finally:
+    srv_f.close()
+for rec, i in zip(recs_f, (BIG, 3, *(i for i, _ in MORE_F))):
+    served(f"two submeshes ta{i:03d}", rec, GOLD_LB2[i])
+ledger_f = {r["key"]: r for r in snap_f["compile_ledger"]}
+check(warm_f["by"]["compile"] == 2 and warm_f["errors"] == 0
+      and len(warmed_f) == 2 and set(warmed_f.values()) == {1},
+      f"prewarm: {warm_f}, captures {warmed_f}")
+check(all(ledger_f[k]["captures"] == 1 and ledger_f[k].get("via")
+          == "prewarm" for k in warmed_f)
+      and recs_f[0].dispatches == 1 and snap_f["executor_cache"]["hits"] >= 1,
+      f"prewarm: the warmed keys captured again or were not hit: "
+      f"{[(k, r['captures']) for k, r in ledger_f.items()]}, cache "
+      f"{snap_f['executor_cache']}")
+seq_f = {(r.get("name"), r.get("request_id")): r["seq"]
+         for r in log_f.records() if r.get("name") in (
+             "request.dispatch", "request.done")}
+cap_f = [r["seq"] for r in log_f.records()
+         if r.get("name") == "executor.compile"
+         and r["key"].split("/")[4] == "8192"]
+check(len(cap_f) == 1 and recs_f[1].dispatches == 1
+      and seq_f[("request.dispatch", recs_f[0].id)] < cap_f[0]
+      < seq_f[("request.done", recs_f[0].id)],
+      f"two submeshes: the new class's capture {cap_f} is not inside "
+      f"ta008's run {seq_f}")
+
+
+def pool_bytes(loop) -> int:
+    """The device bytes of a loop's pools (every state field)."""
+    flat = [s for sb in (loop.pools or ())
+            for s in (sb if isinstance(sb, list) else [sb])]
+    return sum(t.numel() * t.element_size() for s in flat for t in s
+               if t.device.type == "cuda")
+
+
+kept_bytes = sum(pool_bytes(x) for x in kept_f)
+check(len(kept_f) <= device._GRAPH_CACHE < len(ledger_f),
+      f"loops keeping device memory: {len(kept_f)} of {len(ledger_f)}")
+check(mem_f1 - mem_f0 <= kept_bytes + (64 << 20),
+      f"after {len(ledger_f)} classes the card holds {mem_f1 - mem_f0} "
+      f"bytes more, the {len(kept_f)} resident loops' pools {kept_bytes}")
+say("serve two submeshes, overlap on (prewarm of ta008's class, ta008 "
+    "8-step segments hitting it, ta003 chunk 8192 captured meanwhile, "
+    "then ta001/ta002 at chunks 1024-32768)", seconds=secs, launches=counts,
+    prewarm=warm_f, requests=timings(log_f, recs_f),
+    first_segment_s={f"{k[0]}/{k[1]}": v for k, v in first_f.items()},
+    cache=snap_f["executor_cache"],
+    ledger=[{k: r[k] for k in ("key", "compile_s", "captures")}
+            for r in ledger_f.values()],
+    capture_seq=cap_f[0], ta008_seq=[
+        seq_f[("request.dispatch", recs_f[0].id)],
+        seq_f[("request.done", recs_f[0].id)]],
+    resident_loops=len(kept_f), resident_pool_bytes=kept_bytes,
+    allocated_more_bytes=mem_f1 - mem_f0, tick_host_ms=tick_ms(ticks_f),
+    card=CARD)
+shutil.rmtree(SRV17)
+for key in ("expand_bounds", "expand_emit", "expand_fronts", "lb2_sweep",
+            "lb2_sweep_bigj", "fused_expand"):
+    check(SRV[key] > 0, f"phase 17: {key} never launched")
+say("phase 17 seconds", seconds=time.perf_counter() - t_phase17,
+    serve_launches=SRV,
+    peak_bytes=torch.cuda.max_memory_allocated(DEV), card=CARD)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
@@ -3396,6 +3831,7 @@ for r in RESULTS:
     r["mp_launches"] = MPL[key]
     r["mb_launches"] = MB[key]
     r["obs_launches"] = OBS[key]
+    r["serve_launches"] = SRV[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 
 from tpu_tree_search.engine import distributed as jdist
-from tpu_tree_search_torch import cli, tune as ttune
+from tpu_tree_search_torch import cli, service as tsvc, tune as ttune
 from tpu_tree_search_torch.engine import checkpoint as tckpt
 from tpu_tree_search_torch.engine import distributed as tdist
 from tpu_tree_search_torch.engine import incumbent as tinc
@@ -206,12 +206,13 @@ def test_cross_problem_resume_refused(tmp_path):
                      checkpoint_path=path)
 
 
-# the arguments still refused; the rest of the cases below (the ladder,
-# the tuner, the incumbent board, chunk=None, balance_period=None) were
-# refused naming A6 until it was ported, and `overlap` naming A5b, and now
-# run (a real `Autotuner` without a cache directory resolves the open chunk
-# to the defaults; overlap without segments runs the one unsegmented loop)
-_REFUSED = {"loop_cache"}
+# the cases below were refused naming their ROADMAP item until it was
+# ported, and now run: the ladder, the tuner, the incumbent board,
+# chunk=None and balance_period=None (A6), the executor cache of search and
+# of serve_batch (A9), overlap (A5b); a real `Autotuner` without a cache
+# directory resolves the open chunk to the defaults, overlap without
+# segments runs the one unsegmented loop, and a search or batch through the
+# executor cache equals the run without it
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -219,22 +220,29 @@ _REFUSED = {"loop_cache"}
     (dict(tuner=ttune.Autotuner(device="cpu"), chunk=None), "A6"),
     (dict(incumbent_board=tinc.IncumbentBoard()), "A6"),
     (dict(chunk=None), "A6"), (dict(balance_period=None), "A6"),
-    (dict(loop_cache=object()), "A9"), (dict(overlap=True), "A5b"),
-    (dict(serve_batch=True, loop_cache=object()), "A9")])
+    (dict(loop_cache=True), "A9"), (dict(overlap=True), "A5b"),
+    (dict(serve_batch=True, loop_cache=True), "A9")])
 def test_left_out_arguments_name_their_roadmap_item(kw, item):
     inst = PFSPInstance.synthetic(7, 3, 0)
     if kw.get("serve_batch"):
-        # megabatch.serve_batch refuses the executor cache as search does
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tmb.serve_batch([tmb.MemberSpec(table=inst.p_times)],
-                            devices=["cpu"] * 2, loop_cache=kw["loop_cache"])
+        specs = [tmb.MemberSpec(table=inst.p_times),
+                 tmb.MemberSpec(table=PFSPInstance.synthetic(7, 3, 1)
+                                .p_times)]
+        cache = tsvc.ExecutorCache()
+        got = tmb.serve_batch(specs, devices=["cpu"] * 2, loop_cache=cache)
+        plain = tmb.serve_batch(specs, devices=["cpu"] * 2)
+        assert [(r.explored_tree, r.explored_sol, r.best) for r in got] \
+            == [(r.explored_tree, r.explored_sol, r.best) for r in plain]
+        assert cache.snapshot()["misses"] >= 1
         return
-    if _REFUSED & set(kw):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tdist.search(inst.p_times, devices=["cpu"] * 2, **kw)
-        return
+    if "loop_cache" in kw:
+        kw = dict(kw, loop_cache=tsvc.ExecutorCache())
+        plain = tdist.search(inst.p_times, devices=["cpu"] * 2)
     res = tdist.search(inst.p_times, devices=["cpu"] * 2, **kw)
     assert res.complete and res.best == tseq.pfsp_search(inst, lb=1).best
+    if "loop_cache" in kw:
+        assert (res.explored_tree, res.explored_sol) == (
+            plain.explored_tree, plain.explored_sol)
 
 
 def test_host_fraction_runs_beside_the_workers():

@@ -1,5 +1,6 @@
-"""Command line of the port: the `pfsp`, `nqueens`, `solve` and `devices`
-subcommands, on one device or on several workers (`-D`).
+"""Command line of the port: the `pfsp`, `nqueens`, `solve`, `devices`,
+`serve` and `client` subcommands, on one device or on several workers
+(`-D`).
 
 Reproduces these paths of `tpu_tree_search/cli.py`:
 `run_pfsp` -> `device.search`, and with `--segment-iters` or
@@ -42,6 +43,16 @@ driver (the next segment dispatched before the last one's counters are
 read, checkpoints written on a thread; `distributed.search` reads the flag,
 as in the JAX CLI, which has no `pfsp` flag for it).
 
+`serve` runs the search server (`service/server.py`) over a file spool
+and `client` drops one request into it and waits (JAX `run_serve`,
+`run_client`): `serve --device cpu -D n` serves on n CPU workers, on the
+card every visible card (or `-D` of them), partitioned into `--submeshes`.
+`--prewarm`, `--megabatch`, `--remediate`, `--overlap`, `--ladder`,
+`--tune-cache` and the drain on SIGTERM work as in JAX; `--http-port`,
+`--otel-endpoint` and `--profile-dir` exit 1 naming ROADMAP A10, and
+`--ledger`, `--fleet-dir`, `--failover`, `--aot-cache` and `client
+--portfolio` naming A9c.
+
 `--multihost` (before the subcommand) joins a `torch.distributed` job of
 several processes, one per card or several sharing one, from the
 environment `python -m torch.distributed.run` sets (gloo backend;
@@ -77,6 +88,9 @@ on the card. `--csv` appends the reference's CSV row
         -m tpu_tree_search_torch --multihost pfsp -i 14 -l 2 -u 1 -D 4
     python -m tpu_tree_search_torch pfsp -i 8 -l 2 -u 1 --chunk 65536 -C 1 \\
         --csv runs.csv
+    python -m tpu_tree_search_torch serve --spool sp --idle-exit 30 &
+    python -m tpu_tree_search_torch client --spool sp -i 3 -l 2 \\
+        --chunk 16384
 """
 
 from __future__ import annotations
@@ -525,6 +539,333 @@ def run_solve(args) -> int:
     return 0
 
 
+def _serve_args(sub) -> None:
+    """The `serve` command's flags (JAX `cli.py` `_serve_parser`), with
+    `--device` and `-D`."""
+    p = sub.add_parser(
+        "serve",
+        help="run the search server over a file spool (service/: submesh "
+             "scheduling, priority preemption, loop reuse)")
+    p.add_argument("--spool", type=str, required=True,
+                   help="directory watched for <id>.req.json request "
+                        "files; results land beside them as <id>.res.json "
+                        "(service/spool.py)")
+    p.add_argument("--submeshes", type=int,
+                   default=_cfg.env_int("TTS_SUBMESHES"),
+                   help="partition the workers into this many equal "
+                        "submeshes, one concurrent request each (must "
+                        "divide the worker count; TTS_SUBMESHES)")
+    p.add_argument("-D", type=int, default=0,
+                   help="workers: on the card, visible cards (0, the "
+                        "default: all); with --device cpu, workers on the "
+                        "CPU (0: one a submesh)")
+    p.add_argument("--workdir", type=str, default=None,
+                   help="checkpoint directory for preempted and deadline "
+                        "requests (default: a fresh temp dir)")
+    p.add_argument("--queue-depth", type=int,
+                   default=_cfg.env_int("TTS_QUEUE_DEPTH"),
+                   help="admission bound: requests beyond it are rejected "
+                        "with a reason, not buffered")
+    p.add_argument("--segment-iters", type=int,
+                   default=_cfg.SERVICE_SEGMENT_ITERS_DEFAULT,
+                   help="segment length between stop checks (the reaction "
+                        "time of preemption, deadlines and cancels)")
+    p.add_argument("--idle-exit", type=float, default=None,
+                   help="exit after this many seconds with no queued or "
+                        "running work (default: serve forever)")
+    p.add_argument("--status-every", type=float, default=30.0,
+                   help="print a JSON status snapshot every N seconds "
+                        "(0 disables)")
+    p.add_argument("--http-port", type=int, default=None,
+                   help="the HTTP front-end (ROADMAP A10: refused)")
+    p.add_argument("--trace-file", type=str, default=None,
+                   help="append the flight recorder's log to this JSONL "
+                        "file (also via TTS_TRACE_FILE)")
+    p.add_argument("--phase-metrics", action="store_true",
+                   help="measure per-phase unit costs once per request "
+                        "shape and publish tts_phase_seconds gauges")
+    p.add_argument("--search-telemetry", action="store_true",
+                   help="keep the search-telemetry vector in every served "
+                        "search (also via TTS_SEARCH_TELEMETRY=1)")
+    p.add_argument("--otel-endpoint", type=str, default=None,
+                   help="OTLP export (ROADMAP A10: refused)")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="POST /profile captures (ROADMAP A10: refused)")
+    p.add_argument("--resource-sample-s", type=float, default=None,
+                   help="memory sampler period in seconds (default 1.0, "
+                        "also via TTS_RESOURCE_SAMPLE_S; <= 0 disables)")
+    p.add_argument("--health-interval-s", type=float, default=None,
+                   help="health rules' evaluation period in seconds "
+                        f"(default {_cfg.OBS_HEALTH_INTERVAL_S_DEFAULT}, "
+                        "also via TTS_HEALTH_INTERVAL_S; <= 0 disables "
+                        "the daemon)")
+    p.add_argument("--overlap", action="store_true",
+                   help="the overlapped segment driver for every request "
+                        "(also via TTS_OVERLAP=1)")
+    p.add_argument("--share-incumbent", action="store_true",
+                   help="share incumbents across concurrent requests of "
+                        "one instance (also via TTS_SHARE_INCUMBENT=1)")
+    p.add_argument("--aot-cache", type=str, default=None,
+                   help="the disk executor cache (ROADMAP A9c: refused)")
+    p.add_argument("--tune-cache", type=str, default=None,
+                   help="tuning-cache directory (also via TTS_TUNE_CACHE): "
+                        "requests with open knobs resolve from it")
+    p.add_argument("--tune", action="store_true",
+                   help="with --prewarm: probe cold shapes at boot (also "
+                        "via TTS_TUNE=1)")
+    p.add_argument("--ladder", action="store_true",
+                   help="chunk-ladder execution (also via TTS_LADDER=1)")
+    p.add_argument("--megabatch", action="store_true",
+                   help="request megabatching (also via TTS_MEGABATCH=1): "
+                        "requests of one shape class run as one batch a "
+                        "submesh (close at --batch-max members or "
+                        "--batch-age-s; a lone request runs solo)")
+    p.add_argument("--batch-max", type=int, default=None,
+                   help="megabatch: close a batch at this many members "
+                        f"(TTS_BATCH_MAX, default {_cfg.BATCH_MAX_DEFAULT})")
+    p.add_argument("--batch-age-s", type=float, default=None,
+                   help="megabatch: close a batch once its oldest member "
+                        "has waited this long (TTS_BATCH_AGE_S, default "
+                        f"{_cfg.BATCH_AGE_S_DEFAULT:g})")
+    p.add_argument("--remediate", action="store_true",
+                   help="execute the remediation policy table (also via "
+                        "TTS_REMEDIATE=1; default: observe only)")
+    p.add_argument("--ledger", type=str, default=None,
+                   help="the request ledger (ROADMAP A9c: refused)")
+    p.add_argument("--fleet-dir", type=str, default=None,
+                   help="fleet failover (ROADMAP A9c: refused)")
+    p.add_argument("--failover", action="store_true",
+                   help="fleet failover (ROADMAP A9c: refused)")
+    p.add_argument("--drain-timeout", type=float, default=None,
+                   help="SIGTERM/SIGINT drain budget in seconds (also via "
+                        "TTS_DRAIN_TIMEOUT_S, default "
+                        f"{_cfg.DRAIN_TIMEOUT_S_DEFAULT:g}): stop "
+                        "admission, preempt running requests at segment "
+                        "boundaries, exit 0; past it, exit "
+                        f"{DRAIN_ESCALATE_EXIT_CODE}")
+    p.add_argument("--prewarm", type=str, nargs="?", const="",
+                   default=None, metavar="SPEC",
+                   help="boot pre-warm (also via TTS_PREWARM): 'taillard', "
+                        "'spool' and/or JxM entries, comma-separated; bare "
+                        "--prewarm means 'spool,taillard'")
+    _device_arg(p)
+    p.set_defaults(fn=run_serve)
+
+
+def _client_args(sub) -> None:
+    """The `client` command's flags (JAX `cli.py` `_client_parser`)."""
+    p = sub.add_parser(
+        "client", help="submit one request to a running `serve` spool and "
+                       "wait")
+    p.add_argument("--spool", type=str, required=True)
+    _problem_instance_args(p)
+    p.add_argument("-l", "--lb", type=int, default=None,
+                   help="bound kind (default: the problem's default)")
+    p.add_argument("-u", "--ub", type=int, default=1, choices=(0, 1),
+                   help="1: seed the incumbent with the known optimum "
+                        "(Taillard -i instances only)")
+    p.add_argument("--priority", type=int, default=0,
+                   help="higher preempts lower on a full partition")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="compute budget in seconds (accumulated execution "
+                        "time, not queue wait)")
+    p.add_argument("--chunk", type=int, default=None)
+    p.add_argument("--capacity", type=int, default=None)
+    p.add_argument("--tag", type=str, default=None,
+                   help="checkpoint tag; resubmitting a DEADLINE request's "
+                        "tag with a larger budget extends it")
+    p.add_argument("--portfolio", type=int, default=None, metavar="K",
+                   help="portfolio racing (ROADMAP A9c: refused)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="give up waiting for the result after N seconds")
+    p.set_defaults(fn=run_client)
+
+
+# the exit code of a drain past its budget (JAX's): apart from clean
+# drains (0) and errors (1)
+DRAIN_ESCALATE_EXIT_CODE = 70
+
+
+def _install_drain_handlers(drain_evt, timeout_s: float) -> bool:
+    """SIGTERM/SIGINT -> graceful drain (JAX `_install_drain_handlers`):
+    set `drain_evt` (the serve loop exits and the server's close preempts
+    at segment boundaries) and arm a timer that exits with
+    DRAIN_ESCALATE_EXIT_CODE when the drain outlasts `timeout_s`; a second
+    signal exits at once. False off the main thread."""
+    import signal
+    import threading
+
+    def _escalate():
+        from .obs import tracelog
+        tracelog.event("server.drain_escalated", timeout_s=timeout_s)
+        print(f"drain exceeded {timeout_s:g}s: checkpoint-and-abort",
+              flush=True)
+        os._exit(DRAIN_ESCALATE_EXIT_CODE)
+
+    def _handler(signum, frame):
+        if drain_evt.is_set():
+            os._exit(DRAIN_ESCALATE_EXIT_CODE)
+        print(f"signal {signum}: draining (budget {timeout_s:g}s)",
+              flush=True)
+        drain_evt.set()
+        t = threading.Timer(timeout_s, _escalate)
+        t.daemon = True
+        t.start()
+        drain_evt.watchdog = t
+
+    try:
+        signal.signal(signal.SIGTERM, _handler)
+        signal.signal(signal.SIGINT, _handler)
+    except ValueError:      # not the main thread
+        return False
+    return True
+
+
+def _serve_workers(args) -> list:
+    """The server's workers: on the card `-D` visible cards (0: all), on
+    the CPU `-D` CPU workers (0: one a submesh)."""
+    from .engine import device
+    from .parallel import mesh
+
+    dev = device.resolve_device(args.device)
+    if dev.type == "cuda":
+        return mesh.worker_devices(args.D or None)
+    return [dev] * (args.D or args.submeshes)
+
+
+def run_serve(args) -> int:
+    """The JAX `run_serve`: a `SearchServer` over the workers, fed by
+    `spool.serve_spool` until idle or drained."""
+    import threading
+
+    from .engine.distributed import _not_ported
+    from .obs import tracelog
+    from .service import SearchServer, spool
+
+    for flag, item in (("http_port", "A10"), ("otel_endpoint", "A10"),
+                       ("profile_dir", "A10"), ("ledger", "A9c"),
+                       ("fleet_dir", "A9c"), ("aot_cache", "A9c"),
+                       ("failover", "A9c")):
+        value = getattr(args, flag)
+        if value is not None and value is not False:     # --http-port 0
+            raise _not_ported(f"--{flag.replace('_', '-')}", item, "serve")
+    if args.search_telemetry:
+        _cfg.set_env("TTS_SEARCH_TELEMETRY", "1")
+    if args.overlap:
+        _cfg.set_env(_cfg.OVERLAP_FLAG, "1")
+    if args.share_incumbent:
+        _cfg.set_env(_cfg.SHARE_INCUMBENT_FLAG, "1")
+    if args.ladder:
+        _cfg.set_env(_cfg.LADDER_FLAG, "1")
+    if args.remediate:
+        _cfg.set_env(_cfg.REMEDIATE_FLAG, "1")
+    if args.megabatch:
+        _cfg.set_env(_cfg.MEGABATCH_FLAG, "1")
+    if args.trace_file:
+        tracelog.get().set_sink(args.trace_file)
+        print(f"flight recorder: {args.trace_file}", flush=True)
+    devices = _serve_workers(args)
+    drain_evt = threading.Event()
+    drain_timeout = (args.drain_timeout if args.drain_timeout is not None
+                     else _cfg.env_float("TTS_DRAIN_TIMEOUT_S"))
+    _install_drain_handlers(drain_evt, drain_timeout)
+    with SearchServer(n_submeshes=args.submeshes, devices=devices,
+                      workdir=args.workdir,
+                      max_queue_depth=args.queue_depth,
+                      segment_iters=args.segment_iters,
+                      phase_profile=True if args.phase_metrics else None,
+                      resource_sample_s=args.resource_sample_s,
+                      health_interval_s=args.health_interval_s,
+                      overlap=True if args.overlap else None,
+                      share_incumbent=(True if args.share_incumbent
+                                       else None),
+                      tune_cache_dir=args.tune_cache,
+                      tune_at_boot=True if args.tune else None,
+                      remediate=True if args.remediate else None,
+                      megabatch=True if args.megabatch else None,
+                      batch_max=args.batch_max,
+                      batch_age_s=args.batch_age_s) as srv:
+        if srv.megabatch:
+            print(f"megabatch: ON (max {srv.former.max_size}, "
+                  f"age {srv.former.age_s:g}s)", flush=True)
+        print(f"remediation: "
+              f"{'ACT' if srv.remediation.enabled else 'observe'}"
+              f"-mode (TTS_REMEDIATE)", flush=True)
+        if srv.tuner is not None and srv.tuner.cache is not None:
+            print(f"tune cache: {srv.tuner.cache.root} "
+                  f"({srv.tuner.cache.entries()} entr(y/ies), "
+                  f"probe-at-boot={srv.tune_at_boot})", flush=True)
+        env_spec = _cfg.env_str(_cfg.PREWARM_ENV)
+        prewarm_spec = args.prewarm if args.prewarm is not None else env_spec
+        if env_spec is not None and env_spec.strip().lower() in (
+                "0", "off", "no"):
+            # the environment's kill-switch wins over the flag
+            prewarm_spec = None
+        if prewarm_spec is not None and prewarm_spec.strip().lower() \
+                not in ("0", "off", "no"):
+            try:
+                summary = srv.prewarm_boot(prewarm_spec,
+                                           spool_dir=args.spool)
+            except ValueError as e:
+                # a bad spec boots cold, as in JAX
+                print(f"prewarm SKIPPED: {e}", flush=True)
+            else:
+                print(f"prewarm: {summary['warms']} executable(s) for "
+                      f"{summary['shapes']} shape(s) in "
+                      f"{summary['seconds']}s "
+                      f"(disk={summary['by']['disk']} "
+                      f"compile={summary['by']['compile']} "
+                      f"warm={summary['by']['warm']} "
+                      f"skipped={summary['by']['skipped']} "
+                      f"errors={summary['errors']})", flush=True)
+        print(f"serving: {args.submeshes} submesh(es) x "
+              f"{len(srv.slots[0].devices)} device(s) "
+              f"({srv.slots[0].devices[0]}), spool {args.spool}",
+              flush=True)
+        served = spool.serve_spool(
+            srv, args.spool, idle_exit_s=args.idle_exit,
+            status_every_s=args.status_every or None,
+            emit=lambda s: print(s, flush=True),
+            should_exit=drain_evt.is_set)
+    watchdog = getattr(drain_evt, "watchdog", None)
+    if watchdog is not None:
+        watchdog.cancel()
+    if drain_evt.is_set():
+        print("drained cleanly", flush=True)
+    print(f"served {served} request(s)", flush=True)
+    return 0
+
+
+def run_client(args) -> int:
+    """The JAX `run_client`: one request file into the spool, then its
+    result; exit 0 when it is DONE."""
+    from .engine.distributed import _not_ported
+    from .service import spool
+
+    if args.portfolio is not None:
+        raise _not_ported("--portfolio", "A9c", "client")
+    payload = {"problem": args.problem,
+               "priority": args.priority, "deadline_s": args.deadline,
+               "chunk": args.chunk, "capacity": args.capacity,
+               "tag": args.tag}
+    if args.lb is not None:
+        payload["lb"] = args.lb
+    if args.problem == "pfsp" and args.inst is not None:
+        payload["inst"] = args.inst
+        payload["ub"] = "opt" if args.ub == 1 else None
+    else:
+        payload["p_times"] = _solve_instance_table(args).tolist()
+    sid = spool.submit_file(args.spool, payload)
+    print(f"submitted {sid}", flush=True)
+    try:
+        res = spool.wait_result(args.spool, sid, timeout=args.timeout)
+    except TimeoutError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(res, indent=1))
+    return 0 if res.get("state") == "DONE" else 1
+
+
 def _device_arg(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
@@ -666,6 +1007,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="truncate the search (debugging)")
     _device_arg(p)
     p.set_defaults(fn=run_solve)
+
+    _serve_args(sub)
+    _client_args(sub)
 
     p = sub.add_parser("devices",
                        help="describe the visible devices (the reference's "

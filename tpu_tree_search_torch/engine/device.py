@@ -51,6 +51,8 @@ for `cuda` where there is none raises.
 from __future__ import annotations
 
 import functools
+import threading
+import weakref
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -68,8 +70,17 @@ _I64_MAX = 2**63 - 1
 # steps in one captured CUDA graph, and between two reads of the counters
 # of a run on the CPU
 GRAPH_STEPS = 32
-# captured graphs kept (each holds its steps' device memory)
+# captured graphs kept in `_GRAPHS`, and loops that keep their graphs and
+# pools (`keep_resident`): each holds device memory
 _GRAPH_CACHE = 4
+# Captures are serialized process-wide: the kernels' capture counts
+# (`kernels.CAPTURED`, taken before and after a capture), `_GRAPHS` and
+# `_LOOPS` are shared by every thread, and the search server runs one
+# executor thread a submesh. A capture checks only its own thread's calls
+# (`capture_error_mode="thread_local"`), so another thread's replays, eager
+# launches and host reads while it captures do not invalidate it.
+CAPTURE_LOCK = threading.RLock()
+CAPTURE_MODE = "thread_local"
 # the LB2 debug tap (`_lb2_tail`), read once at import as in the JAX
 # package: a graph captured with the tap keeps it
 _DEBUG_STEP = _cfg.env_flag("TTS_DEBUG_STEP")
@@ -715,11 +726,50 @@ class _Graph(NamedTuple):
 
 
 _GRAPHS: OrderedDict = OrderedDict()
+# the loops (`engine/distributed._Loop`: a driver's own, or the executor
+# cache's) that hold captured graphs and pools on the card, least recently
+# used first, by id; guarded by CAPTURE_LOCK
+_LOOPS: OrderedDict = OrderedDict()
 
 
 def clear_graphs() -> None:
-    """Drop every captured graph (and the device memory it holds)."""
-    _GRAPHS.clear()
+    """Drop every captured graph (and the device memory it holds), the
+    loops' with their pools too."""
+    with CAPTURE_LOCK:
+        _GRAPHS.clear()
+        for ref in _LOOPS.values():
+            loop = ref()
+            if loop is not None:
+                loop.drop()
+        _LOOPS.clear()
+
+
+def keep_resident(loop) -> None:
+    """Mark `loop` (a `distributed._Loop` with graphs) the most recently
+    used, and drop the graphs and pools of the least recently used loops
+    past `_GRAPH_CACHE` that no search holds: at most `_GRAPH_CACHE` loops
+    keep device memory, unless more are in use at once. A dropped loop
+    captures again at its next use."""
+    with CAPTURE_LOCK:
+        _LOOPS.pop(id(loop), None)
+        _LOOPS[id(loop)] = weakref.ref(loop)
+        for key, ref in list(_LOOPS.items()):
+            if len(_LOOPS) <= _GRAPH_CACHE:
+                break
+            old = ref()
+            if old is None:
+                del _LOOPS[key]
+            elif old is not loop and not old.held:
+                old.drop()
+                del _LOOPS[key]
+
+
+def resident() -> list:
+    """The loops that keep graphs and pools on the card, least recently
+    used first."""
+    with CAPTURE_LOCK:
+        return [loop for loop in (ref() for ref in _LOOPS.values())
+                if loop is not None]
 
 
 def _graph_key(tables, state, lb_kind, chunk, tile, mode, steps,
@@ -742,6 +792,11 @@ def _capture(step_fn, state, steps) -> _Graph:
     capture raises. One no-op step runs first on a side stream, so that
     every kernel's first launch (its attributes) and the allocator's
     first blocks happen outside the capture."""
+    with CAPTURE_LOCK:
+        return _capture_locked(step_fn, state, steps)
+
+
+def _capture_locked(step_fn, state, steps) -> _Graph:
     dev = state.prmu.device
     static = state._replace(
         **{f: getattr(state, f).clone() for f in COUNTER_DTYPES},
@@ -756,7 +811,7 @@ def _capture(step_fn, state, steps) -> _Graph:
     torch.cuda.current_stream(dev).wait_stream(side)
     kernels.take_captured()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
         s = static
         for _ in range(steps):
             s = step_fn(s, active=_loop_cond(s, drain_min, max_iters))
@@ -778,12 +833,13 @@ def _status(state: SearchState) -> list:
 
 def _run_graph(step_fn, key, state, ceiling, drain, steps,
                going) -> SearchState:
-    g = _GRAPHS.pop(key, None)
-    if g is None:
-        g = _capture(step_fn, state, steps)
-    _GRAPHS[key] = g
-    while len(_GRAPHS) > _GRAPH_CACHE:
-        _GRAPHS.popitem(last=False)
+    with CAPTURE_LOCK:
+        g = _GRAPHS.pop(key, None)
+        if g is None:
+            g = _capture(step_fn, state, steps)
+        _GRAPHS[key] = g
+        while len(_GRAPHS) > _GRAPH_CACHE:
+            _GRAPHS.popitem(last=False)
     for f, t in g.counters.items():
         t.copy_(getattr(state, f))
     g.telemetry.copy_(state.telemetry)

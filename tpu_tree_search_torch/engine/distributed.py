@@ -29,9 +29,9 @@ A macro-iteration is `balance_period` local steps on every worker, the
 incumbent minimum and one balance round, gated as a whole by the loop
 condition evaluated on the device at its start (a macro-iteration whose
 condition fails is a no-op). When every worker is on one CUDA device,
-`_DistDriver.run` captures one macro-iteration as one CUDA graph (cached
-by the whole worker set's storage in `device._GRAPHS`) and replays it,
-reading the status once a replay; otherwise it runs the same
+`_DistDriver.run` captures one macro-iteration as one CUDA graph (kept
+with the pools it was captured over in the capacity's `_Loop`) and
+replays it, reading the status once a replay; otherwise it runs the same
 macro-iterations eagerly. Either way the pools and counters after each
 macro-iteration are the JAX loop's, worker by worker.
 
@@ -79,13 +79,18 @@ under one usable-row limit; `search` resolves `chunk=None` /
 runs (`ladder`, or the TTS_LADDER flag) and joins an
 `engine/incumbent.IncumbentBoard`.
 
-Left out, raising `NotImplementedError` naming its ROADMAP item: the
-executor cache (`loop_cache`, A9).
+`search(loop_cache=...)` and `prewarm` take the search server's executor
+cache (`service/executors.ExecutorCache`): one `_Loop` a key, JAX's key,
+whose tables and pools each request of the key fills in place, so the
+graph of its first capture replays for every later one ("serve many,
+capture once").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 import warnings
 from collections import deque
 from typing import NamedTuple
@@ -532,6 +537,141 @@ class _DistGraph(NamedTuple):
     launches: dict
 
 
+def _copy_tables(dst, src) -> None:
+    """Copy one device's plugin tables (a tensor or a NamedTuple of them)
+    into another set of the same shapes, in place. A field that is no
+    tensor must be equal; a shape, dtype or device that differs raises (a
+    copy would broadcast, or cross devices: two searches whose
+    `worker_ids` match must run on the same devices)."""
+    if dst is src:
+        return
+    pairs = ([(dst, src)] if isinstance(dst, torch.Tensor)
+             else list(zip(dst, src)))
+    for a, b in pairs:
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                raise ValueError(f"cached loop: table field {a!r} != {b!r}")
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype \
+                or a.device != b.device:
+            raise ValueError(f"cached loop: table {tuple(b.shape)} "
+                             f"{b.dtype} on {b.device} into "
+                             f"{tuple(a.shape)} {a.dtype} on {a.device}")
+        a.copy_(b)
+
+
+class _Loop:
+    """A macro-iteration over its tables (`body`, built by
+    `make_body(tables)`; a batch's holds every member's) and, on a card,
+    the graphs captured over its pools (by telemetry width). A driver
+    keeps one a capacity over its own tables. The executor cache
+    (`loop_cache`) keeps one a key over a copy of the first request's
+    tables, the counterpart of JAX's compiled loop: a later driver of the
+    key copies its tables in when it takes the loop (`take`) and its pools
+    before a replay (`graph`), so every request of the key replays the one
+    capture. One driver holds a cached loop at a time: a search that takes
+    a loop another search holds raises.
+
+    The pools are the first states the loop ran on. Graphs and pools go
+    together (`drop`): at most `device._GRAPH_CACHE` loops that no search
+    holds keep them on the card (`device.keep_resident`), and a dropped
+    loop captures again at its next use."""
+
+    def __init__(self, tables, make_body):
+        self.tables = tables
+        self.body = make_body(tables)
+        self.graphs: dict = {}       # guarded-by: device.CAPTURE_LOCK
+        self.pools = None            # guarded-by: device.CAPTURE_LOCK
+        self._owner = None           # guarded-by: self._lock
+        self._lock = threading.Lock()
+
+    @property
+    def held(self) -> bool:
+        return self._owner is not None
+
+    def take(self, driver, tables) -> None:
+        with self._lock:
+            if self._owner is not None and self._owner is not driver:
+                raise RuntimeError(
+                    "executor cache: this loop is held by another search "
+                    "on the same workers")
+            self._owner = driver
+        _load_tables(self.tables, tables)
+
+    def release(self, driver) -> None:
+        with self._lock:
+            if self._owner is driver:
+                self._owner = None
+
+    def drop(self) -> None:
+        """Let go of the graphs and the pools they were captured over."""
+        with device.CAPTURE_LOCK:
+            self.graphs, self.pools = {}, None
+
+    def graph(self, states: list, capture, book=None):
+        """(`states` with their pools in this loop's, copied there when
+        they lie elsewhere, the graph for their telemetry width):
+        `capture(states)` at its first use, reported to `book` (an
+        executor-cache entry's) with its seconds and its first-use nvcc
+        seconds."""
+        with device.CAPTURE_LOCK:
+            if self.pools is None:
+                self.pools = states
+            else:
+                states = _home(self.pools, states)
+            first = states[0][0] if isinstance(states[0], list) else states[0]
+            width = first.telemetry.shape[-1]
+            g = self.graphs.get(width)
+            captured = None
+            if g is None:
+                t0, nvcc0 = time.perf_counter(), kernels.build_seconds()
+                g = self.graphs[width] = capture(states)
+                nvcc = kernels.build_seconds() - nvcc0
+                captured = (time.perf_counter() - t0 - nvcc, nvcc)
+            device.keep_resident(self)
+        if captured is not None and book is not None:
+            book(captured[0], "capture", nvcc_s=captured[1])
+        return states, g
+
+
+def _clone_tables(tables):
+    """A copy of a driver's tables ({device: tables}, a batch's list of
+    them, or one plugin table set) with every tensor cloned."""
+    if isinstance(tables, torch.Tensor):
+        return tables.clone()
+    if isinstance(tables, dict):
+        return {k: _clone_tables(v) for k, v in tables.items()}
+    if isinstance(tables, list):
+        return [_clone_tables(t) for t in tables]
+    if isinstance(tables, tuple):       # a NamedTuple of tensors
+        return type(tables)(*(_clone_tables(t) for t in tables))
+    return tables
+
+
+def _load_tables(dst, src) -> None:
+    """A driver's tables ({device: tables}, or a batch's list of them) into
+    a cached loop's, in place."""
+    if isinstance(dst, list):
+        for a, b in zip(dst, src):
+            _load_tables(a, b)
+        return
+    for dev in dst:
+        _copy_tables(dst[dev], src[dev])
+
+
+def _home(pools: list, states: list) -> list:
+    if isinstance(states[0], list):
+        return [_home(p, sb) for p, sb in zip(pools, states)]
+    out = []
+    for p, s in zip(pools, states):
+        if s.prmu.data_ptr() != p.prmu.data_ptr():
+            p.prmu.copy_(s.prmu)
+            p.depth.copy_(s.depth)
+            p.aux.copy_(s.aux)
+        out.append(s._replace(prmu=p.prmu, depth=p.depth, aux=p.aux))
+    return out
+
+
 class _DistDriver:
     """Runs the macro-iteration loop over a fixed worker list, with
     lossless overflow recovery: on overflow every pool is re-homed into
@@ -545,6 +685,18 @@ class _DistDriver:
     macro-iteration), `macro_iters` the macro-iterations it and `run_async`
     issued and `captures` the CUDA graphs it captured, by pool capacity.
 
+    The macro-iteration at each capacity is a `_Loop`: the driver's own
+    (`loop`), or with a `loop_cache` (`service/executors.ExecutorCache`,
+    or any object with `get_or_build(key, build)` returning an entry with
+    `fn` and `book`) a cached one, looked up once per driver and capacity
+    under `cache_key` (JAX's loop key: problem, jobs, the table's leading
+    dimension, lb, chunk, aux dtype, the fused suffix, the workers'
+    identities) plus the capacity and the balance knobs (`"donate"` last
+    for `run_async`'s, as JAX keys its donating loop). The driver's tables
+    go into a cached loop in place when it is taken, its pools before a
+    replay, so a second request of the key replays the graph the first
+    captured; `release` gives the cached loops back.
+
     In a multi-process job the driver's `devices` are this rank's workers
     of `n_global` in all (`comm`, a `_Comm`): the receive block, the
     warm-up stripes and a committed stacked state are the whole job's, and
@@ -553,7 +705,8 @@ class _DistDriver:
 
     def __init__(self, devices, make_tables, make_local_step,
                  balance_period: int, transfer_cap: int, min_transfer: int,
-                 limit_fn, name: str = "pfsp", key: tuple = ()):
+                 limit_fn, name: str = "pfsp", key: tuple = (),
+                 loop_cache=None, cache_key: tuple = ()):
         self.devices = list(devices)
         self.n_dev = len(self.devices)
         self.tables = {}
@@ -571,7 +724,10 @@ class _DistDriver:
         self.n_global = self.comm.n_global if self.comm else self.n_dev
         self.first = self.comm.first if self.comm else 0
         self.n_recv = self.n_global * transfer_cap
-        self._bodies: dict[int, object] = {}
+        self._loops: dict[int, _Loop] = {}       # the driver's own
+        self.loop_cache = loop_cache
+        self.cache_key = tuple(cache_key)
+        self._entries: dict[tuple, object] = {}   # (capacity, donate)
         self.host_reads = 0
         self.macro_iters = 0
         self.captures: dict[int, int] = {}
@@ -580,16 +736,55 @@ class _DistDriver:
     def limit(self, capacity: int) -> int:
         return min(self.limit_fn(capacity), capacity - self.n_recv)
 
-    def body(self, capacity: int):
+    def _make_body(self, tables, capacity: int):
+        lim = self.limit(capacity)
+        steps = [self.make_local_step(tables[dev], lim)
+                 for dev in self.devices]
+        return member_body(steps, self.balance_period, self.transfer_cap,
+                           self.min_transfer, lim, self.comm)
+
+    def body(self, capacity: int, donate: bool = False):
         """The macro-iteration for pools of `capacity` rows."""
-        if capacity not in self._bodies:
-            lim = self.limit(capacity)
-            steps = [self.make_local_step(self.tables[dev], lim)
-                     for dev in self.devices]
-            self._bodies[capacity] = member_body(
-                steps, self.balance_period, self.transfer_cap,
-                self.min_transfer, lim, self.comm)
-        return self._bodies[capacity]
+        return self.loop(capacity, donate).body
+
+    def loop(self, capacity: int, donate: bool = False) -> _Loop:
+        """The loop for pools of `capacity` rows: the executor cache's, or
+        the driver's own over its tables (a new capacity lets the smaller
+        ones go: a driver's pools only grow)."""
+        if self.loop_cache is not None:
+            return self.entry(capacity, donate).fn
+        loop = self._loops.get(capacity)
+        if loop is None:
+            self._loops = {c: x for c, x in self._loops.items()
+                           if c > capacity}
+            loop = self._loops[capacity] = _Loop(
+                self.tables, lambda t: self._make_body(t, capacity))
+        return loop
+
+    def entry(self, capacity: int, donate: bool = False):
+        """The executor-cache entry of the loop at `capacity` (JAX
+        `_DistDriver._loop`): consulted once per driver and capacity, so
+        the cache's hits and misses count the requests that reused a loop
+        and the loops built. Taking it loads this driver's tables."""
+        k = (capacity, donate)
+        entry = self._entries.get(k)
+        if entry is None:
+            key = self.cache_key + (capacity, self.balance_period,
+                                    self.transfer_cap, self.min_transfer,
+                                    self.limit(capacity))
+            if donate:
+                key += ("donate",)
+            entry = self.loop_cache.get_or_build(
+                key, lambda: _Loop(_clone_tables(self.tables),
+                                   lambda t: self._make_body(t, capacity)))
+            entry.fn.take(self, self.tables)
+            self._entries[k] = entry
+        return entry
+
+    def release(self) -> None:
+        """Give back every cached loop this driver took."""
+        for entry in self._entries.values():
+            entry.fn.release(self)
 
     def commit(self, state: SearchState) -> list[SearchState]:
         """A stacked (D, ...) state (any device) as the worker list (this
@@ -616,70 +811,66 @@ class _DistDriver:
         return (self.comm is None and len(devs) == 1
                 and next(iter(devs)).type == "cuda")
 
-    def _graph_key(self, states, capacity: int) -> tuple:
-        tensors = []
-        for dev in self.devices:
-            t = self.tables[dev]
-            tensors += ([t] if isinstance(t, torch.Tensor)
-                        else [x for x in t if isinstance(x, torch.Tensor)])
-        for s in states:
-            tensors += [s.prmu, s.depth, s.aux]
-        storage = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                        for t in tensors)
-        return ("dist", self.name, self.key, self.balance_period,
-                self.transfer_cap, self.min_transfer, capacity,
-                self.limit(capacity), states[0].telemetry.shape[-1],
-                storage)
-
-    def _capture(self, states, capacity: int) -> _DistGraph:
+    def _capture(self, states, capacity: int, body=None) -> _DistGraph:
         """Capture one macro-iteration on `states`' pools (updated in
         place, at the addresses the graph holds). One no-op macro-iteration
         runs first on a side stream, so that every kernel's first launch
         and the allocator's first blocks happen outside the capture."""
-        body = self.body(capacity)
+        body = body or self.body(capacity)
         self.captures[capacity] = self.captures.get(capacity, 0) + 1
         dev = states[0].prmu.device
-        static = [s._replace(
-            **{f: getattr(s, f).clone() for f in COUNTER_DTYPES},
-            telemetry=s.telemetry.clone()) for s in states]
-        max_iters = torch.zeros((), dtype=torch.int64, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body(static, torch.zeros((), dtype=torch.bool, device=dev))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        kernels.take_captured()
-        status = torch.zeros(3, dtype=torch.int64, device=dev)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = body(static, _loop_cond(static, max_iters))
-            for s, o in zip(static, out):
-                for f in COUNTER_DTYPES:
-                    getattr(s, f).copy_(getattr(o, f))
-                s.telemetry.copy_(o.telemetry)
-            status.copy_(_status(out))
+        with device.CAPTURE_LOCK:
+            static = [s._replace(
+                **{f: getattr(s, f).clone() for f in COUNTER_DTYPES},
+                telemetry=s.telemetry.clone()) for s in states]
+            max_iters = torch.zeros((), dtype=torch.int64, device=dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                body(static, torch.zeros((), dtype=torch.bool, device=dev))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            kernels.take_captured()
+            status = torch.zeros(3, dtype=torch.int64, device=dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph,
+                                  capture_error_mode=device.CAPTURE_MODE):
+                out = body(static, _loop_cond(static, max_iters))
+                for s, o in zip(static, out):
+                    for f in COUNTER_DTYPES:
+                        getattr(s, f).copy_(getattr(o, f))
+                    s.telemetry.copy_(o.telemetry)
+                status.copy_(_status(out))
+            launches = kernels.take_captured()
         return _DistGraph(
             graph, [{f: getattr(s, f) for f in COUNTER_DTYPES}
                     for s in static],
-            [s.telemetry for s in static], max_iters, status,
-            kernels.take_captured())
+            [s.telemetry for s in static], max_iters, status, launches)
 
-    def _graph(self, states, capacity: int, ceiling: int) -> _DistGraph:
-        """The cached (or newly captured) macro-iteration graph of
-        `states`' pools, loaded with their counters and `ceiling`."""
-        key = self._graph_key(states, capacity)
-        g = device._GRAPHS.pop(key, None)
-        if g is None:
-            g = self._capture(states, capacity)
-        device._GRAPHS[key] = g
-        while len(device._GRAPHS) > device._GRAPH_CACHE:
-            device._GRAPHS.popitem(last=False)
+    def _graph(self, states, capacity: int, ceiling: int,
+               donate: bool = False):
+        """(states with their pools in the loop's, the loop's graph,
+        captured at its first use, loaded with their counters and
+        `ceiling`)."""
+        if self.loop_cache is not None:
+            entry = self.entry(capacity, donate)
+            loop, book = entry.fn, entry.book
+        else:
+            loop, book = self.loop(capacity), None
+        states, g = loop.graph(states, lambda st: self._capture(
+            st, capacity, loop.body), book)
         for s, ctr, tv in zip(states, g.counters, g.telemetry):
             for f, t in ctr.items():
                 t.copy_(getattr(s, f))
             tv.copy_(s.telemetry)
         g.max_iters.fill_(ceiling)
-        return g
+        return states, g
+
+    def _eager_body(self, capacity: int, donate: bool = False):
+        """The macro-iteration run eagerly; a cached loop's first eager use
+        is booked on its entry (nothing is captured)."""
+        if self.loop_cache is not None:
+            self.entry(capacity, donate).book(0.0, "eager")
+        return self.body(capacity, donate)
 
     @staticmethod
     def _graph_out(states, g: _DistGraph) -> list[SearchState]:
@@ -690,7 +881,7 @@ class _DistDriver:
                 for s, ctr, tv in zip(states, g.counters, g.telemetry)]
 
     def _run_graph(self, states, ceiling: int, capacity: int, going):
-        g = self._graph(states, capacity, ceiling)
+        states, g = self._graph(states, capacity, ceiling)
         while True:
             kernels.replay(g.graph, g.launches)
             self.macro_iters += 1
@@ -711,7 +902,7 @@ class _DistDriver:
 
         if self._graph_ok(states):
             return self._run_graph(states, ceiling, capacity, going)
-        body = self.body(capacity)
+        body = self._eager_body(capacity)
         if self.comm is not None:
             # the host gates each macro-iteration on the job's status
             status = self.comm.status(states)
@@ -769,7 +960,8 @@ class _DistDriver:
                                "multi-process job runs synchronously")
         capacity = states[0].prmu.shape[-1]
         if self._graph_ok(states):
-            g = self._graph(states, capacity, int(max_iters))
+            states, g = self._graph(states, capacity, int(max_iters),
+                                    donate=True)
             for _ in range(macro_iters):
                 kernels.replay(g.graph, g.launches)
                 self.macro_iters += 1
@@ -777,7 +969,7 @@ class _DistDriver:
             if self._ring is None:
                 self._ring = checkpoint.PinnedRing()
         else:
-            body = self.body(capacity)
+            body = self._eager_body(capacity, donate=True)
             lim = torch.full((), int(max_iters), dtype=torch.int64,
                              device=states[0].prmu.device)
             out, cpu = list(states), states[0].prmu.device.type == "cpu"
@@ -789,6 +981,32 @@ class _DistDriver:
                 out = body(out, cond)
         return checkpoint.DispatchedStates(
             out, checkpoint.CounterBlock(out, self._ring))
+
+    def warm(self, capacity: int, jobs: int, aux_rows: int, aux_dtype,
+             donate: bool = False, via: str = "prewarm") -> str:
+        """Ready the cached loop at `capacity` without a search (JAX
+        `warm`): on a card its graph is captured over empty pools, which a
+        request of the key later fills; on the CPU the loop is built.
+        Returns the entry's verdict: "compile" (readied now), "warm"
+        (already ready) or "skipped" (no executor cache). `via` labels the
+        ledger record ("prewarm", "ladder"): a planned capture, which the
+        compile_storm signal leaves out."""
+        if self.loop_cache is None:
+            return "skipped"
+        entry = self.entry(capacity, donate)
+
+        def ready():
+            empty = Frontier(prmu=np.zeros((0, jobs), np.int16),
+                             depth=np.zeros(0, np.int16), tree=0, sol=0,
+                             best=0, aux=np.zeros((0, aux_rows),
+                                                  convert.np_dtype(aux_dtype)))
+            states = self.seed(empty, capacity, jobs, 0)
+            if self._graph_ok(states):
+                self._graph(states, capacity, 0, donate)
+            else:
+                entry.book(0.0, "eager")
+
+        return entry.warm(ready, via=via)
 
 
 def _resolve_problem(problem):
@@ -802,15 +1020,26 @@ def _resolve_problem(problem):
 def _problem_driver(problem, devices, table, lb_kind: int, chunk: int,
                     balance_period: int, transfer_cap: int,
                     min_transfer: int, fused: str = "off",
-                    limit_fn=None) -> _DistDriver:
+                    limit_fn=None, adt=None, loop_cache=None,
+                    worker_ids=None) -> _DistDriver:
     """The driver of any registered problem: the plugin's tables on each
     worker device, its step (`make_step`, fused mode `fused` where the
     plugin uses one) and its usable-row bound (`limit_fn`, None: this
-    chunk's own; the ladder passes the limit shared by its rungs)."""
+    chunk's own; the ladder passes the limit shared by its rungs).
+
+    Its executor-cache key is JAX's loop key (`_problem_driver`): the
+    problem's name, jobs, the table's leading dimension, lb, chunk, the
+    pool's aux dtype (`adt`, None: the problem's for `table`; a resume
+    keeps the saved pools'), ("fused", mode) when the fused route is on,
+    then the workers' identities (`worker_ids`, None: their devices)."""
     table = np.asarray(table)
     jobs = problem.slots(table)
     if not problem.supports_fused:
         fused = "off"
+    if adt is None:
+        adt = problem.aux_dtype(table)
+    if worker_ids is None:
+        worker_ids = [str(d) for d in devices]
 
     def make_local_step(t, limit):
         return problem.make_step(t, lb_kind, chunk, 1024, limit, fused=fused)
@@ -821,13 +1050,18 @@ def _problem_driver(problem, devices, table, lb_kind: int, chunk: int,
         limit_fn=limit_fn or (lambda cap: problem.usable_rows(cap, chunk,
                                                               jobs)),
         name=problem.name,
-        key=(jobs, int(table.shape[0]), lb_kind, chunk, fused))
+        key=(jobs, int(table.shape[0]), lb_kind, chunk, fused),
+        loop_cache=loop_cache,
+        cache_key=(problem.name, jobs, int(table.shape[0]), lb_kind, chunk,
+                   convert.np_dtype(adt))
+        + (("fused", fused) if fused != "off" else ()) + tuple(worker_ids))
 
 
 def _ladder_plan(problem, devices, table, lb_kind: int, chunk: int,
                  balance_period: int, transfer_cap: int | None,
                  min_transfer: int | None, adt, rung_profile=None,
-                 fused_mode: str = "off") -> tuple[tuple, dict]:
+                 fused_mode: str = "off", loop_cache=None,
+                 worker_ids=None) -> tuple[tuple, dict]:
     """One `_DistDriver` per chunk-ladder rung (JAX `_ladder_plan`), all
     under one usable-row limit: the minimum over the rungs of each rung's
     scratch margin and balance headroom. A state committed by any rung is
@@ -839,7 +1073,8 @@ def _ladder_plan(problem, devices, table, lb_kind: int, chunk: int,
     2*chunk). `rung_profile` (`Params.rung_modes`) admits rungs by their
     measured time (`ladder.rungs_from_profile`) in place of the static
     per-bound floor, and picks each rung's fused mode (`ladder.fused_for`)
-    under `fused_mode`."""
+    under `fused_mode`. Each rung is its own executor-cache key
+    (`loop_cache`, `worker_ids`: `_problem_driver`'s)."""
     from .ladder import (fused_for, min_rung_for, rungs_for,
                          rungs_from_profile)
 
@@ -864,7 +1099,8 @@ def _ladder_plan(problem, devices, table, lb_kind: int, chunk: int,
         c: _problem_driver(problem, devices, table, lb_kind, c,
                            balance_period, tc, mt,
                            fused=fused_for(c, rung_profile, fused_mode),
-                           limit_fn=unified_limit)
+                           limit_fn=unified_limit, adt=adt,
+                           loop_cache=loop_cache, worker_ids=worker_ids)
         for c, tc, mt in cfgs}
     return tuple(sorted(drivers)), drivers
 
@@ -881,6 +1117,83 @@ def _fold_cap(states: list[SearchState], cap) -> list[SearchState]:
 def _not_ported(what: str, item: str, where: str = "distributed.search"):
     return NotImplementedError(
         f"{where}: {what} is not ported yet (ROADMAP {item})")
+
+
+def prewarm(p_times: np.ndarray, lb_kind: int = 1, chunk: int = 64,
+            capacity: int | None = None, balance_period: int = 4,
+            min_seed: int = 32, n_devices: int | None = None,
+            devices: list | None = None, transfer_cap: int | None = None,
+            min_transfer: int | None = None, loop_cache=None,
+            donate: bool = False, ladder: bool | None = None,
+            problem="pfsp", rung_profile=None,
+            worker_ids=None) -> str:
+    """Ready the executor-cache loop of this shape without a search (the
+    JAX `prewarm`, the server's boot pre-warm): the driver of
+    `_problem_driver` (or every rung of `_ladder_plan` when the ladder is
+    on, each rung's warm labelled "ladder"), key for key what a request at
+    these knobs builds, its loop taken from `loop_cache` and readied at the
+    capacity a fresh request would seed (`seed`'s pre-grow rule with the
+    warm-up target as the stripe). Only the table's shape and aux dtype
+    matter: a synthetic table of the class readies the loop every instance
+    of it reuses.
+
+    Returns the verdict of the top rung: "compile" (a fresh capture on a
+    card, the loop built on the CPU), "warm" (ready already) or "skipped"
+    (no executor cache, or a multi-process job, as in JAX); "disk" never
+    occurs (the disk tier is ROADMAP A9c)."""
+    from ..utils import config as _cfg
+
+    if mesh.process_count() > 1:
+        return "skipped"
+    devs = worker_devices(n_devices, devices)
+    prob = _resolve_problem(problem)
+    table = np.asarray(p_times)
+    jobs, aux_rows = prob.slots(table), prob.aux_rows(table)
+    if capacity is None:
+        capacity = prob.default_capacity(table)
+    adt = prob.aux_dtype(table)
+    if ladder is None:
+        ladder = _cfg.env_flag(_cfg.LADDER_FLAG)
+    # the fused mode joins the key, so it resolves as a request's would
+    mode = fz.resolve_mode(None, on_cuda=devs[0].type == "cuda")
+    drivers = None
+    if ladder:
+        rungs, drivers = _ladder_plan(
+            prob, devs, table, lb_kind, chunk, balance_period, transfer_cap,
+            min_transfer, adt, rung_profile=rung_profile, fused_mode=mode,
+            loop_cache=loop_cache, worker_ids=worker_ids)
+        if len(rungs) < 2:
+            drivers = None
+    if drivers is not None:
+        driver = drivers[max(drivers)]
+    else:
+        from .ladder import fused_for
+        if transfer_cap is None:
+            transfer_cap = default_transfer_cap(
+                chunk, jobs, aux_rows, len(devs), aux_itemsize=adt.itemsize)
+        driver = _problem_driver(
+            prob, devs, table, lb_kind, chunk, balance_period, transfer_cap,
+            min_transfer or 2 * chunk,
+            fused=fused_for(chunk, rung_profile, mode), adt=adt,
+            loop_cache=loop_cache, worker_ids=worker_ids)
+        drivers = {chunk: driver}
+    while driver.limit(capacity) < max(min_seed, 1):
+        capacity *= 2
+    try:
+        with tracelog.span("executor.prewarm", problem=prob.name, jobs=jobs,
+                           machines=aux_rows, lb_kind=lb_kind, chunk=chunk,
+                           capacity=capacity, donate=donate,
+                           ladder=len(drivers) > 1) as sp:
+            how = driver.warm(capacity, jobs, aux_rows, adt, donate=donate)
+            for d in drivers.values():
+                if d is not driver:
+                    d.warm(capacity, jobs, aux_rows, adt, donate=donate,
+                           via="ladder")
+            sp.set(how=how)
+    finally:
+        for d in drivers.values():
+            d.release()
+    return how
 
 
 def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
@@ -900,7 +1213,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
            ladder: bool | None = None, tuner=None,
            problem="pfsp", telemetry: bool | None = None,
            retry_attempts: int | None = None,
-           segment_timeout_s: float | None = None) -> DistResult:
+           segment_timeout_s: float | None = None,
+           worker_ids=None) -> DistResult:
     """Multi-worker branch-and-bound (the JAX `search`).
 
     The workers are `parallel.mesh.worker_devices(n_devices, devices)`: the
@@ -950,6 +1264,14 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     `best` on the device. A lone search is bit-identical to one with no
     board.
 
+    `loop_cache` (`service/executors.ExecutorCache`) serves many requests
+    from one capture: the driver's loop at each capacity (and each ladder
+    rung's) comes from the cache under JAX's key (`_problem_driver`;
+    `worker_ids` name the workers in it, None: their devices), this
+    request's tables and pools are copied into it, and the graph it holds
+    replays (see `_DistDriver`). The loops are given back when the search
+    returns.
+
     `problem` is a registry name or a plugin; `p_times` its instance table.
     The PFSP step takes the fused route on CUDA workers and the unfused one
     on the CPU (`ops/fused.resolve_mode`). `telemetry` (None: the
@@ -994,8 +1316,6 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
     if host_fraction > 0 and not prob.supports_host_tier:
         from ..problems.base import HostTierUnsupported
         raise HostTierUnsupported(prob.name)
-    if loop_cache is not None:
-        raise _not_ported("the executor cache (loop_cache)", "A9")
     n_procs = mesh.process_count()
     if n_procs > 1 and host_fraction > 0:
         raise ValueError("the -C host tier does not run in a multi-process "
@@ -1064,7 +1384,8 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
         # each rung's own)
         rungs, ladder_drivers = _ladder_plan(
             prob, devs, table, lb_kind, chunk, balance_period, transfer_cap,
-            min_transfer, adt, rung_profile=rung_profile, fused_mode=mode)
+            min_transfer, adt, rung_profile=rung_profile, fused_mode=mode,
+            loop_cache=loop_cache, worker_ids=worker_ids)
         if len(rungs) < 2:
             ladder_drivers = None
     if transfer_cap is None:
@@ -1080,186 +1401,193 @@ def search(p_times: np.ndarray, lb_kind: int = 1, init_ub: int | None = None,
         from .ladder import fused_for
         driver = _problem_driver(prob, devs, table, lb_kind, chunk,
                                  balance_period, transfer_cap, min_transfer,
-                                 fused=fused_for(chunk, rung_profile, mode))
+                                 fused=fused_for(chunk, rung_profile, mode),
+                                 adt=adt, loop_cache=loop_cache,
+                                 worker_ids=worker_ids)
 
-    session = None
-    meta_rung = None            # the checkpoint's recorded rung
-    if resumed is not None:
-        host_state, meta = resumed
-        if "ladder_rung" in meta:
-            meta_rung = int(np.asarray(meta["ladder_rung"]))
-        shape = tuple(host_state.prmu.shape)
-        if len(shape) != 3 or shape[0] != n_dev:
-            old = shape[0] if len(shape) == 3 else 1
-            warnings.warn(
-                f"resharding checkpoint {checkpoint_path} from {old} to "
-                f"{n_dev} workers (elastic resume)", RuntimeWarning,
-                stacklevel=2)
-            # the elastic reshard must keep every summed counter, the
-            # pooled node count and the incumbent
-            pre_sums = (obs_audit.state_sums(host_state)
-                        if obs_audit.enabled() else None)
-            host_state = checkpoint.reshard_state(host_state, n_dev,
-                                                  device="cpu")
-            if pre_sums is not None:
-                obs_audit.check_reshard(pre_sums, host_state,
-                                        edge="elastic_resume")
-        # re-home into a capacity whose usable-row limit covers the
-        # fullest pool
-        cap0 = cap = host_state.prmu.shape[-1]
-        need = int(host_state.size.max())
-        while driver.limit(cap) < max(need, 1):
-            cap *= 2
-        if cap != cap0:
-            host_state = checkpoint.grow(host_state, cap)
-        host_state, session, h_prmu, h_depth = hybrid.resume_share(
-            host_state, meta, prob, table, lb_kind, host_fraction,
-            host_threads)
-        fr = Frontier(prmu=np.zeros((0, jobs), np.int16),
-                      depth=np.zeros(0, np.int16),
-                      tree=int(meta.get("warmup_tree", 0)),
-                      sol=int(meta.get("warmup_sol", 0)),
-                      best=int(host_state.best.min()))
-        states = driver.commit(host_state)
-        del host_state
-    else:
-        with tracelog.span("bfs_warmup", problem=prob.name,
-                           target=min_seed * n_dev) as ws:
-            fr = prob.warmup(table, lb_kind, init_ub,
-                             target=min_seed * n_dev)
-            ws.set(frontier=len(fr.depth), tree=fr.tree)
-        init_best = (fr.best if init_ub is None
-                     else min(fr.best, int(init_ub)))
-        dmask, h_prmu, h_depth = hybrid.split_host_share(
-            fr.prmu, fr.depth, host_fraction)
-        if len(h_depth):
-            session = hybrid.make_session(prob, table, h_prmu, h_depth,
-                                          lb_kind, init_best,
-                                          n_threads=host_threads)
-            fr.prmu, fr.depth = fr.prmu[dmask], fr.depth[dmask]
-        fr.aux = prob.seed_aux(table, fr.prmu, fr.depth)
-        states = driver.seed(fr, capacity, jobs, init_best)
-        if telemetry is not None:
-            width = tele.WIDTH if telemetry else 0
-            states = [s._replace(telemetry=torch.zeros(
-                width, dtype=torch.int64, device=s.prmu.device))
-                for s in states]
-
-    if overlap is None:
-        overlap = _cfg.env_flag(_cfg.OVERLAP_FLAG)
-    # the host tier's per-segment merge needs the synchronous boundary, and
-    # a multi-process job stays synchronous (run_segmented's own rule)
-    use_overlap = bool(overlap) and session is None and n_procs == 1
-
-    ladder_ctl = client = None
-    if ladder_drivers is not None or incumbent_board is not None:
-        c0 = worker_counters(states)
-    if ladder_drivers is not None:
-        from .ladder import RungController
-        ladder_ctl = RungController(ladder_drivers, n_dev)
-        ladder_ctl.start(int(c0["size"].sum()), meta_rung=meta_rung)
-    if incumbent_board is not None:
-        client = inc_mod.BoardClient(
-            incumbent_board,
-            incumbent_key or inc_mod.share_key(table, problem=prob.name))
-        # the starting best (a resumed checkpoint's, or the warm-up's /
-        # init_ub), so peers tighten before this search's first segment
-        client.publish(int(c0["best"].min()))
-
-    def cap():
-        return client.cap() if client is not None else None
-
-    max_iters = (None if max_rounds is None
-                 else max_rounds * balance_period)
-    stop_fn = None
-    if stop_event is not None or should_stop is not None:
-        def stop_fn(rep):
-            return ((stop_event is not None and stop_event.is_set())
-                    or (should_stop is not None and should_stop(rep)))
-    if (segment_iters is None and checkpoint_path is None
-            and session is None and stop_fn is None):
-        with tracelog.span("engine.run", workers=n_dev):
-            out = driver.run(_fold_cap(states, cap()), max_iters)
-    else:
-        ckpt_meta = {"warmup_tree": fr.tree, "warmup_sol": fr.sol,
-                     # the snapshot's problem stamp: a resume refuses a
-                     # cross-problem re-home (checked above)
-                     "problem": prob.name,
-                     # the host tier's seed rides every checkpoint, so a
-                     # killed -C run resumes without losing its share (the
-                     # killed session's work was committed nowhere)
-                     "host_prmu": h_prmu if session else
-                     np.zeros((0, jobs), np.int16),
-                     "host_depth": h_depth if session else
-                     np.zeros(0, np.int16)}
-        if checkpoint_meta_extra is not None or ladder_ctl is not None:
-            base_meta = ckpt_meta
-
-            def ckpt_meta():
-                extra = (checkpoint_meta_extra()
-                         if callable(checkpoint_meta_extra)
-                         else checkpoint_meta_extra or {})
-                # the rung of the next segment, chosen at this boundary
-                rung = ({"ladder_rung": ladder_ctl.current_chunk}
-                        if ladder_ctl is not None else {})
-                return {**base_meta, **extra, **rung}
-
-        grow_fn = stop_pending = None
-        seg_iters = segment_iters or 2048
-        if use_overlap:
-            # one dispatch a segment, its macro-iteration count fixed from
-            # the segment length alone (the ones past the ceiling are
-            # device no-ops); overflow recovery and draining live in the
-            # overlapped driver
-            n_macro = -(-seg_iters // balance_period)
-
-            def run_fn(s, target):
-                drv = (ladder_ctl.driver() if ladder_ctl is not None
-                       else driver)
-                return drv.run_async(_fold_cap(s, cap()), target, n_macro)
-
-            def grow_fn(s):
-                capacity = s[0].prmu.shape[-1]
-                return [checkpoint.grow(x, capacity * 2) for x in s]
-
-            if stop_event is not None:
-                stop_pending = stop_event.is_set
+    try:
+        session = None
+        meta_rung = None            # the checkpoint's recorded rung
+        if resumed is not None:
+            host_state, meta = resumed
+            if "ladder_rung" in meta:
+                meta_rung = int(np.asarray(meta["ladder_rung"]))
+            shape = tuple(host_state.prmu.shape)
+            if len(shape) != 3 or shape[0] != n_dev:
+                old = shape[0] if len(shape) == 3 else 1
+                warnings.warn(
+                    f"resharding checkpoint {checkpoint_path} from {old} to "
+                    f"{n_dev} workers (elastic resume)", RuntimeWarning,
+                    stacklevel=2)
+                # the elastic reshard must keep every summed counter, the
+                # pooled node count and the incumbent
+                pre_sums = (obs_audit.state_sums(host_state)
+                            if obs_audit.enabled() else None)
+                host_state = checkpoint.reshard_state(host_state, n_dev,
+                                                      device="cpu")
+                if pre_sums is not None:
+                    obs_audit.check_reshard(pre_sums, host_state,
+                                            edge="elastic_resume")
+            # re-home into a capacity whose usable-row limit covers the
+            # fullest pool
+            cap0 = cap = host_state.prmu.shape[-1]
+            need = int(host_state.size.max())
+            while driver.limit(cap) < max(need, 1):
+                cap *= 2
+            if cap != cap0:
+                host_state = checkpoint.grow(host_state, cap)
+            host_state, session, h_prmu, h_depth = hybrid.resume_share(
+                host_state, meta, prob, table, lb_kind, host_fraction,
+                host_threads)
+            fr = Frontier(prmu=np.zeros((0, jobs), np.int16),
+                          depth=np.zeros(0, np.int16),
+                          tree=int(meta.get("warmup_tree", 0)),
+                          sol=int(meta.get("warmup_sol", 0)),
+                          best=int(host_state.best.min()))
+            states = driver.commit(host_state)
+            del host_state
         else:
-            def run_fn(s, target):
-                drv = (ladder_ctl.driver() if ladder_ctl is not None
-                       else driver)
-                return drv.run(_fold_cap(s, cap()), max_iters=target)
+            with tracelog.span("bfs_warmup", problem=prob.name,
+                               target=min_seed * n_dev) as ws:
+                fr = prob.warmup(table, lb_kind, init_ub,
+                                 target=min_seed * n_dev)
+                ws.set(frontier=len(fr.depth), tree=fr.tree)
+            init_best = (fr.best if init_ub is None
+                         else min(fr.best, int(init_ub)))
+            dmask, h_prmu, h_depth = hybrid.split_host_share(
+                fr.prmu, fr.depth, host_fraction)
+            if len(h_depth):
+                session = hybrid.make_session(prob, table, h_prmu, h_depth,
+                                              lb_kind, init_best,
+                                              n_threads=host_threads)
+                fr.prmu, fr.depth = fr.prmu[dmask], fr.depth[dmask]
+            fr.aux = prob.seed_aux(table, fr.prmu, fr.depth)
+            states = driver.seed(fr, capacity, jobs, init_best)
+            if telemetry is not None:
+                width = tele.WIDTH if telemetry else 0
+                states = [s._replace(telemetry=torch.zeros(
+                    width, dtype=torch.int64, device=s.prmu.device))
+                    for s in states]
 
-        def hb(rep):
-            if ladder_ctl is not None:
-                # the rung of the next dispatch, from this boundary's pool
-                # (under overlap the next segment is already in flight, so
-                # the switch lands one boundary later)
-                ladder_ctl.observe(rep.pool_size, segment=rep.segment)
-            # one device-memory and host-RSS sample a segment, of the
-            # workers' backend: the tts_device_bytes_* gauges and a
-            # resource.sample trace event. Observation only: a failed
-            # sample never stops the search
-            try:
-                from ..obs import resource as obs_resource
-                obs_resource.sample_now(platform="gpu"
-                                        if devs[0].type == "cuda" else "cpu")
-            except Exception:  # noqa: BLE001
-                pass
-            if client is not None:
-                client.publish(rep.best)
-            if heartbeat is not None:
-                heartbeat(rep)
+        if overlap is None:
+            overlap = _cfg.env_flag(_cfg.OVERLAP_FLAG)
+        # the host tier's per-segment merge needs the synchronous boundary, and
+        # a multi-process job stays synchronous (run_segmented's own rule)
+        use_overlap = bool(overlap) and session is None and n_procs == 1
 
-        out = checkpoint.run_segmented(
-            run_fn, states, segment_iters=seg_iters,
-            checkpoint_path=checkpoint_path, heartbeat=hb,
-            checkpoint_every=checkpoint_every, max_total_iters=max_iters,
-            checkpoint_meta=ckpt_meta, should_stop=stop_fn,
-            post_segment=session.post_segment if session else None,
-            retry_attempts=retry_attempts,
-            segment_timeout_s=segment_timeout_s, overlap=use_overlap,
-            grow_fn=grow_fn, stop_pending=stop_pending)
+        ladder_ctl = client = None
+        if ladder_drivers is not None or incumbent_board is not None:
+            c0 = worker_counters(states)
+        if ladder_drivers is not None:
+            from .ladder import RungController
+            ladder_ctl = RungController(ladder_drivers, n_dev)
+            ladder_ctl.start(int(c0["size"].sum()), meta_rung=meta_rung)
+        if incumbent_board is not None:
+            client = inc_mod.BoardClient(
+                incumbent_board,
+                incumbent_key or inc_mod.share_key(table, problem=prob.name))
+            # the starting best (a resumed checkpoint's, or the warm-up's /
+            # init_ub), so peers tighten before this search's first segment
+            client.publish(int(c0["best"].min()))
+
+        def cap():
+            return client.cap() if client is not None else None
+
+        max_iters = (None if max_rounds is None
+                     else max_rounds * balance_period)
+        stop_fn = None
+        if stop_event is not None or should_stop is not None:
+            def stop_fn(rep):
+                return ((stop_event is not None and stop_event.is_set())
+                        or (should_stop is not None and should_stop(rep)))
+        if (segment_iters is None and checkpoint_path is None
+                and session is None and stop_fn is None):
+            with tracelog.span("engine.run", workers=n_dev):
+                out = driver.run(_fold_cap(states, cap()), max_iters)
+        else:
+            ckpt_meta = {"warmup_tree": fr.tree, "warmup_sol": fr.sol,
+                         # the snapshot's problem stamp: a resume refuses a
+                         # cross-problem re-home (checked above)
+                         "problem": prob.name,
+                         # the host tier's seed rides every checkpoint, so a
+                         # killed -C run resumes without losing its share (the
+                         # killed session's work was committed nowhere)
+                         "host_prmu": h_prmu if session else
+                         np.zeros((0, jobs), np.int16),
+                         "host_depth": h_depth if session else
+                         np.zeros(0, np.int16)}
+            if checkpoint_meta_extra is not None or ladder_ctl is not None:
+                base_meta = ckpt_meta
+
+                def ckpt_meta():
+                    extra = (checkpoint_meta_extra()
+                             if callable(checkpoint_meta_extra)
+                             else checkpoint_meta_extra or {})
+                    # the rung of the next segment, chosen at this boundary
+                    rung = ({"ladder_rung": ladder_ctl.current_chunk}
+                            if ladder_ctl is not None else {})
+                    return {**base_meta, **extra, **rung}
+
+            grow_fn = stop_pending = None
+            seg_iters = segment_iters or 2048
+            if use_overlap:
+                # one dispatch a segment, its macro-iteration count fixed from
+                # the segment length alone (the ones past the ceiling are
+                # device no-ops); overflow recovery and draining live in the
+                # overlapped driver
+                n_macro = -(-seg_iters // balance_period)
+
+                def run_fn(s, target):
+                    drv = (ladder_ctl.driver() if ladder_ctl is not None
+                           else driver)
+                    return drv.run_async(_fold_cap(s, cap()), target, n_macro)
+
+                def grow_fn(s):
+                    capacity = s[0].prmu.shape[-1]
+                    return [checkpoint.grow(x, capacity * 2) for x in s]
+
+                if stop_event is not None:
+                    stop_pending = stop_event.is_set
+            else:
+                def run_fn(s, target):
+                    drv = (ladder_ctl.driver() if ladder_ctl is not None
+                           else driver)
+                    return drv.run(_fold_cap(s, cap()), max_iters=target)
+
+            def hb(rep):
+                if ladder_ctl is not None:
+                    # the rung of the next dispatch, from this boundary's pool
+                    # (under overlap the next segment is already in flight, so
+                    # the switch lands one boundary later)
+                    ladder_ctl.observe(rep.pool_size, segment=rep.segment)
+                # one device-memory and host-RSS sample a segment, of the
+                # workers' backend: the tts_device_bytes_* gauges and a
+                # resource.sample trace event. Observation only: a failed
+                # sample never stops the search
+                try:
+                    from ..obs import resource as obs_resource
+                    obs_resource.sample_now(
+                        platform="gpu" if devs[0].type == "cuda" else "cpu")
+                except Exception:  # noqa: BLE001
+                    pass
+                if client is not None:
+                    client.publish(rep.best)
+                if heartbeat is not None:
+                    heartbeat(rep)
+
+            out = checkpoint.run_segmented(
+                run_fn, states, segment_iters=seg_iters,
+                checkpoint_path=checkpoint_path, heartbeat=hb,
+                checkpoint_every=checkpoint_every, max_total_iters=max_iters,
+                checkpoint_meta=ckpt_meta, should_stop=stop_fn,
+                post_segment=session.post_segment if session else None,
+                retry_attempts=retry_attempts,
+                segment_timeout_s=segment_timeout_s, overlap=use_overlap,
+                grow_fn=grow_fn, stop_pending=stop_pending)
+    finally:
+        # the cached loops go back to the executor cache
+        for d in ({**(ladder_drivers or {}), None: driver}).values():
+            d.release()
 
     c = worker_counters(out)
     best = int(c["best"].min())

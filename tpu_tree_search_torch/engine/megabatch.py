@@ -46,9 +46,15 @@ requirement, an overflowing member grows every member's pools x2 (a new
 capture) and the same targets are dispatched again. The step's fused
 route stays off, as in JAX (the batched route is the unfused pipeline).
 
-Left out, raising `NotImplementedError` naming its ROADMAP item: the
-executor cache (`loop_cache`, A9) and a batch in a multi-process job
-(A8b).
+With `serve_batch(loop_cache=...)` (the search server's executor cache)
+the batch's loop at each capacity is a cached `distributed._Loop` under
+JAX's key (the solo key's prefix, `("batch", B)`, the workers' identities,
+the capacity and the balance knobs): every member's tables go into it in
+place, the pools before the first replay, so a later batch of the class
+replays the graph the first captured.
+
+Left out, raising `NotImplementedError` naming its ROADMAP item: a batch
+in a multi-process job (A8b).
 """
 
 from __future__ import annotations
@@ -146,11 +152,16 @@ class BatchedDriver:
     balance round's overflow predicate reads it. A committed batch is a
     list of B worker lists. `host_reads` counts the status reads of
     `run_once`, `macro_iters` the batch's macro-iterations and `captures`
-    the CUDA graphs captured, by pool capacity."""
+    the CUDA graphs captured, by pool capacity. The macro-iteration at
+    each capacity is a `distributed._Loop` of all B members: the driver's
+    own, or with a `loop_cache` a cached one, looked up once per driver and
+    capacity under `cache_key` plus the capacity and the balance knobs (as
+    `_DistDriver.entry`)."""
 
     def __init__(self, devices, make_tables, make_local_step,
                  balance_period: int, transfer_cap: int, min_transfer: int,
-                 limit_fn, batch: int, name: str = "pfsp", key: tuple = ()):
+                 limit_fn, batch: int, name: str = "pfsp", key: tuple = (),
+                 loop_cache=None, cache_key: tuple = ()):
         if mesh.process_count() > 1:
             raise dist._not_ported("a batch in a multi-process job", "A8b",
                                    "megabatch")
@@ -165,9 +176,63 @@ class BatchedDriver:
         self.host_reads = 0
         self.macro_iters = 0
         self.captures: dict[int, int] = {}
+        self.loop_cache = loop_cache
+        self.cache_key = tuple(cache_key)
+        self._entries: dict[int, object] = {}
+        self._loops: dict[int, dist._Loop] = {}  # the driver's own
 
     def limit(self, capacity: int) -> int:
         return self.members[0].limit(capacity)
+
+    def entry(self, capacity: int):
+        """The executor-cache entry of the batch's loop at `capacity`,
+        consulted once per driver and capacity; taking it loads every
+        member's tables."""
+        entry = self._entries.get(capacity)
+        if entry is None:
+            m0 = self.members[0]
+            tables = [m.tables for m in self.members]
+            entry = self.loop_cache.get_or_build(
+                self.cache_key + (capacity, m0.balance_period,
+                                  m0.transfer_cap, m0.min_transfer,
+                                  self.limit(capacity)),
+                lambda: dist._Loop(dist._clone_tables(tables), lambda ts: [
+                    m._make_body(t, capacity)
+                    for m, t in zip(self.members, ts)]))
+            entry.fn.take(self, tables)
+            self._entries[capacity] = entry
+        return entry
+
+    def release(self) -> None:
+        """Give back every cached loop this driver took."""
+        for entry in self._entries.values():
+            entry.fn.release(self)
+
+    def loop(self, capacity: int):
+        """The batch's loop at `capacity`: the executor cache's, or the
+        driver's own over its members' tables (a new capacity lets the
+        smaller ones go)."""
+        if self.loop_cache is not None:
+            return self.entry(capacity).fn
+        loop = self._loops.get(capacity)
+        if loop is None:
+            self._loops = {c: x for c, x in self._loops.items()
+                           if c > capacity}
+            loop = self._loops[capacity] = dist._Loop(
+                [m.tables for m in self.members], lambda ts: [
+                    m._make_body(t, capacity)
+                    for m, t in zip(self.members, ts)])
+        return loop
+
+    def bodies(self, capacity: int, eager: bool = False) -> list:
+        """Every member's macro-iteration at `capacity` (a cached loop's
+        first eager use is booked on its entry)."""
+        if self.loop_cache is None:
+            return self.loop(capacity).body
+        entry = self.entry(capacity)
+        if eager:
+            entry.book(0.0, "eager")
+        return entry.fn.body
 
     def commit(self, state: SearchState) -> list[list[SearchState]]:
         """A batched host state `(D, B, ...)` as B worker lists, worker d
@@ -184,15 +249,16 @@ class BatchedDriver:
         devs = {s.prmu.device for sb in states for s in sb}
         return len(devs) == 1 and next(iter(devs)).type == "cuda"
 
-    def _graph_key(self, states, capacity: int) -> tuple:
-        return ("batch", self.batch) + tuple(
-            m._graph_key(sb, capacity) for m, sb in zip(self.members, states))
-
-    def _capture(self, states, capacity: int) -> _BatchGraph:
+    def _capture(self, states, capacity: int, bodies=None) -> _BatchGraph:
         """Capture one macro-iteration of every member on `states`' pools
         (updated in place, at the addresses the graph holds), after one
         no-op macro-iteration on a side stream."""
-        bodies = [m.body(capacity) for m in self.members]
+        with device.CAPTURE_LOCK:
+            return self._capture_locked(states, capacity,
+                                        bodies or self.bodies(capacity))
+
+    def _capture_locked(self, states, capacity: int,
+                        bodies: list) -> _BatchGraph:
         self.captures[capacity] = self.captures.get(capacity, 0) + 1
         dev = states[0][0].prmu.device
         static = [[s._replace(
@@ -209,7 +275,7 @@ class BatchedDriver:
         torch.cuda.current_stream(dev).wait_stream(side)
         kernels.take_captured()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=device.CAPTURE_MODE):
             for b, (body, sb) in enumerate(zip(bodies, static)):
                 out = body(sb, dist._loop_cond(sb, max_iters[b]))
                 for s, o in zip(sb, out):
@@ -223,22 +289,22 @@ class BatchedDriver:
             [[s.telemetry for s in sb] for sb in static], max_iters, status,
             kernels.take_captured())
 
-    def _graph(self, states, capacity: int) -> _BatchGraph:
-        """The cached (or newly captured) batch graph of `states`' pools,
-        loaded with their counters."""
-        key = self._graph_key(states, capacity)
-        g = device._GRAPHS.pop(key, None)
-        if g is None:
-            g = self._capture(states, capacity)
-        device._GRAPHS[key] = g
-        while len(device._GRAPHS) > device._GRAPH_CACHE:
-            device._GRAPHS.popitem(last=False)
+    def _graph(self, states, capacity: int):
+        """(states with their pools in the loop's, the loop's batch graph,
+        captured at its first use, loaded with their counters)."""
+        if self.loop_cache is not None:
+            entry = self.entry(capacity)
+            loop, book = entry.fn, entry.book
+        else:
+            loop, book = self.loop(capacity), None
+        states, g = loop.graph(states, lambda st: self._capture(
+            st, capacity, loop.body), book)
         for sb, ctrs, tvs in zip(states, g.counters, g.telemetry):
             for s, ctr, tv in zip(sb, ctrs, tvs):
                 for f, t in ctr.items():
                     t.copy_(getattr(s, f))
                 tv.copy_(s.telemetry)
-        return g
+        return states, g
 
     def run_once(self, states: list, max_iters_b, bound_caps_b) -> list:
         """One dispatch: macro-iterations of the batch until no member is
@@ -254,7 +320,7 @@ class BatchedDriver:
             return size > 0 and not overflow and iters < targets[b]
 
         if self._graph_ok(states):
-            g = self._graph(states, capacity)
+            states, g = self._graph(states, capacity)
             g.max_iters.copy_(torch.tensor(targets, dtype=torch.int64))
             # the per-member incumbent fold, once a dispatch, on the device
             for ctrs, cap in zip(g.counters, bound_caps_b):
@@ -275,7 +341,7 @@ class BatchedDriver:
                                              g.telemetry)]
         states = [dist._fold_cap(sb, cap)
                   for sb, cap in zip(states, bound_caps_b)]
-        bodies = [m.body(capacity) for m in self.members]
+        bodies = self.bodies(capacity, eager=True)
         dev0 = states[0][0].prmu.device
         lims = [torch.full((), t, dtype=torch.int64, device=sb[0].prmu.device)
                 for sb, t in zip(states, targets)]
@@ -371,7 +437,7 @@ def serve_batch(specs: list, problem="pfsp", lb_kind: int = 1,
                 on_member_stopped=None,
                 stop_event=None, loop_cache=None,
                 incumbent_board=None, tuner=None,
-                stall_limit: int = 3) -> list:
+                stall_limit: int = 3, worker_ids=None) -> list:
     """Solve B instances of one table shape in one batched loop, in
     segments (the JAX `serve_batch`). The workers are
     `parallel.mesh.worker_devices(n_devices, devices)`, as in
@@ -401,7 +467,13 @@ def serve_batch(specs: list, problem="pfsp", lb_kind: int = 1,
     `chunk=None`/`balance_period=None` resolve through
     `tuner.resolve(..., batch=B, allow_probe=False)`, else
     `tune/defaults.params_for("serving", ..., batch=B)` (the batched
-    row, never the solo one)."""
+    row, never the solo one).
+
+    `loop_cache` (`service/executors.ExecutorCache`) serves batches of the
+    class from one capture: the key is the solo driver's prefix (problem,
+    jobs, the table's leading dimension, lb, chunk, aux dtype), then
+    `("batch", B)`, the workers' identities (`worker_ids`, None: their
+    devices), the capacity and the balance knobs, as in JAX."""
     from ..tune import defaults as tune_defaults
     from ..utils import faults
     from . import checkpoint, incumbent as inc_mod
@@ -409,9 +481,6 @@ def serve_batch(specs: list, problem="pfsp", lb_kind: int = 1,
     prob = dist._resolve_problem(problem)
     if not specs:
         raise ValueError("serve_batch needs at least one MemberSpec")
-    if loop_cache is not None:
-        raise dist._not_ported("the executor cache (loop_cache)", "A9",
-                               "megabatch.serve_batch")
     devs = mesh.worker_devices(n_devices, devices)
     n_dev = len(devs)
     B = len(specs)
@@ -461,7 +530,12 @@ def serve_batch(specs: list, problem="pfsp", lb_kind: int = 1,
         make_local_step, balance_period, transfer_cap, min_transfer,
         limit_fn=lambda cap: prob.usable_rows(cap, chunk, jobs), batch=B,
         name=prob.name,
-        key=(jobs, int(tables0.shape[0]), lb_kind, chunk, "off"))
+        key=(jobs, int(tables0.shape[0]), lb_kind, chunk, "off"),
+        loop_cache=loop_cache,
+        cache_key=(prob.name, jobs, int(tables0.shape[0]), lb_kind, chunk,
+                   convert.np_dtype(adt), "batch", B)
+        + tuple(worker_ids if worker_ids is not None
+                else [str(d) for d in devs]))
 
     members = [_Member(i, sp) for i, sp in enumerate(specs)]
 
@@ -639,73 +713,77 @@ def serve_batch(specs: list, problem="pfsp", lb_kind: int = 1,
     names = ("iters", "tree", "sol", "size", "best", "steals",
              "overflow", "evals", "sent", "recv")
     tele_on = int(state[0][0].telemetry.shape[-1]) > 0
-    with tracelog.span("batch.execute", batch=B, problem=prob.name,
-                       jobs=jobs, chunk=chunk) as bs:
-        while any(m.active for m in members):
-            # run_segmented's injection points, so the drills cover a batch
-            faults.fire("segment_start", segment=seg + 1)
-            targets = []
-            caps = []
-            for m in members:
-                if not m.active:
-                    # frozen: its recorded iteration count, so its
-                    # condition is already false
-                    targets.append(m.frozen_target or m.start_iters)
-                    caps.append(None)
-                else:
-                    targets.append(m.start_iters + (seg + 1) * segment_iters)
-                    caps.append(m.client.cap() if m.client else None)
-            out = driver.run_once(state, targets, caps)
-            # one transfer of every member's counters
-            faults.fire("host_fetch")
-            fetched = _fetch_batch(
-                out, names + (("telemetry",) if tele_on else ()))
-            fetched.setdefault("telemetry", None)
-            if bool(fetched["overflow"].any()):
-                # lossless whole-batch growth: every pool x2, a new
-                # capture, the same targets again (not a new segment)
-                cap2 = out[0][0].prmu.shape[-1] * 2
-                state = [[checkpoint.grow(s, cap2) for s in sb]
-                         for sb in out]
-                continue
-            state = out
-            seg += 1
-            rows = int(fetched["size"].max())
-            batch_stop = stop_event is not None and stop_event.is_set()
-            for m in members:
-                if not m.active:
+    try:
+        with tracelog.span("batch.execute", batch=B, problem=prob.name,
+                           jobs=jobs, chunk=chunk) as bs:
+            while any(m.active for m in members):
+                # run_segmented's injection points, so the drills cover a batch
+                faults.fire("segment_start", segment=seg + 1)
+                targets = []
+                caps = []
+                for m in members:
+                    if not m.active:
+                        # frozen: its recorded iteration count, so its
+                        # condition is already false
+                        targets.append(m.frozen_target or m.start_iters)
+                        caps.append(None)
+                    else:
+                        targets.append(m.start_iters
+                                       + (seg + 1) * segment_iters)
+                        caps.append(m.client.cap() if m.client else None)
+                out = driver.run_once(state, targets, caps)
+                # one transfer of every member's counters
+                faults.fire("host_fetch")
+                fetched = _fetch_batch(
+                    out, names + (("telemetry",) if tele_on else ()))
+                fetched.setdefault("telemetry", None)
+                if bool(fetched["overflow"].any()):
+                    # lossless whole-batch growth: every pool x2, a new
+                    # capture, the same targets again (not a new segment)
+                    cap2 = out[0][0].prmu.shape[-1] * 2
+                    state = [[checkpoint.grow(s, cap2) for s in sb]
+                             for sb in out]
                     continue
-                rep = m.folder.fold(
-                    tuple(fetched[n][:, m.idx]
-                          for n in checkpoint.REPORT_FIELDS)
-                    + ((fetched["telemetry"][:, m.idx],) if tele_on
-                       else ()), seg)
-                if m.client is not None:
-                    m.client.publish(rep.best)
-                if heartbeat is not None:
-                    heartbeat(m.idx, rep)
-                if rep.pool_size == 0:
-                    # no drain-save: a drained member's snapshot would hold
-                    # an empty pool nobody resumes
-                    res = finish_member(m, fetched, complete=True)
-                    if on_member_done is not None:
-                        on_member_done(m.idx, res)
-                    continue
-                stop = batch_stop or (
-                    member_stop is not None and member_stop(m.idx, rep))
-                if stop:
-                    save_member(m, state, seg, rows)
-                    m.frozen_target = rep.iters
-                    m.stopped = True
-                    res = finish_member(m, fetched, complete=False)
-                    if on_member_stopped is not None:
-                        on_member_stopped(m.idx, res)
-                    continue
-                if m.spec.checkpoint_path and seg % checkpoint_every == 0:
-                    save_member(m, state, seg, rows)
-                m.folder.check_stall(rep)
-            faults.fire("post_segment", segment=seg)
-        bs.set(segments=seg,
-               done=sum(1 for m in members
-                        if m.result is not None and m.result.complete))
+                state = out
+                seg += 1
+                rows = int(fetched["size"].max())
+                batch_stop = stop_event is not None and stop_event.is_set()
+                for m in members:
+                    if not m.active:
+                        continue
+                    rep = m.folder.fold(
+                        tuple(fetched[n][:, m.idx]
+                              for n in checkpoint.REPORT_FIELDS)
+                        + ((fetched["telemetry"][:, m.idx],) if tele_on
+                           else ()), seg)
+                    if m.client is not None:
+                        m.client.publish(rep.best)
+                    if heartbeat is not None:
+                        heartbeat(m.idx, rep)
+                    if rep.pool_size == 0:
+                        # no drain-save: a drained member's snapshot would hold
+                        # an empty pool nobody resumes
+                        res = finish_member(m, fetched, complete=True)
+                        if on_member_done is not None:
+                            on_member_done(m.idx, res)
+                        continue
+                    stop = batch_stop or (
+                        member_stop is not None and member_stop(m.idx, rep))
+                    if stop:
+                        save_member(m, state, seg, rows)
+                        m.frozen_target = rep.iters
+                        m.stopped = True
+                        res = finish_member(m, fetched, complete=False)
+                        if on_member_stopped is not None:
+                            on_member_stopped(m.idx, res)
+                        continue
+                    if m.spec.checkpoint_path and seg % checkpoint_every == 0:
+                        save_member(m, state, seg, rows)
+                    m.folder.check_stall(rep)
+                faults.fire("post_segment", segment=seg)
+            bs.set(segments=seg,
+                   done=sum(1 for m in members
+                            if m.result is not None and m.result.complete))
+    finally:
+        driver.release()
     return [m.result for m in members]

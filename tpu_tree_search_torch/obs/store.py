@@ -63,6 +63,8 @@ import threading
 import time
 import zlib
 
+from ..utils import config as cfg
+
 __all__ = ["ObsStore", "read_store", "resume_counters",
            "RESUME_COUNTERS", "EVENT_PREFIXES", "TERMINAL_EVENTS"]
 
@@ -250,9 +252,9 @@ class ObsStore:
 
     def __init__(self, root: str | os.PathLike, writer: str,
                  registry=None,
-                 segment_records: int = 4096,
-                 retain_s: float = 86400.0,
-                 queue_depth: int = 4096,
+                 segment_records: int = cfg.OBS_STORE_SEGMENT_RECORDS_DEFAULT,
+                 retain_s: float = cfg.OBS_STORE_RETAIN_S_DEFAULT,
+                 queue_depth: int = cfg.OBS_STORE_QUEUE_DEFAULT,
                  fsync: bool = True):
         self.root = pathlib.Path(root)
         self.root.mkdir(parents=True, exist_ok=True)

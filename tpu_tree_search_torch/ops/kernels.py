@@ -78,28 +78,42 @@ CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# the counts are bumped from every thread that launches or replays (the
+# search server's executor threads)
+_count_lock = threading.Lock()
+# nvcc seconds of the builds each thread made at first use
+_builds = threading.local()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = REPLAYED[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = REPLAYED[k] = 0
+
+
+def build_seconds() -> float:
+    """The nvcc seconds of the library builds this thread has made at a
+    kernel's first use (0 where every library was already built)."""
+    return getattr(_builds, "seconds", 0.0)
 
 
 def _count(key: str) -> None:
     """One launch of `key`: now, or at each replay of the graph the
     current stream is being captured into."""
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[key] += 1
-    else:
-        LAUNCHES[key] += 1
+    with _count_lock:
+        if torch.cuda.is_current_stream_capturing():
+            CAPTURED[key] += 1
+        else:
+            LAUNCHES[key] += 1
 
 
 def take_captured() -> dict:
     """The launches recorded under capture since the last call, and
     clear them."""
-    out = {k: v for k, v in CAPTURED.items() if v}
-    for k in CAPTURED:
-        CAPTURED[k] = 0
+    with _count_lock:
+        out = {k: v for k, v in CAPTURED.items() if v}
+        for k in CAPTURED:
+            CAPTURED[k] = 0
     return out
 
 
@@ -107,9 +121,10 @@ def replay(graph: torch.cuda.CUDAGraph, launches: dict) -> None:
     """Replay a captured graph; its kernels launch now, so `launches`
     (its `take_captured` at capture) count now."""
     graph.replay()
-    for k, v in launches.items():
-        LAUNCHES[k] += v
-        REPLAYED[k] += v
+    with _count_lock:
+        for k, v in launches.items():
+            LAUNCHES[k] += v
+            REPLAYED[k] += v
 
 
 def _nvcc() -> str:
@@ -166,7 +181,10 @@ def _lib(stem: str) -> ctypes.CDLL:
         if lib is None:
             path = library_path(stem)
             if not path.exists():
+                t0 = time.perf_counter()
                 build([stem])
+                _builds.seconds = (build_seconds()
+                                   + time.perf_counter() - t0)
             lib = ctypes.CDLL(str(path))
             for sym, (argtypes, restype) in _SOURCES[stem].items():
                 getattr(lib, sym).argtypes = argtypes

@@ -166,19 +166,15 @@ class ProbeHarness:
             c = dev_mod.counters(out[0])
             return (c.evals - self._evals0, c.iters - self.iters0), seconds
 
-        try:
-            counts, _ = call()           # captures the graph, warms
-            best = float("inf")
-            for _ in range(self.repeats):
-                again, seconds = call()
-                if again != counts:
-                    raise RuntimeError(
-                        f"probe chunk {chunk}: a repeat from the same "
-                        f"state counted {again}, the first {counts}")
-                best = min(best, seconds)
-        finally:
-            dev_mod._GRAPHS.pop(drv._graph_key([self._work], self.capacity),
-                                None)
+        counts, _ = call()               # captures the graph, warms
+        best = float("inf")
+        for _ in range(self.repeats):
+            again, seconds = call()
+            if again != counts:
+                raise RuntimeError(
+                    f"probe chunk {chunk}: a repeat from the same "
+                    f"state counted {again}, the first {counts}")
+            best = min(best, seconds)
         evals, iters = counts
         return ProbeResult(
             chunk=chunk, balance_period=balance_period,

@@ -6,7 +6,9 @@ accepted spellings, and the rows of its knob registry for the knobs the
 port reads (among them `LADDER_FLAG`, `TTS_LADDER`, `OVERLAP_FLAG`, the
 tuner's, `TTS_DEBUG_STEP`, and the `TTS_HEALTH_*`, `TTS_SLO_*`,
 `TTS_CAPACITY*` and `TTS_PROGRESS*` knobs of `obs/health`, `obs/capacity`
-and `obs/estimate`): a `TTS_*` name must be registered, so a misspelt
+and `obs/estimate`, and the search server's: the `SERVICE_*` defaults,
+admission, pre-warm, megabatching, remediation, the tuning cache and the
+observability store): a `TTS_*` name must be registered, so a misspelt
 knob raises at its first read instead of never applying. The resilience,
 tuner and observability defaults are the JAX package's.
 """
@@ -88,6 +90,67 @@ HEALTH_SATURATION_DEFAULT = 0.85
 HEALTH_SATURATION_FOR_S_DEFAULT = 6.0
 
 
+# the search server (service/server.py) and the `serve` command: the
+# admission bound, the segment length between stop checks (the reaction
+# time of preemption, deadlines and cancels), the segments between
+# periodic saves (a stop always saves), the scheduler's poll period and
+# the re-dispatches after a failed dispatch, with their backoff base
+SERVICE_QUEUE_DEPTH_DEFAULT = 64
+SERVICE_SEGMENT_ITERS_DEFAULT = 512
+SERVICE_CHECKPOINT_EVERY_DEFAULT = 4
+SERVICE_POLL_S_DEFAULT = 0.02
+SERVICE_RETRY_ATTEMPTS_DEFAULT = 2
+SERVICE_RETRY_BASE_S_DEFAULT = 0.2
+# the server's resource-sampler period (obs/resource; <= 0: no thread)
+OBS_RESOURCE_SAMPLE_S_DEFAULT = 1.0
+# the observability store (obs/store): records a segment, retention and
+# the sink queue's bound
+OBS_STORE_ENV = "TTS_OBS_STORE"
+OBS_STORE_SEGMENT_RECORDS_DEFAULT = 4096
+OBS_STORE_RETAIN_S_DEFAULT = 86400.0
+OBS_STORE_QUEUE_DEFAULT = 4096
+# boot pre-warm: the spec ("spool", "taillard", "JxM"; "0"/"off"/"no"
+# disables it even beside --prewarm), its parallel warms, and the Taillard
+# shape families (jobs, machines) of "taillard"
+PREWARM_ENV = "TTS_PREWARM"
+PREWARM_CONCURRENCY_DEFAULT = 2
+PREWARM_TAILLARD_FAMILIES = (
+    (20, 5), (20, 10), (20, 20),
+    (50, 5), (50, 10), (50, 20),
+    (100, 5), (100, 10), (100, 20),
+    (200, 10), (200, 20), (500, 20),
+)
+# the shared incumbent board of a server (engine/incumbent.py)
+SHARE_INCUMBENT_FLAG = "TTS_SHARE_INCUMBENT"
+# the tuning cache directory and boot-time probing (tune/)
+TUNE_CACHE_ENV = "TTS_TUNE_CACHE"
+TUNE_ENV = "TTS_TUNE"
+# request megabatching (service/batching.py, engine/megabatch.py): a batch
+# closes at TTS_BATCH_MAX members or when its oldest has waited
+# TTS_BATCH_AGE_S seconds
+MEGABATCH_FLAG = "TTS_MEGABATCH"
+BATCH_MAX_DEFAULT = 8
+BATCH_AGE_S_DEFAULT = 0.25
+# remediation (service/remediate.py): off is observe-only
+REMEDIATE_FLAG = "TTS_REMEDIATE"
+REMEDIATE_WINDOW_S_DEFAULT = 300.0
+REMEDIATE_MAX_PER_RULE_DEFAULT = 4
+REMEDIATE_QUARANTINE_FAILS_DEFAULT = 3
+REMEDIATE_DEADLETTER_SUBMESHES_DEFAULT = 3
+REMEDIATE_PROBE_S_DEFAULT = 30.0
+# the graceful SIGTERM/SIGINT drain budget of `serve`
+DRAIN_TIMEOUT_S_DEFAULT = 30.0
+# the server parts still to port (ROADMAP A9c): a request ledger, fleet
+# failover, the disk executor cache and portfolio racing; the server
+# refuses each when it is set
+LEDGER_ENV = "TTS_LEDGER"
+FLEET_DIR_ENV = "TTS_FLEET_DIR"
+FAILOVER_FLAG = "TTS_FAILOVER"
+AOT_CACHE_ENV = "TTS_AOT_CACHE"
+PORTFOLIO_ENV = "TTS_PORTFOLIO"
+PORTFOLIO_MAX_DEFAULT = 8
+
+
 # the registered knobs and their defaults (None: no default / off)
 KNOBS: dict[str, object] = {
     # new states get the search-telemetry vector (engine/telemetry.py)
@@ -160,6 +223,47 @@ KNOBS: dict[str, object] = {
     "TTS_CAPACITY_EWMA": CAPACITY_EWMA_DEFAULT,
     "TTS_HEALTH_SATURATION": HEALTH_SATURATION_DEFAULT,
     "TTS_HEALTH_SATURATION_FOR_S": HEALTH_SATURATION_FOR_S_DEFAULT,
+    # the search server and `serve`: submeshes, the admission bound, the
+    # resource sampler, the shared incumbent board, the graceful drain
+    "TTS_SUBMESHES": 1,
+    "TTS_QUEUE_DEPTH": SERVICE_QUEUE_DEPTH_DEFAULT,
+    "TTS_RESOURCE_SAMPLE_S": OBS_RESOURCE_SAMPLE_S_DEFAULT,
+    SHARE_INCUMBENT_FLAG: False,
+    "TTS_DRAIN_TIMEOUT_S": DRAIN_TIMEOUT_S_DEFAULT,
+    # boot pre-warm
+    PREWARM_ENV: None,
+    "TTS_PREWARM_CONCURRENCY": PREWARM_CONCURRENCY_DEFAULT,
+    # the tuning cache directory, and probing cold shapes at boot
+    TUNE_CACHE_ENV: None,
+    TUNE_ENV: False,
+    # the observability store (unset: none)
+    OBS_STORE_ENV: None,
+    "TTS_OBS_STORE_SEGMENT_RECORDS": OBS_STORE_SEGMENT_RECORDS_DEFAULT,
+    "TTS_OBS_STORE_RETAIN_S": OBS_STORE_RETAIN_S_DEFAULT,
+    "TTS_OBS_STORE_QUEUE": OBS_STORE_QUEUE_DEFAULT,
+    # request megabatching
+    MEGABATCH_FLAG: False,
+    "TTS_BATCH_MAX": BATCH_MAX_DEFAULT,
+    "TTS_BATCH_AGE_S": BATCH_AGE_S_DEFAULT,
+    # remediation: act (1) or observe (default), the rate valve's window
+    # and cap, the failures that quarantine a submesh, the distinct
+    # submeshes that dead-letter a request, the canary probe's cooldown
+    REMEDIATE_FLAG: False,
+    "TTS_REMEDIATE_WINDOW_S": REMEDIATE_WINDOW_S_DEFAULT,
+    "TTS_REMEDIATE_MAX_PER_RULE": REMEDIATE_MAX_PER_RULE_DEFAULT,
+    "TTS_REMEDIATE_QUARANTINE_FAILS": REMEDIATE_QUARANTINE_FAILS_DEFAULT,
+    "TTS_REMEDIATE_DEADLETTER_SUBMESHES":
+        REMEDIATE_DEADLETTER_SUBMESHES_DEFAULT,
+    "TTS_REMEDIATE_PROBE_S": REMEDIATE_PROBE_S_DEFAULT,
+    # refused by the server until ROADMAP A9c (ledger, failover, disk
+    # executor cache, portfolio racing); TTS_PORTFOLIO_MAX bounds a
+    # request's `portfolio` at validation, as in JAX
+    LEDGER_ENV: None,
+    FLEET_DIR_ENV: None,
+    FAILOVER_FLAG: False,
+    AOT_CACHE_ENV: None,
+    PORTFOLIO_ENV: 0,
+    "TTS_PORTFOLIO_MAX": PORTFOLIO_MAX_DEFAULT,
 }
 
 

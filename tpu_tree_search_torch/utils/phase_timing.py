@@ -63,13 +63,17 @@ def _graph_seconds(fn, dev: torch.device) -> float:
     """Seconds of fn's device work: fn captured into a CUDA graph (after
     one eager call, which makes every kernel's first launch), one replay
     timed by CUDA events. The kernels launched count at the replay."""
+    from ..engine import device
+
     fn()
     torch.cuda.synchronize(dev)
-    kernels.take_captured()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    launches = kernels.take_captured()
+    with device.CAPTURE_LOCK:
+        kernels.take_captured()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph,
+                              capture_error_mode=device.CAPTURE_MODE):
+            fn()
+        launches = kernels.take_captured()
     return _seconds(lambda: kernels.replay(graph, launches), dev)
 
 
