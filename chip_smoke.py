@@ -240,6 +240,41 @@ Phases (one line each, then two JSON lines):
      first segment against the miss's, the captures, the scheduler's host
      ms a tick and the peak memory. The `kernels` line's `serve_launches`
      are the launches of (b)-(e); each of B1-B5 must launch in them
+ 18. crash-safe serving (`service/` ledger, lease, failover, portfolio;
+     `obs/journey`; `serve --ledger/--fleet-dir/--failover`, `client`,
+     `journey`): (a) `serve --ledger L` with the eight 20x5 LB2 ub=opt
+     goldens through eight `client` processes at chunk 16384, 8-step
+     segments, killed by `TTS_FAULTS=kill_server=6` (exit 137 as the first
+     dispatch to reach segment 6 starts it, a checkpoint saved at 4), then
+     `serve --ledger L` again: every client gets its golden, with the
+     replay's seconds and records (a copy of L replayed alone), the
+     restart's seconds to its first segment and each request's `spent_s`
+     witnesses from `journey`; (b) two `serve` processes on the card
+     under one `--fleet-dir F --failover`, TTS_LEASE_TTL_S=2: A serves
+     ta008 in 8-step segments (a save every 4) and is killed at segment
+     6 (B serving already), B adopts A's
+     ledger and ends ta008 at its golden (seconds from the kill to the
+     adoption and from the adoption to the first segment), A started
+     again on its ledger boots FENCED and writes nothing, and `journey
+     --fleet-dir F` shows one journey over the takeover; (c) in process,
+     the `pause_server` drill: A (overlap on) pauses at segment 3, B
+     adopts mid-pause, A's next save raises LeaseLost and A's executor
+     writes nothing after the adoption (only a save its writer thread had
+     queued may still land, under A's own ledger), every save under B
+     carries B's epoch, ta008 ends at its golden on B and the fleet holds
+     one terminal; (d) in process, three submeshes of one
+     worker on the card: `portfolio=3` on ta003 (LB2, LB1_d, LB1) DONE
+     at the golden `best`, `audit.check_result` clean, the losers
+     CANCELLED, no dispatch after the proof, the race's wall and evals
+     against each member's solo run (8 s deadline), and `portfolio=3` on
+     ta021 at chunk 65536 (the fused route) with a 3 s deadline, the
+     parent DEADLINE like its members. Every scenario reports the host ms
+     of one `journal` (fsync included), the scheduler's tick with the
+     ledger on and the peak memory (the restarted and adopting servers
+     run `chip_smoke.py --serve-child STATS serve ...`, which calls
+     `cli.main` and writes those numbers and its launches to STATS). The
+     `kernels` line's `dur_launches` are this phase's launches, the
+     children's included; B1, B2, B4 and B5 must launch in them
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -272,7 +307,10 @@ if not torch.cuda.is_available():
 
 from tpu_tree_search_torch import cli, native, problems  # noqa: E402
 from tpu_tree_search_torch import service  # noqa: E402
+from tpu_tree_search_torch.service import lease as srv_lease  # noqa: E402
 from tpu_tree_search_torch.service import spool as srv_spool  # noqa: E402
+from tpu_tree_search_torch.service.ledger import (  # noqa: E402
+    RequestLedger)
 from tpu_tree_search_torch.engine import checkpoint, device  # noqa: E402
 from tpu_tree_search_torch.engine import distributed, hybrid  # noqa: E402
 from tpu_tree_search_torch.engine import incumbent, ladder  # noqa: E402
@@ -282,6 +320,7 @@ from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
 from tpu_tree_search_torch.obs import audit, estimate, health  # noqa: E402
+from tpu_tree_search_torch.obs import journey as obs_journey  # noqa: E402
 from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
 from tpu_tree_search_torch.obs import resource as obs_resource  # noqa: E402
 from tpu_tree_search_torch.obs import store as obs_store  # noqa: E402
@@ -539,11 +578,77 @@ def mp_rank_child(out_dir: str, argv: list) -> None:
     sys.exit(rc)
 
 
+def ms_summary(seconds) -> dict:
+    """Count, mean, median and max of host times, in ms."""
+    xs = sorted(1e3 * x for x in seconds)
+    return {"n": len(xs), "mean": sum(xs) / max(len(xs), 1),
+            "p50": xs[len(xs) // 2] if xs else None,
+            "max": xs[-1] if xs else None}
+
+
+def serve_child(stats_path: str, argv: list) -> None:
+    """Phase 18: `chip_smoke.py --serve-child STATS serve ...` runs the
+    command line `argv` through `cli.main` (as `python -m
+    tpu_tree_search_torch argv` does) with the server's scheduler tick,
+    every ledger `journal` call and each dispatch's first segment timed,
+    and writes to STATS its exit code, seconds, kernel launches, the tick
+    and journal host ms, the peak device memory, the wall-clock time of
+    every adoption and of each dispatch's first segment."""
+    from tpu_tree_search_torch.service import ledger as led_mod
+    from tpu_tree_search_torch.service import server as srv_mod
+
+    ticks, journals, first, adopted = [], [], {}, []
+    cls = srv_mod.SearchServer
+    tick, progress, adopt = cls._tick, cls._progress_update, \
+        cls.adopt_ledger
+    journal = led_mod.RequestLedger.journal
+
+    def timed_tick(self):
+        t = time.perf_counter()
+        tick(self)
+        ticks.append(time.perf_counter() - t)
+
+    def timed_journal(self, kind, **fields):
+        t = time.perf_counter()
+        journal(self, kind, **fields)
+        journals.append(time.perf_counter() - t)
+
+    def first_segment(self, rec, rep):
+        if rec.dispatch_heartbeats == 1:
+            first.setdefault(f"{rec.request.tag}/{rec.dispatches}",
+                             time.time())
+        progress(self, rec, rep)
+
+    def timed_adopt(self, orphan_dir, current_epoch=None):
+        out = adopt(self, orphan_dir, current_epoch)
+        adopted.append({"unix": time.time(), **out})
+        return out
+
+    cls._tick, cls._progress_update = timed_tick, first_segment
+    cls.adopt_ledger = timed_adopt
+    led_mod.RequestLedger.journal = timed_journal
+    kernels.reset_launches()
+    torch.cuda.synchronize(DEV)           # the context exists before the
+    torch.cuda.reset_peak_memory_stats(DEV)   # peak is reset
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    Path(stats_path).write_text(json.dumps({
+        "rc": rc, "seconds": time.perf_counter() - t0,
+        "launches": dict(kernels.LAUNCHES), "tick_ms": ms_summary(ticks),
+        "journal_ms": ms_summary(journals),
+        "peak_bytes": torch.cuda.max_memory_allocated(DEV),
+        "first_segment_unix": first, "adopted": adopted}))
+    sys.exit(rc)
+
+
 if sys.argv[1:] == ["--debug-tap"]:
     debug_tap_child()
     sys.exit(0)
 if sys.argv[1:2] == ["--mp-rank"]:
     mp_rank_child(sys.argv[2], sys.argv[3:])
+if sys.argv[1:2] == ["--serve-child"]:
+    serve_child(sys.argv[2], sys.argv[3:])
 
 # --- phase 1: the card ----------------------------------------------------
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3820,6 +3925,498 @@ say("phase 17 seconds", seconds=time.perf_counter() - t_phase17,
     serve_launches=SRV,
     peak_bytes=torch.cuda.max_memory_allocated(DEV), card=CARD)
 
+# --- phase 18: crash-safe serving -----------------------------------------
+device.clear_graphs()
+t_phase18 = time.perf_counter()
+DUR = dict.fromkeys(kernels.LAUNCHES, 0)
+SRV18 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_dur_"))
+DEVICE_ARGS: list = []          # the serve commands' device: the card
+
+
+def dur_run(label, expect, fn):
+    """One in-process scenario of this phase, its launches joining DUR."""
+    out, counts, secs = path_run(label, expect, fn)
+    for k, v in counts.items():
+        DUR[k] += v
+    return out, counts, secs
+
+
+def child_stats(path) -> dict:
+    """A `--serve-child` run's numbers; its launches join DUR."""
+    st = json.loads(Path(path).read_text())
+    for k, v in st["launches"].items():
+        DUR[k] += v
+    return st
+
+
+def serve_cmd(spool, *extra, child=None):
+    """`serve` over `spool` on one submesh with 8-step segments, as the
+    command (`python -m tpu_tree_search_torch`) or, with `child`, through
+    `chip_smoke.py --serve-child child`."""
+    head = ([sys.executable, str(ROOT / "chip_smoke.py"), "--serve-child",
+             str(child)] if child is not None
+            else [sys.executable, "-m", "tpu_tree_search_torch"])
+    return head + ["serve", "--spool", str(spool), "--submeshes", "1",
+                   "--segment-iters", "8", "--status-every", "0",
+                   *DEVICE_ARGS, *extra]
+
+
+def popen(argv, name, env=None):
+    """A process of this phase, its output in files (a pipe nobody reads
+    would fill and stop it)."""
+    fo = open(SRV18 / f"{name}.out", "w")
+    fe = open(SRV18 / f"{name}.err", "w")
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=fo, stderr=fe, text=True,
+                            env={**os.environ, **(env or {})})
+    fo.close()
+    fe.close()
+    return proc
+
+
+def output(name) -> str:
+    return ((SRV18 / f"{name}.out").read_text() + "\n"
+            + (SRV18 / f"{name}.err").read_text())
+
+
+def reap(*procs):
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def segment_bytes(d) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(Path(d).glob("seg-*"))}
+
+
+def journal_ms(n=200) -> dict:
+    """The host ms of one fsync'd `journal` (a budget record, the hot
+    path's most frequent kind) on this machine's disk."""
+    led = RequestLedger(SRV18 / "journal_probe")
+    xs = []
+    for i in range(n):
+        t = time.perf_counter()
+        led.journal("budget", rid="req-0000", spent_s=0.001 * i)
+        xs.append(time.perf_counter() - t)
+    led.close()
+    return ms_summary(xs)
+
+
+def timed_journal(srv) -> list:
+    """Time every `journal` call of an in-process server's ledger."""
+    xs = []
+    fn = srv.ledger.journal
+
+    def timed(kind, **fields):
+        t = time.perf_counter()
+        fn(kind, **fields)
+        xs.append(time.perf_counter() - t)
+
+    srv.ledger.journal = timed
+    return xs
+
+
+JOURNAL_MS = journal_ms()
+say("journal host ms (fsync'd budget record, 200 calls)", **JOURNAL_MS,
+    card=CARD)
+
+# (a) a hard kill mid-dispatch and a restart on the same ledger: the eight
+# 20x5 LB2 ub=opt goldens through `client`, the first dispatch to reach
+# segment 6 killed as it starts (the server saves every 4 segments, so its
+# restart resumes from a checkpoint)
+led_a = SRV18 / "led_a"
+spool_a = SRV18 / "spool_a"
+t18a = time.perf_counter()
+clients18 = {i: subprocess.Popen(
+    [sys.executable, "-m", "tpu_tree_search_torch", "client", "--spool",
+     str(spool_a), "-i", str(i), "-l", "2", "-u", "1", "--chunk", "16384",
+     "--capacity", str(1 << 22), "--tag", f"ta{i:03d}", "--timeout", "300"],
+    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for i in I20X5}
+serve_a1 = serve_a2 = None
+try:
+    while len(list(spool_a.glob("*.req.json"))) < len(I20X5):
+        check(time.perf_counter() - t18a < 120
+              and all(p.poll() is None for p in clients18.values()),
+              "crash: request files not written")
+        time.sleep(0.1)
+    serve_a1 = popen(serve_cmd(spool_a, "--ledger", str(led_a),
+                               "--idle-exit", "60"), "serve_a1",
+                     {"TTS_FAULTS": "kill_server=6"})
+    serve_a1.wait(timeout=240)
+    t_kill_a = time.time()
+    check(serve_a1.returncode == 137,
+          f"crash: serve rc {serve_a1.returncode}\n"
+          f"{output('serve_a1')[-3000:]}")
+    killed_done = len(list(spool_a.glob("*.res.json")))
+    # the replay alone, on a copy of the ledger as the kill left it
+    shutil.copytree(led_a, SRV18 / "led_a_copy",
+                    ignore=shutil.ignore_patterns("workdir"))
+    t_rep = time.perf_counter()
+    replayed = RequestLedger(SRV18 / "led_a_copy")
+    replay_s = time.perf_counter() - t_rep
+    replay = {"seconds": replay_s, "records": replayed.replayed,
+              "requests": len(replayed.state.requests),
+              "truncated": replayed.truncated}
+    replayed.close()
+    t_spawn_a2 = time.time()
+    serve_a2 = popen(serve_cmd(spool_a, "--ledger", str(led_a),
+                               "--idle-exit", "4",
+                               child=SRV18 / "a2.json"), "serve_a2")
+    while any(p.poll() is None for p in clients18.values()):
+        check(serve_a2.poll() in (None, 0)
+              and time.perf_counter() - t18a < 400,
+              f"restart: rc {serve_a2.poll()}, clients waiting\n"
+              f"{output('serve_a2')[-3000:]}")
+        time.sleep(0.1)
+    outs18 = {i: p.communicate(timeout=30) for i, p in clients18.items()}
+    serve_a2.wait(timeout=120)
+finally:
+    reap(serve_a1, serve_a2, *clients18.values())
+crash_secs = time.perf_counter() - t18a
+check(serve_a2.returncode == 0,
+      f"restart: rc {serve_a2.returncode}\n{output('serve_a2')[-3000:]}")
+out_a2 = output("serve_a2")
+check("ledger: " in out_a2 and "restart #1" in out_a2,
+      f"restart: no ledger line\n{out_a2[-2000:]}")
+for i, (o, e) in outs18.items():
+    check(clients18[i].returncode == 0,
+          f"crash client ta{i:03d}: rc {clients18[i].returncode}\n{o}\n{e}")
+    r = json.loads(o[o.index("{"):])
+    got = (r["result"]["explored_tree"], r["result"]["explored_sol"],
+           r["result"]["best"])
+    check(r["state"] == "DONE" and got == GOLD_LB2[i],
+          f"crash client ta{i:03d}: {r['state']} {got} != {GOLD_LB2[i]}")
+st_a2 = child_stats(SRV18 / "a2.json")
+first_a2 = min(st_a2["first_segment_unix"].values())
+witness = {}
+for j in obs_journey.find_journeys(ledger_dirs=[led_a]):
+    check(j["budget_monotone"] and j["terminals"] == 1
+          and j["state"] == "DONE",
+          f"crash journey {j['tag']}: {j['state']}, {j['terminals']} "
+          f"terminals, monotone {j['budget_monotone']}")
+    witness[j["tag"]] = [e["spent_s"] for e in j["events"]
+                         if "spent_s" in e]
+check(sorted(witness) == [f"ta{i:03d}" for i in I20X5],
+      f"crash journeys: {sorted(witness)}")
+restart_line = next(ln for ln in out_a2.splitlines()
+                    if ln.startswith("ledger: "))
+say("crash + restart (8 x 20x5 LB2 ub=opt, chunk 16384, kill_server=6)",
+    seconds=crash_secs, done_before_kill=killed_done, replay=replay,
+    restart=restart_line,
+    restart_to_first_segment_s=first_a2 - t_spawn_a2,
+    kill_to_first_segment_s=first_a2 - t_kill_a,
+    spent_s_witnesses=witness, journal_ms=st_a2["journal_ms"],
+    tick_ms=st_a2["tick_ms"], peak_bytes=st_a2["peak_bytes"],
+    launches=st_a2["launches"], card=CARD)
+
+# (b) failover between two processes on the card: A killed mid-request,
+# B adopts its ledger, A started again boots fenced
+fleet_b = SRV18 / "fleet_b"
+FO_ENV = {"TTS_LEASE_TTL_S": "2"}
+fo_flags = ("--fleet-dir", str(fleet_b), "--failover")
+srv_spool.submit_file(SRV18 / "spool_fa", {
+    "problem": "pfsp", "inst": BIG, "lb": 2, "ub": "opt", "chunk": 16384,
+    "capacity": 1 << 22, "tag": f"fo{BIG:03d}", "segment_iters": 8})
+t18b = time.perf_counter()
+proc_b = proc_a = proc_a2 = None
+try:
+    proc_b = popen(serve_cmd(SRV18 / "spool_fb", "--ledger",
+                             str(fleet_b / "b"), "--idle-exit", "600",
+                             *fo_flags, child=SRV18 / "b.json"),
+                   "serve_b", FO_ENV)
+    while "serving:" not in output("serve_b"):
+        check(time.perf_counter() - t18b < 120 and proc_b.poll() is None,
+              f"failover: B never served\n{output('serve_b')[-3000:]}")
+        time.sleep(0.1)
+    proc_a = popen(serve_cmd(SRV18 / "spool_fa", "--ledger",
+                             str(fleet_b / "a"), "--idle-exit", "60",
+                             *fo_flags), "serve_a",
+                   {**FO_ENV, "TTS_FAULTS": "kill_server=6"})
+    while proc_a.poll() is None:
+        check(time.perf_counter() - t18b < 240, "failover: A never died")
+        time.sleep(0.02)
+    t_kill_b = time.time()
+    check(proc_a.returncode == 137, f"failover: A rc {proc_a.returncode}\n"
+          f"{output('serve_a')[-3000:]}")
+    a_before = segment_bytes(fleet_b / "a")
+
+    def terminal_b():
+        return [r for r in obs_journey.load_ledger_dir(fleet_b / "b")
+                if r.get("k") == "terminal"]
+
+    while not terminal_b():
+        check(time.perf_counter() - t18b < 300 and proc_b.poll() is None,
+              f"failover: B never finished the adopted request\n"
+              f"{output('serve_b')[-3000:]}")
+        time.sleep(0.1)
+    a_adopted = segment_bytes(fleet_b / "a")
+    # the stale owner restarts while B holds its lease
+    # (its own empty spool: a fenced server refuses every admission, and
+    # the request lives on B now)
+    proc_a2 = popen(serve_cmd(SRV18 / "spool_fa2", "--ledger",
+                              str(fleet_b / "a"), "--idle-exit", "2",
+                              *fo_flags), "serve_a2f", FO_ENV)
+    proc_a2.wait(timeout=120)
+    a_after = segment_bytes(fleet_b / "a")
+    proc_b.send_signal(signal.SIGTERM)
+    proc_b.wait(timeout=120)
+finally:
+    reap(proc_a, proc_b, proc_a2)
+fo_secs = time.perf_counter() - t18b
+(term_b,) = terminal_b()
+res_b = term_b["snapshot"]["result"]
+got_b = (res_b["explored_tree"], res_b["explored_sol"], res_b["best"])
+check(term_b["state"] == "DONE" and got_b == GOLD_LB2[BIG],
+      f"failover: adopted ta{BIG:03d} {term_b['state']} {got_b}")
+check(proc_b.returncode == 0, f"failover: B rc {proc_b.returncode}\n"
+      f"{output('serve_b')[-3000:]}")
+out_a2f = output("serve_a2f")
+check(proc_a2.returncode == 0 and "FENCED-mode" in out_a2f
+      and "exited without commits" in out_a2f,
+      f"failover: stale A rc {proc_a2.returncode}\n{out_a2f[-3000:]}")
+check(a_after == a_adopted, "failover: the fenced A wrote to its ledger")
+check(srv_lease.read_lease(fleet_b / "a").epoch == 2,
+      "failover: A's lease epoch after the takeover")
+st_b = child_stats(SRV18 / "b.json")
+(adopt_b,) = st_b["adopted"]
+check(adopt_b["outcome"] == "adopted" and adopt_b["moved"] == 1,
+      f"failover: {adopt_b}")
+first_b = min(st_b["first_segment_unix"].values())
+jr = subprocess.run(
+    [sys.executable, "-m", "tpu_tree_search_torch", "journey", "--fleet-dir",
+     str(fleet_b), "--tag", f"fo{BIG:03d}", "--json"], cwd=ROOT,
+    capture_output=True, text=True, timeout=120)
+check(jr.returncode == 0, f"journey: rc {jr.returncode}\n{jr.stderr}")
+(jb,) = json.loads(jr.stdout)["journeys"]
+check((jb["takeovers"], jb["terminals"], jb["state"]) == (1, 1, "DONE")
+      and jb["budget_monotone"]
+      and [r["owner"] for r in jb["rids"]] == ["a", "b"],
+      f"failover journey: {jb['rids']}, {jb['takeovers']} takeovers, "
+      f"{jb['terminals']} terminals")
+say(f"failover (ta{BIG:03d} LB2 ub=opt, chunk 16384, A killed at segment 6, "
+    "TTL 2 s)", seconds=fo_secs,
+    kill_to_adoption_s=adopt_b["unix"] - t_kill_b,
+    adoption_to_first_segment_s=first_b - adopt_b["unix"],
+    a_segments_before_takeover=len(a_before),
+    journey_spent_s=jb["spent_s"], journal_ms=st_b["journal_ms"],
+    tick_ms=st_b["tick_ms"], peak_bytes=st_b["peak_bytes"],
+    launches=st_b["launches"], card=CARD)
+
+# (c) the pause_server drill in process: A pauses alive, B adopts in the
+# pause, A's next commit fences it (each server's checkpoints under its
+# ledger, the default layout)
+os.environ["TTS_LEASE_TTL_S"] = "2"
+fleet_c = SRV18 / "fleet_c"
+saves = []
+write_snapshot = checkpoint._write_snapshot
+
+
+def fenced_write(path, arrays):
+    """Record every checkpoint write's epoch, thread and outcome."""
+    ep = arrays.get("meta_lease_epoch")
+    row = {"t": time.time(), "epoch": None if ep is None else int(ep),
+           "thread": threading.current_thread().name,
+           "owner": Path(path).parent.parent.name}
+    try:
+        write_snapshot(path, arrays)
+        row["landed"] = True
+    except checkpoint.StaleCheckpointError:
+        row["landed"] = False
+        raise
+    finally:
+        saves.append(row)
+
+
+checkpoint._write_snapshot = fenced_write
+torch.cuda.reset_peak_memory_stats(DEV)
+srv_pa = service.SearchServer(n_submeshes=1, devices=[DEV],
+                              ledger_dir=str(fleet_c / "a"),
+                              fleet_dir=str(fleet_c), overlap=True,
+                              share_incumbent=False)
+srv_pb = None
+fence_raised = []
+fence_meta = srv_pa._ckpt_fence_meta
+
+
+def fence_meta_recorded():
+    """A's checkpoint fence, each LeaseLost it raises recorded."""
+    try:
+        return fence_meta()
+    except srv_lease.LeaseLost:
+        fence_raised.append(threading.current_thread().name)
+        raise
+
+
+srv_pa._ckpt_fence_meta = fence_meta_recorded
+try:
+    def scenario_c():
+        global srv_pb
+        rid_a = srv_pa.submit(req17(BIG, segment_iters=8,
+                                    tag=f"pz{BIG:03d}",
+                                    faults="pause_server=3:8"))
+        t0 = time.monotonic()
+        while not srv_lease.read_lease(fleet_c / "a").expired():
+            check(time.monotonic() - t0 < 120, "pause: A's lease never "
+                  "expired")
+            time.sleep(0.02)
+        srv_pb = service.SearchServer(n_submeshes=1, devices=[DEV],
+                                      ledger_dir=str(fleet_c / "b"),
+                                      fleet_dir=str(fleet_c), failover=True,
+                                      share_incumbent=False,
+                                      autostart=False)
+        ticks_c, _ = instrument(srv_pb)
+        jms_c = timed_journal(srv_pb)
+        srv_pb.start()
+        while srv_pb.watcher.takeovers < 1:
+            check(time.monotonic() - t0 < 120, "pause: B never adopted")
+            time.sleep(0.02)
+        t_adopt = time.time()
+        while not srv_pa.fenced:
+            check(time.monotonic() - t0 < 120, "pause: A never fenced")
+            time.sleep(0.02)
+        with srv_pb._lock:
+            rec_b = next(r for r in srv_pb.records.values()
+                         if r.request.tag == f"pz{BIG:03d}")
+        out = srv_pb.result(rec_b.id, timeout=240)
+        while srv_pa.status(rid_a)["state"] == "RUNNING":
+            check(time.monotonic() - t0 < 120, "pause: A's slot held")
+            time.sleep(0.02)
+        return rid_a, out, t_adopt, ticks_c, jms_c
+
+    (rid_pa, rec_pb, t_adopt_c, ticks_c, jms_c), counts, secs = dur_run(
+        "pause drill", ("expand_fronts", "lb2_sweep"), scenario_c)
+    state_pa = srv_pa.status(rid_pa)["state"]
+    fence_pa = srv_pa._fence_reason
+    epoch_pb = srv_pb.lease.epoch
+finally:
+    checkpoint._write_snapshot = write_snapshot
+    for srv in (srv_pb, srv_pa):
+        if srv is not None:
+            srv.close()
+    os.environ.pop("TTS_LEASE_TTL_S", None)
+served(f"adopted ta{BIG:03d} (pause drill)", rec_pb, GOLD_LB2[BIG])
+check(state_pa == "PREEMPTED" and fence_raised
+      and "epoch 2" in (fence_pa or ""),
+      f"pause: A {state_pa}, fence {fence_pa}, saves refused by the "
+      f"lease {fence_raised}")
+# after the adoption B's saves land under B with B's epoch; A's executor
+# lands none (its save raises LeaseLost before it is written), so only a
+# save A's writer thread had queued before can still land, under A
+late = [r for r in saves if r["t"] > t_adopt_c]
+check(all(r["landed"] and r["epoch"] == epoch_pb for r in late
+          if r["owner"] == "b")
+      and any(r["owner"] == "b" for r in late)
+      and all(r["thread"] == "tts-ckpt-writer" for r in late
+              if r["owner"] == "a"),
+      f"pause: writes after the adoption {late}")
+terms_c = {d: [r["rid"] for r in obs_journey.load_ledger_dir(fleet_c / d)
+               if r.get("k") == "terminal"] for d in ("a", "b")}
+check(terms_c == {"a": [], "b": [rec_pb.id]}, f"pause: terminals {terms_c}")
+(jc,) = obs_journey.find_journeys(fleet_dir=fleet_c, tag=f"pz{BIG:03d}")
+check(jc["terminals"] == 1 and jc["state"] == "DONE",
+      f"pause journey: {jc['terminals']} terminals, {jc['state']}")
+say(f"pause_server drill (ta{BIG:03d}, overlap on, pause 8 s at segment 3, "
+    "TTL 2 s)", seconds=secs, launches=counts, a_state=state_pa,
+    fence=fence_pa, lease_lost_at_save=fence_raised, saves_after_adoption=[
+        {k: r[k] for k in ("owner", "epoch", "thread", "landed")}
+        for r in late],
+    refused=sum(1 for r in late if not r["landed"]),
+    journal_ms=ms_summary(jms_c), tick_ms=ms_summary(ticks_c),
+    peak_bytes=torch.cuda.max_memory_allocated(DEV), card=CARD)
+
+# (d) portfolio races on three submeshes of one worker on the card
+srv_pf = service.SearchServer(n_submeshes=3, devices=[DEV] * 3,
+                              workdir=SRV18 / "wd_d",
+                              ledger_dir=str(SRV18 / "led_d"),
+                              share_incumbent=True, autostart=False)
+ticks_d, _ = instrument(srv_pf)
+jms_d = timed_journal(srv_pf)
+torch.cuda.reset_peak_memory_stats(DEV)
+try:
+    def race(i, **kw):
+        rid = srv_pf.submit(req17(i, segment_iters=8, portfolio=3,
+                                  tag=f"race{i:03d}", **kw))
+        srv_pf.start()
+        t0 = time.perf_counter()
+        parent = srv_pf.result(rid, timeout=240)
+        wall = time.perf_counter() - t0
+        members = [srv_pf.result(m, timeout=240)
+                   for m in parent.portfolio_members]
+        return parent, members, wall
+
+    with fresh_log() as log_d:
+        (race3, mem3, wall3), counts3, _ = dur_run(
+            "race ta003", ("expand_bounds", "lb2_sweep"), lambda: race(
+                3, capacity=1 << 21))
+    (race21, mem21, wall21), counts21, _ = dur_run(
+        "race ta021", ("fused_expand",), lambda: race(
+            21, chunk=65536, deadline_s=3.0))
+    solos = {}
+    for m in mem3:
+        cfg = m.portfolio_config
+        rid = srv_pf.submit(req17(3, lb=cfg["lb_kind"], capacity=1 << 21,
+                                  segment_iters=8, deadline_s=8.0,
+                                  tag=f"solo{cfg['lb_kind']}"))
+        t0 = time.perf_counter()
+        rec = srv_pf.result(rid, timeout=240)
+        solos[cfg["lb_kind"]] = {
+            "state": rec.state, "wall_s": time.perf_counter() - t0,
+            "tree": rec.result.explored_tree,
+            "evals": int(np.asarray(rec.result.per_device.get(
+                "evals", [0])).sum())}
+    snap_d = srv_pf.status_snapshot()
+finally:
+    srv_pf.close()
+check(race3.state == "DONE"
+      and int(race3.result.best) == GOLD_LB2[3][2],
+      f"race ta003: {race3.state} best {race3.result}")
+findings = audit.check_result(race3.result)
+check(all(f.ok for f in findings),
+      f"race ta003 audit: {[f.invariant for f in findings if not f.ok]}")
+losers = [m for m in mem3 if m.id != race3.portfolio_winner]
+check([m.state for m in losers] == ["CANCELLED"] * 2,
+      f"race ta003 losers: {[(m.id, m.state) for m in losers]}")
+recs_d = log_d.records()
+win_seq = next(r["seq"] for r in recs_d if r.get("name") == "portfolio.win")
+late_d = [r for r in recs_d if r.get("name") == "request.dispatch"
+          and r["seq"] > win_seq]
+check(not late_d, f"race ta003: dispatches after the proof {late_d}")
+check(race21.state == "DEADLINE"
+      and all(m.state == "DEADLINE" for m in mem21)
+      and race21.result is not None,
+      f"race ta021: {race21.state}, members {[m.state for m in mem21]}")
+pf_records = [r for r in obs_journey.load_ledger_dir(SRV18 / "led_d")
+              if r.get("k") == "portfolio"]
+check(len(pf_records) == 2, f"races journaled: {len(pf_records)}")
+
+
+def member_row(m):
+    res = m.result
+    return {"lb_kind": m.portfolio_config["lb_kind"], "state": m.state,
+            "tree": None if res is None else res.explored_tree,
+            "evals": None if res is None else int(np.asarray(
+                res.per_device.get("evals", [0])).sum())}
+
+
+say("portfolio=3 races (three submeshes of one worker: ta003 LB2/LB1_d/LB1 "
+    "chunk 16384; ta021 chunk 65536 with a 3 s deadline)",
+    ta003={"wall_s": wall3, "winner": race3.portfolio_config,
+           "members": [member_row(m) for m in mem3],
+           "launches": counts3, "solo": solos},
+    ta021={"wall_s": wall21, "state": race21.state,
+           "best": int(race21.result.best),
+           "members": [member_row(m) for m in mem21],
+           "launches": counts21},
+    portfolio=snap_d["portfolio"], journal_ms=ms_summary(jms_d),
+    tick_ms=ms_summary(ticks_d),
+    peak_bytes=torch.cuda.max_memory_allocated(DEV), card=CARD)
+shutil.rmtree(SRV18)
+for key in ("expand_bounds", "expand_emit", "lb2_sweep", "fused_expand"):
+    check(DUR[key] > 0, f"phase 18: {key} never launched")
+say("phase 18 seconds", seconds=time.perf_counter() - t_phase18,
+    dur_launches=DUR, card=CARD)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
@@ -3832,6 +4429,7 @@ for r in RESULTS:
     r["mb_launches"] = MB[key]
     r["obs_launches"] = OBS[key]
     r["serve_launches"] = SRV[key]
+    r["dur_launches"] = DUR[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,17 @@ with what the process holds; `print_device_info` prints JAX's line;
 `distributed.search` on the CPU emits one `resource.sample` a segment, as
 JAX's does for the same search, with the same counts, and a sample that
 raises never stops it; the daemon thread runs only for `period_s > 0`.
-The H100 rates of `chip_smoke.py`'s bounds live in `utils/device_info`."""
+The H100 rates of `chip_smoke.py`'s bounds live in `utils/device_info`.
+
+Each test reads only what the samplers it started recorded: the events of
+its own thread (or its daemon's registry), and the one-shot gauges as the
+process's count of running daemons says they are published. A sampler an
+earlier test file left running in the same process (a server that was
+never closed) then changes nothing here."""
 
 import contextlib
 import io
+import threading
 import time
 from pathlib import Path
 
@@ -60,7 +67,18 @@ def series(reg, name: str) -> list:
 
 
 def events(log, name: str) -> list:
-    return [r for r in log.records() if r.get("name") == name]
+    """The `name` events this test's thread recorded (a daemon left
+    running by another test records on its own thread)."""
+    here = threading.current_thread().name
+    return [r for r in log.records()
+            if r.get("name") == name and r.get("thread") == here]
+
+
+def publishes(res) -> bool:
+    """Whether a one-shot `sample_now` of package module `res` publishes
+    gauges: only while no daemon sampler of that package runs in the
+    process (a running daemon owns them)."""
+    return res._ACTIVE_DAEMONS == 0
 
 
 def test_gauges_help_labels_and_event_fields_are_jax():
@@ -158,8 +176,9 @@ def test_platform_picks_the_backend_on_a_card_host(monkeypatch):
     assert tdi.describe_devices("cpu")[0]["platform"] == "cpu"
     reg = tmetrics.Registry("tts")
     tresource.sample_now(registry=reg, platform="cpu")
-    assert [lb for lb, _ in series(reg, "tts_device_bytes_in_use")] == [
-        {"device": "0", "platform": "cpu"}]
+    assert [lb for lb, _ in series(reg, "tts_device_bytes_in_use")] == (
+        [{"device": "0", "platform": "cpu"}] if publishes(tresource)
+        else [])
     assert series(reg, "tts_device_bytes_limit") == []
     with pytest.raises(ValueError, match="platform"):
         tdi.memory_snapshot("tpu")
@@ -194,8 +213,11 @@ def test_search_samples_once_a_segment_like_jax(monkeypatch):
     assert len(events(ttracelog.get(), "resource.sample")) == len(reps_t)
     assert len(events(jtracelog.get(), "resource.sample")) == len(reps_j)
     use = series(tmetrics.default(), "tts_device_bytes_in_use")
-    assert [lb for lb, _ in use] == [{"device": "0", "platform": "cpu"}]
-    assert series(tmetrics.default(), "tts_host_rss_bytes")
+    if publishes(tresource):
+        assert [lb for lb, _ in use] == [{"device": "0", "platform": "cpu"}]
+        assert series(tmetrics.default(), "tts_host_rss_bytes")
+    else:
+        assert use == []
 
     # the heartbeat names its workers' backend, so a CPU-worker search on
     # a host with a card samples the CPU
@@ -217,16 +239,19 @@ def test_search_samples_once_a_segment_like_jax(monkeypatch):
 def test_daemon_thread_and_its_switch():
     """`period_s <= 0` starts no thread; a running daemon samples on its
     cadence and owns the gauges (a one-shot `sample_now` then records its
-    event only, in both packages), and `close` retires its series."""
-    for res, met, log in ((jresource, jmetrics, jtracelog),
-                          (tresource, tmetrics, ttracelog)):
+    event only, in both packages), and `close` retires its series and
+    gives the gauges back to the one-shot sweeps (unless another daemon
+    still runs in the process)."""
+    for res, met in ((jresource, jmetrics), (tresource, tmetrics)):
         off = res.ResourceSampler(registry=met.Registry("tts"), period_s=0)
         assert off._thread is None
+        others = res._ACTIVE_DAEMONS
         reg = met.Registry("tts")
         on = res.ResourceSampler(registry=reg, period_s=0.01)
         try:
+            assert res._ACTIVE_DAEMONS == others + 1
             deadline = time.monotonic() + 10
-            while not events(log.get(), "resource.sample"):
+            while not series(reg, "tts_host_rss_bytes"):
                 assert time.monotonic() < deadline
                 time.sleep(0.01)
             glob = met.Registry("tts")
@@ -234,9 +259,10 @@ def test_daemon_thread_and_its_switch():
             assert [m for m in glob.metrics() if m.samples()] == []
         finally:
             on.close()
+        assert res._ACTIVE_DAEMONS == others
         assert all(not m.samples() for m in reg.metrics())
         res.sample_now(registry=glob)
-        assert series(glob, "tts_host_rss_bytes")
+        assert bool(series(glob, "tts_host_rss_bytes")) == publishes(res)
 
 
 def test_h100_rates_live_in_device_info():

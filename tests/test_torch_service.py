@@ -13,7 +13,9 @@ hits, another lb misses), two instances of one class through one cached
 loop (each its solo run, the caller's tables untouched), megabatching, a
 failed first dispatch redispatched with the remediation journal, the
 `serve` and `client` commands, and the left-out arguments naming their
-ROADMAP item. One scenario runs through both servers and their request
+ROADMAP item (the durability layer's own tests are test_torch_ledger*.py,
+test_torch_lease*.py, test_torch_failover.py, test_torch_portfolio*.py and
+test_torch_journey*.py). One scenario runs through both servers and their request
 and status snapshots are compared key by key, the wall-clock keys listed
 in `WALL` left out. Tolerance is exact: all of it is integer and host
 logic."""
@@ -57,17 +59,13 @@ WALL = {"t", "uptime_s", "spent_s", "elapsed_s", "heartbeat_age_s",
 # metric families left out: histograms and gauges of wall-clock seconds and
 # rates, the memory sampler's (the port's CPU record is the process's
 # resident set, JAX's one series per CPU device), the health daemon's
-# evaluation count (its interval against the run's wall time), and the
-# portfolio coordinator's series (JAX registers them at construction;
-# portfolio racing is ROADMAP A9c)
+# evaluation count (its interval against the run's wall time)
 WALL_METRICS = {"tts_queue_wait_seconds", "tts_request_spent_seconds",
                 "tts_compile_seconds", "tts_lane_seconds_total",
                 "tts_capacity_headroom", "tts_capacity_predicted_wait_s",
                 "tts_capacity_utilization", "tts_device_bytes_in_use",
                 "tts_device_bytes_peak", "tts_device_bytes_limit",
-                "tts_host_rss_bytes", "tts_health_evaluations_total",
-                "tts_portfolio_active", "tts_portfolio_members_total",
-                "tts_portfolio_races_total"}
+                "tts_host_rss_bytes", "tts_health_evaluations_total"}
 
 
 @pytest.fixture(autouse=True)
@@ -408,29 +406,14 @@ def test_serve_and_client_commands(tmp_path):
 
 
 @pytest.mark.parametrize("kw,env,item", [
-    (dict(ledger_dir="L"), {}, "A9c"), ({}, {"TTS_LEDGER": "L"}, "A9c"),
-    (dict(fleet_dir="F"), {}, "A9c"), ({}, {"TTS_FLEET_DIR": "F"}, "A9c"),
-    (dict(failover=True), {}, "A9c"), ({}, {"TTS_FAILOVER": "1"}, "A9c"),
-    (dict(aot_cache_dir="A"), {}, "A9c"),
-    ({}, {"TTS_AOT_CACHE": "A"}, "A9c"),
-    ({}, {"TTS_PORTFOLIO": "2"}, "A9c"),
-    (dict(portfolio=2), {}, "A9c"), (dict(journeys=True), {}, "A9c")])
+    (dict(aot_cache_dir="A"), {}, "A9d"),
+    ({}, {"TTS_AOT_CACHE": "A"}, "A9d")])
 def test_left_out_server_parts_name_their_roadmap_item(tmp_path,
                                                       monkeypatch, kw, env,
                                                       item):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     match = f"ROADMAP {item}"
-    if "portfolio" in kw or "journeys" in kw:
-        with SearchServer(n_submeshes=1, devices=["cpu"], autostart=False,
-                          workdir=tmp_path, health_interval_s=0) as srv:
-            with pytest.raises(NotImplementedError, match=match):
-                if "journeys" in kw:
-                    srv.journeys()
-                else:
-                    srv.submit(SearchRequest(p_times=small(0).p_times,
-                                             portfolio=2, **KW))
-        return
     with pytest.raises(NotImplementedError, match=match):
         SearchServer(n_submeshes=1, devices=["cpu"], autostart=False,
                      workdir=tmp_path, **kw)
@@ -438,15 +421,10 @@ def test_left_out_server_parts_name_their_roadmap_item(tmp_path,
 
 @pytest.mark.parametrize("argv,item", [
     (["--http-port", "0"], "A10"), (["--otel-endpoint", "x"], "A10"),
-    (["--profile-dir", "p"], "A10"), (["--ledger", "l"], "A9c"),
-    (["--fleet-dir", "f"], "A9c"), (["--aot-cache", "a"], "A9c"),
-    (["--failover"], "A9c"), (["client", "--portfolio", "2"], "A9c")])
+    (["--profile-dir", "p"], "A10"), (["--aot-cache", "a"], "A9d")])
 def test_left_out_flags_name_their_roadmap_item(tmp_path, argv, item):
     sp = str(tmp_path / "spool")
-    if argv[0] == "client":
-        args = ["client", "--spool", sp, "--size", "7"] + argv[1:]
-    else:
-        args = ["serve", "--spool", sp, "--device", "cpu"] + argv
+    args = ["serve", "--spool", sp, "--device", "cpu"] + argv
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc = cli.main(args)

@@ -1,6 +1,6 @@
 """Command line of the port: the `pfsp`, `nqueens`, `solve`, `devices`,
-`serve` and `client` subcommands, on one device or on several workers
-(`-D`).
+`serve`, `client` and `journey` subcommands, on one device or on several
+workers (`-D`).
 
 Reproduces these paths of `tpu_tree_search/cli.py`:
 `run_pfsp` -> `device.search`, and with `--segment-iters` or
@@ -48,10 +48,21 @@ and `client` drops one request into it and waits (JAX `run_serve`,
 `run_client`): `serve --device cpu -D n` serves on n CPU workers, on the
 card every visible card (or `-D` of them), partitioned into `--submeshes`.
 `--prewarm`, `--megabatch`, `--remediate`, `--overlap`, `--ladder`,
-`--tune-cache` and the drain on SIGTERM work as in JAX; `--http-port`,
-`--otel-endpoint` and `--profile-dir` exit 1 naming ROADMAP A10, and
-`--ledger`, `--fleet-dir`, `--failover`, `--aot-cache` and `client
---portfolio` naming A9c.
+`--tune-cache` and the drain on SIGTERM work as in JAX, and so do the
+durability flags: `--ledger DIR` (the request ledger, replayed at boot; the
+workdir defaults to `DIR/workdir`), `--fleet-dir F` (a fenced lease on the
+ledger and a watcher over the peers' leases under F) and `--failover`
+(adopt an expired peer's ledger), with JAX's `ledger:` and `failover:`
+banner lines; a server that boots fenced serves nothing and exits 0, as
+does a SIGTERM drain. `client --portfolio K` races K configurations.
+`--http-port`, `--otel-endpoint` and `--profile-dir` exit 1 naming ROADMAP
+A10, and `--aot-cache` naming A9d.
+
+`journey --ledger DIR` (repeatable) and/or `--fleet-dir F` prints one
+stitched timeline per logical request across restarts and takeovers
+(`obs/journey.py`, JAX `run_journey`): `--tag T` filters, `--json` prints
+the machine form, exit 2 without a directory and 1 when a tag matches
+nothing. It only reads files and starts nothing on the card.
 
 `--multihost` (before the subcommand) joins a `torch.distributed` job of
 several processes, one per card or several sharing one, from the
@@ -91,6 +102,8 @@ on the card. `--csv` appends the reference's CSV row
     python -m tpu_tree_search_torch serve --spool sp --idle-exit 30 &
     python -m tpu_tree_search_torch client --spool sp -i 3 -l 2 \\
         --chunk 16384
+    python -m tpu_tree_search_torch serve --spool sp --ledger L &
+    python -m tpu_tree_search_torch journey --ledger L --tag T
 """
 
 from __future__ import annotations
@@ -561,7 +574,8 @@ def _serve_args(sub) -> None:
                         "CPU (0: one a submesh)")
     p.add_argument("--workdir", type=str, default=None,
                    help="checkpoint directory for preempted and deadline "
-                        "requests (default: a fresh temp dir)")
+                        "requests (default: <ledger>/workdir with "
+                        "--ledger, else a fresh temp dir)")
     p.add_argument("--queue-depth", type=int,
                    default=_cfg.env_int("TTS_QUEUE_DEPTH"),
                    help="admission bound: requests beyond it are rejected "
@@ -606,7 +620,7 @@ def _serve_args(sub) -> None:
                    help="share incumbents across concurrent requests of "
                         "one instance (also via TTS_SHARE_INCUMBENT=1)")
     p.add_argument("--aot-cache", type=str, default=None,
-                   help="the disk executor cache (ROADMAP A9c: refused)")
+                   help="the disk executor cache (ROADMAP A9d: refused)")
     p.add_argument("--tune-cache", type=str, default=None,
                    help="tuning-cache directory (also via TTS_TUNE_CACHE): "
                         "requests with open knobs resolve from it")
@@ -631,11 +645,28 @@ def _serve_args(sub) -> None:
                    help="execute the remediation policy table (also via "
                         "TTS_REMEDIATE=1; default: observe only)")
     p.add_argument("--ledger", type=str, default=None,
-                   help="the request ledger (ROADMAP A9c: refused)")
+                   help="durable request-ledger directory (also via "
+                        "TTS_LEDGER; service/ledger.py): every request "
+                        "state transition is journaled (fsync'd, "
+                        "CRC-stamped JSONL) before it is acknowledged, "
+                        "and a restarted server replays it at boot: "
+                        "queued and active requests are admitted again "
+                        "with their budgets and resume from their "
+                        "checkpoints, terminal results are served again, "
+                        "quarantines and admission pauses are restored "
+                        "(default workdir with it: <ledger>/workdir)")
     p.add_argument("--fleet-dir", type=str, default=None,
-                   help="fleet failover (ROADMAP A9c: refused)")
+                   help="shared fleet root (also via TTS_FLEET_DIR; "
+                        "service/lease.py, failover.py): a fenced lease "
+                        "on the --ledger dir (TTL TTS_LEASE_TTL_S), every "
+                        "ledger append and checkpoint save stamped with "
+                        "its epoch, and a watcher over the peers' leases "
+                        "under this root. Requires --ledger")
     p.add_argument("--failover", action="store_true",
-                   help="fleet failover (ROADMAP A9c: refused)")
+                   help="adopt a peer's ledger when its lease expires "
+                        "(also via TTS_FAILOVER=1): CAS its epoch, admit "
+                        "its requests here, keep its lease so the stale "
+                        "owner boots fenced. Default: observe only")
     p.add_argument("--drain-timeout", type=float, default=None,
                    help="SIGTERM/SIGINT drain budget in seconds (also via "
                         "TTS_DRAIN_TIMEOUT_S, default "
@@ -675,7 +706,10 @@ def _client_args(sub) -> None:
                    help="checkpoint tag; resubmitting a DEADLINE request's "
                         "tag with a larger budget extends it")
     p.add_argument("--portfolio", type=int, default=None, metavar="K",
-                   help="portfolio racing (ROADMAP A9c: refused)")
+                   help="bound-portfolio racing: fan out as K sibling "
+                        "configurations (bound tiers, tuned chunk plans) "
+                        "sharing one incumbent board; the first proof "
+                        "wins, the losers cancel (service/portfolio.py)")
     p.add_argument("--timeout", type=float, default=None,
                    help="give up waiting for the result after N seconds")
     p.set_defaults(fn=run_client)
@@ -743,9 +777,7 @@ def run_serve(args) -> int:
     from .service import SearchServer, spool
 
     for flag, item in (("http_port", "A10"), ("otel_endpoint", "A10"),
-                       ("profile_dir", "A10"), ("ledger", "A9c"),
-                       ("fleet_dir", "A9c"), ("aot_cache", "A9c"),
-                       ("failover", "A9c")):
+                       ("profile_dir", "A10"), ("aot_cache", "A9d")):
         value = getattr(args, flag)
         if value is not None and value is not False:     # --http-port 0
             raise _not_ported(f"--{flag.replace('_', '-')}", item, "serve")
@@ -761,9 +793,18 @@ def run_serve(args) -> int:
         _cfg.set_env(_cfg.REMEDIATE_FLAG, "1")
     if args.megabatch:
         _cfg.set_env(_cfg.MEGABATCH_FLAG, "1")
+    if args.fleet_dir:
+        # the environment too: the lease and watcher layers resolve
+        # TTS_FLEET_DIR at one site (the server constructor)
+        _cfg.set_env(_cfg.FLEET_DIR_ENV, args.fleet_dir)
+    if args.failover:
+        _cfg.set_env(_cfg.FAILOVER_FLAG, "1")
     if args.trace_file:
         tracelog.get().set_sink(args.trace_file)
         print(f"flight recorder: {args.trace_file}", flush=True)
+    # --ledger passes straight through: SearchServer resolves the
+    # TTS_LEDGER fallback itself and, with a ledger and no --workdir,
+    # keeps the checkpoints under <ledger>/workdir
     devices = _serve_workers(args)
     drain_evt = threading.Event()
     drain_timeout = (args.drain_timeout if args.drain_timeout is not None
@@ -782,6 +823,7 @@ def run_serve(args) -> int:
                       tune_cache_dir=args.tune_cache,
                       tune_at_boot=True if args.tune else None,
                       remediate=True if args.remediate else None,
+                      ledger_dir=args.ledger,
                       megabatch=True if args.megabatch else None,
                       batch_max=args.batch_max,
                       batch_age_s=args.batch_age_s) as srv:
@@ -791,6 +833,23 @@ def run_serve(args) -> int:
         print(f"remediation: "
               f"{'ACT' if srv.remediation.enabled else 'observe'}"
               f"-mode (TTS_REMEDIATE)", flush=True)
+        if srv.ledger is not None:
+            led = srv.ledger.snapshot()
+            rec = srv._recovered
+            print(f"ledger: {led['dir']} (restart "
+                  f"#{led['restarts']}, replayed "
+                  f"{led['replayed']} record(s), recovered "
+                  f"{rec['queued']}q/{rec['active']}a/"
+                  f"{rec['held']}h/{rec['terminal']}t, "
+                  f"truncated {led['truncated']})", flush=True)
+        if srv.lease is not None or srv.fenced:
+            mode = ("FENCED" if srv.fenced else
+                    ("ACT" if srv.watcher is not None
+                     and srv.watcher.act else "observe"))
+            epoch = srv.lease.epoch if srv.lease is not None else "-"
+            print(f"failover: {mode}-mode, lease epoch {epoch}, "
+                  f"ttl {_cfg.env_float('TTS_LEASE_TTL_S'):g}s "
+                  f"(TTS_FLEET_DIR/TTS_FAILOVER)", flush=True)
         if srv.tuner is not None and srv.tuner.cache is not None:
             print(f"tune cache: {srv.tuner.cache.root} "
                   f"({srv.tuner.cache.entries()} entr(y/ies), "
@@ -826,12 +885,21 @@ def run_serve(args) -> int:
             srv, args.spool, idle_exit_s=args.idle_exit,
             status_every_s=args.status_every or None,
             emit=lambda s: print(s, flush=True),
-            should_exit=drain_evt.is_set)
+            # a FENCED server (its lease lost to an adopter) stops
+            # serving the spool too: its requests live on the peer now
+            should_exit=lambda: drain_evt.is_set() or srv.fenced)
     watchdog = getattr(drain_evt, "watchdog", None)
     if watchdog is not None:
         watchdog.cancel()
     if drain_evt.is_set():
         print("drained cleanly", flush=True)
+    if srv.fenced:
+        # exit 0 on purpose: a fenced server did the right thing (no
+        # commit past the fence), and a nonzero exit would make a
+        # supervisor restart-loop a host whose ledger lives on a peer
+        print(f"fenced: {srv._fence_reason or 'lease lost'} — a peer "
+              "owns this ledger now; exited without commits",
+              flush=True)
     print(f"served {served} request(s)", flush=True)
     return 0
 
@@ -839,17 +907,16 @@ def run_serve(args) -> int:
 def run_client(args) -> int:
     """The JAX `run_client`: one request file into the spool, then its
     result; exit 0 when it is DONE."""
-    from .engine.distributed import _not_ported
     from .service import spool
 
-    if args.portfolio is not None:
-        raise _not_ported("--portfolio", "A9c", "client")
     payload = {"problem": args.problem,
                "priority": args.priority, "deadline_s": args.deadline,
                "chunk": args.chunk, "capacity": args.capacity,
                "tag": args.tag}
     if args.lb is not None:
         payload["lb"] = args.lb
+    if args.portfolio is not None:
+        payload["portfolio"] = args.portfolio
     if args.problem == "pfsp" and args.inst is not None:
         payload["inst"] = args.inst
         payload["ub"] = "opt" if args.ub == 1 else None
@@ -1010,12 +1077,63 @@ def build_parser() -> argparse.ArgumentParser:
 
     _serve_args(sub)
     _client_args(sub)
+    _journey_args(sub)
 
     p = sub.add_parser("devices",
                        help="describe the visible devices (the reference's "
                             "gpu_info, common/gpu_util.cu:5-17)")
     p.set_defaults(fn=run_devices)
     return ap
+
+
+def _journey_args(sub) -> None:
+    """The `journey` command's flags (JAX `cli.py` `_journey_parser`)."""
+    p = sub.add_parser(
+        "journey",
+        help="reconstruct request journeys from durable state "
+             "(obs/journey): one stitched timeline per logical request "
+             "across restarts, takeovers and portfolio fan-outs, read "
+             "from ledger and fleet directories; no server needed")
+    p.add_argument("--ledger", action="append", default=[],
+                   metavar="DIR",
+                   help="request-ledger directory (repeatable)")
+    p.add_argument("--fleet-dir", type=str, default=None,
+                   help="shared fleet root (TTS_FLEET_DIR): read every "
+                        "peer ledger under it")
+    p.add_argument("--store", type=str, default=None,
+                   help="flight-recorder store directory (TTS_OBS_STORE): "
+                        "fold its trace events into each journey")
+    p.add_argument("--tag", type=str, default=None,
+                   help="only journeys whose tag (or any member rid) "
+                        "matches")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable journeys instead of the report")
+    p.set_defaults(fn=run_journey)
+
+
+def run_journey(args) -> int:
+    """The JAX `run_journey`: exit 2 without a directory, 1 when a tag
+    matches no journey, else 0."""
+    from .obs import journey as journey_mod
+
+    if not args.ledger and not args.fleet_dir:
+        print("journey: need --ledger and/or --fleet-dir",
+              file=sys.stderr)
+        return 2
+    journeys = journey_mod.find_journeys(
+        ledger_dirs=args.ledger or None, fleet_dir=args.fleet_dir,
+        store=args.store, tag=args.tag)
+    if args.json:
+        print(journey_mod.to_json(journeys))
+    elif not journeys:
+        print("no journeys"
+              + (f" matching tag {args.tag!r}" if args.tag else ""))
+    else:
+        for j in journeys:
+            print(journey_mod.render_journey(j))
+    # a tag given but nothing matched: nonzero, so a caller checking for
+    # one journey cannot pass on an empty answer
+    return 0 if journeys or not args.tag else 1
 
 
 def run_devices(args) -> int:

@@ -1140,7 +1140,7 @@ def prewarm(p_times: np.ndarray, lb_kind: int = 1, chunk: int = 64,
     Returns the verdict of the top rung: "compile" (a fresh capture on a
     card, the loop built on the CPU), "warm" (ready already) or "skipped"
     (no executor cache, or a multi-process job, as in JAX); "disk" never
-    occurs (the disk tier is ROADMAP A9c)."""
+    occurs (the disk tier is ROADMAP A9d)."""
     from ..utils import config as _cfg
 
     if mesh.process_count() > 1:

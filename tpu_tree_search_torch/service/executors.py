@@ -34,7 +34,7 @@ card, "eager" on the CPU) and `source` ("capture"). A capture has no
 counterpart of XLA's `cost_analysis` or `memory_analysis`: `flops`,
 `bytes_accessed` and `temp_bytes` stay None, and `trace_s` and
 `deserialize_s` stay as JAX has them with nothing traced or loaded (0.0
-and None). The disk tier (`aot_cache`) is ROADMAP A9c.
+and None). The disk tier (`aot_cache`) is ROADMAP A9d.
 """
 
 from __future__ import annotations

@@ -5,9 +5,10 @@ Reproduces `tpu_tree_search/service/remediate.py`
 journal entries, `tts_remediations_total`, `tts_quarantined_submeshes`
 and `tts_admission_paused` series, observe and act modes. It subscribes to
 the port's `obs/health.HealthMonitor`; its canary probe is a
-`distributed.search` on the quarantined slot's workers. The hooks a
-request ledger replays at boot (`restore_pause`, `restore_quarantine`)
-come with the ledger (ROADMAP A9c).
+`distributed.search` on the quarantined slot's workers. A request ledger's
+replay at boot restores a pause (`restore_pause`, revalidated by the
+worker's `_check_restored_pause`) and a quarantine (`restore_quarantine`,
+its canary probe re-armed).
 
 A :class:`RemediationController` per `SearchServer` subscribes to the
 health monitor's alert transitions and executes bounded, journaled,
@@ -166,6 +167,11 @@ class RemediationController:
         self._rule_actions: dict[str, list] = {}  # guarded-by: self._lock
         self._submesh_fails: dict[int, list] = {}  # guarded-by: self._lock
         self._probes_due: dict[int, float] = {}   # guarded-by: self._lock
+        # a ledger-restored admission pause awaiting revalidation (the
+        # alert that caused it did not survive the crash, so no
+        # firing->resolved transition will ever clear it; the worker
+        # re-judges the rule itself on this cooldown instead)
+        self._pause_check_due: float | None = None  # guarded-by: self._lock
         self._probe_threads: dict = {}            # guarded-by: self._lock
         self._canaries = 0                        # guarded-by: self._lock
         self._lock = threading.Lock()
@@ -225,6 +231,8 @@ class RemediationController:
             # next canary comes due — an idle controller costs nothing
             with self._lock:
                 due = list(self._probes_due.values())
+                if self._pause_check_due is not None:
+                    due.append(self._pause_check_due)
             timeout = (max(0.05, min(due) - time.monotonic())
                        if due else None)
             self._wake.wait(timeout=timeout)
@@ -247,6 +255,11 @@ class RemediationController:
             except Exception as e:  # noqa: BLE001 — same stance
                 self._journal("quarantine", "canary_probe", "error",
                               detail={"error": repr(e)})
+            try:
+                self._check_restored_pause()
+            except Exception as e:  # noqa: BLE001 — same stance
+                self._journal("compile_storm", "resume_admission",
+                              "error", detail={"error": repr(e)})
 
     def close(self) -> None:
         self._closing.set()
@@ -453,7 +466,8 @@ class RemediationController:
                                          "is worse than a degraded "
                                          "one"})
             return
-        # the server executes the hold
+        # the server executes (and ledger-journals) the hold: a crash
+        # after this point restarts with the submesh still quarantined
         self.server.quarantine_submesh(
             submesh,
             f"{self.quarantine_fails} failures inside "
@@ -469,6 +483,72 @@ class RemediationController:
         self._journal("quarantine", "quarantine_submesh", "applied",
                       detail={"submesh": submesh,
                               "probe_in_s": self.probe_s})
+        self._wake.set()
+
+    def restore_pause(self, reason: str) -> None:
+        """A ledger replay restored an admission pause. The valve holds
+        (a crash is not a resume); an ENABLED controller revalidates it
+        on a cooldown — the causing alert died with the old process, so
+        waiting for its firing->resolved reversal would strand the
+        valve shut forever. Observe mode leaves it to the operator."""
+        with self._lock:
+            if self.enabled:
+                self._pause_check_due = time.monotonic() + self.probe_s
+        self._journal("compile_storm", "pause_admission", "restored",
+                      detail={"reason": reason,
+                              "revalidate": self.enabled})
+        self._wake.set()
+
+    def _check_restored_pause(self) -> None:
+        """Worker tick: resume a restored pause once the compile_storm
+        rule is demonstrably quiet (no pending/firing alert); re-arm
+        the cooldown while it is not (or while we cannot tell)."""
+        with self._lock:
+            due = self._pause_check_due
+        if due is None or time.monotonic() < due:
+            return
+        if self.server.admission_paused() is None:
+            with self._lock:
+                self._pause_check_due = None
+            return
+        active = True
+        mon = getattr(self.server, "health", None)
+        if mon is not None:
+            try:
+                active = any(
+                    a.get("rule") == "compile_storm"
+                    and a.get("state") in ("pending", "firing")
+                    for a in mon.alerts_snapshot().get("alerts", []))
+            except Exception:  # noqa: BLE001 — cannot tell: stay shut
+                active = True
+        with self._lock:
+            if active:
+                self._pause_check_due = time.monotonic() + self.probe_s
+                return
+            self._pause_check_due = None
+        self._act_resume_admission({})
+        self._journal("compile_storm", "resume_admission", "applied",
+                      detail={"why": "ledger-restored pause "
+                                     "revalidated: compile_storm "
+                                     "quiet"})
+
+    def restore_quarantine(self, submesh: int) -> None:
+        """A ledger replay restored this slot's quarantine (the slot
+        flags are already set by the server's boot pass): re-arm the
+        canary probe so an enabled controller can readmit it the same
+        way it would have without the crash. In observe mode the
+        quarantine stands until an operator readmits — a restart must
+        not be a backdoor readmission."""
+        with self._lock:
+            if self.enabled:
+                self._probes_due[int(submesh)] = (time.monotonic()
+                                                  + self.probe_s)
+        self._g_quar.set(float(sum(
+            1 for s in self.server.slots if s.quarantined)))
+        self._journal("quarantine", "quarantine_submesh", "restored",
+                      detail={"submesh": int(submesh),
+                              "why": "replayed from the request ledger",
+                              "probe_armed": self.enabled})
         self._wake.set()
 
     def _run_due_canaries(self) -> None:

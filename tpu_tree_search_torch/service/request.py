@@ -20,10 +20,10 @@ Lifecycle::
 
 A PREEMPTED request was checkpointed at its stop boundary, so its next
 dispatch resumes it, on any submesh (the elastic reshard of
-`engine/checkpoint.reshard_state`). The record fields of the parts still to
-port (the request ledger, fleet failover and portfolio racing, ROADMAP A9c)
-are left out; their snapshot keys are absent in JAX too while those parts
-are off.
+`engine/checkpoint.reshard_state`). A record also carries what the request
+ledger (`ledger_budget_t`), fleet failover (`origin_rid`, `origin_owner`)
+and portfolio racing (`portfolio_*`) need; their snapshot keys appear only
+when they are set, as in JAX.
 """
 
 from __future__ import annotations
@@ -108,9 +108,12 @@ class SearchRequest:
     # content-hash key); a share_group narrows that to requests naming
     # the same group — the tenant/tag-family isolation knob
     share_group: str | None = None
-    # bound-portfolio racing: K >= 2 races K sibling configurations in
-    # JAX; validated here as in JAX, then refused by the port's server
-    # (ROADMAP A9c). None (default) = no race
+    # bound-portfolio racing (service/portfolio.py): K >= 2 fans this
+    # request out as K sibling sub-requests over distinct
+    # configurations (bound tiers, tuned chunk plans) sharing one
+    # incumbent board; the first sibling to complete with a proof wins
+    # and the losers cancel. None (default) = no race; the server may
+    # fill in TTS_PORTFOLIO when set
     portfolio: int | None = None
     # accounting tenant: an OPAQUE label the client may stamp on the
     # request ("-" = unattributed). Rides the admit ledger record, the
@@ -243,9 +246,32 @@ class RequestRecord:
     # meta) is absent. Updated from the heartbeat thread; its state
     # vector rides checkpoint meta so resume continues it warm
     estimator: object | None = None
+    # last time this request's cumulative spent_s was journaled to the
+    # request ledger (service/ledger): the heartbeat hook throttles
+    # budget records to LEDGER_BUDGET_EVERY_S so a fast-heartbeating
+    # request does not fsync the journal at heartbeat rate
+    ledger_budget_t: float = 0.0
     result: object | None = None        # DistResult (final or partial)
     seq: int = 0                        # FIFO tiebreak within a priority
     stop_reason: str | None = None      # why the current stop was asked
+    # bound-portfolio racing (service/portfolio.py). A PARENT record
+    # (portfolio_members set) is never queued or dispatched: it
+    # finalizes from its members' terminals, first proof wins, the rest
+    # cancel. A MEMBER record (portfolio_parent set) runs through the
+    # ordinary scheduler; its terminal feeds the parent's race.
+    portfolio_members: list | None = None   # member rids, fan-out order
+    portfolio_parent: str | None = None     # parent rid on members
+    portfolio_winner: str | None = None     # winning member rid (parent)
+    portfolio_config: dict | None = None    # member's raced config, or
+    #                                         the winner's on the parent
+    portfolio_cancelled: int = 0            # losers cancelled (parent)
+    # failover id lineage (SearchServer.adopt_ledger): an adopted orphan
+    # is admitted again under a FRESH rid; these point back at the rid
+    # it held in the dead owner's ledger (and that ledger's directory
+    # name), so the journey reconstructor stitches ONE request journey
+    # across the takeover. None on every locally admitted request.
+    origin_rid: str | None = None
+    origin_owner: str | None = None
     done_event: threading.Event = dataclasses.field(
         default_factory=threading.Event)
 
@@ -305,6 +331,27 @@ class RequestRecord:
                 else None),
             "progress": dict(self.progress),
         }
+        if self.origin_rid is not None:
+            # failover lineage: present only on adopted records, so the
+            # snapshot (and the terminal ledger record that embeds it)
+            # names the rid and owner this request continued from
+            out["origin_rid"] = self.origin_rid
+            out["origin_owner"] = self.origin_owner
+        if self.portfolio_members is not None:
+            out["portfolio"] = {
+                "k": len(self.portfolio_members),
+                "members": list(self.portfolio_members),
+                "winner": self.portfolio_winner,
+                "winner_config": (dict(self.portfolio_config)
+                                  if self.portfolio_config else None),
+                "cancelled": self.portfolio_cancelled,
+            }
+        elif self.portfolio_parent is not None:
+            out["portfolio"] = {
+                "parent": self.portfolio_parent,
+                "config": (dict(self.portfolio_config)
+                           if self.portfolio_config else None),
+            }
         res = self.result
         if res is not None:
             out["result"] = {

@@ -8,8 +8,14 @@ executor threads (`_dispatch`/`_execute`, `_on_finished`), the retry tier
 `_on_batch_finished`), boot pre-warm (`prewarm_boot`), the remediation
 hooks, and the observability wiring (`ResourceSampler`, `HealthMonitor`,
 `ObsStore` under TTS_OBS_STORE, `LaneLedger`/`CapacityModel` under
-TTS_CAPACITY, a `ProgressEstimator` per request under TTS_PROGRESS), with
-JAX's request and status snapshots.
+TTS_CAPACITY, a `ProgressEstimator` per request under TTS_PROGRESS), and
+the durability layer: the request ledger (`ledger_dir`, TTS_LEDGER:
+`_replay_boot`, `_readmit_replayed`, a `journal` call at every state
+transition JAX journals), fleet failover (`fleet_dir`, TTS_FLEET_DIR, a
+fenced lease and a `FailoverWatcher`; `adopt_ledger`, `_self_fence`, the
+lease epoch stamped on every checkpoint), portfolio racing (`portfolio`
+>= 2, TTS_PORTFOLIO: `_submit_portfolio` and the `PortfolioCoordinator`)
+and `journeys()`, with JAX's request and status snapshots.
 
 Architecture::
 
@@ -45,13 +51,16 @@ capture counts and the graph cache are process-wide) and each checks only
 its own thread (`capture_error_mode="thread_local"`), so the other
 threads' work during it does not invalidate it.
 
-Left out, refusing with `NotImplementedError` naming ROADMAP A9c: a
-request ledger (`ledger_dir`, TTS_LEDGER), fleet failover (`fleet_dir`,
-TTS_FLEET_DIR, `failover`, TTS_FAILOVER), the disk executor cache
-(`aot_cache_dir`, TTS_AOT_CACHE), portfolio racing (a request with
-`portfolio` >= 2, TTS_PORTFOLIO) and `journeys()`. Their snapshot keys
-(`ledger`, `failover`, `aot_cache`, `portfolio`) are None, as in JAX while
-they are off.
+Durability on the card: `journal()` fsyncs on the scheduler and executor
+threads, which also replay CUDA graphs; as in JAX it runs at the same
+transitions and under the same lock. A hard kill during a replay loses only
+that segment: the restart resumes from the last complete checkpoint
+(`checkpoint.load_resilient`, its `.prev` fallback).
+
+Left out, refusing with `NotImplementedError` naming ROADMAP A9d: the disk
+executor cache (`aot_cache_dir`, TTS_AOT_CACHE); its snapshot key
+(`aot_cache`) is None, as in JAX while it is off. The `ledger`, `failover`
+and `portfolio` keys are None while those parts are off, as in JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import contextlib
 import itertools
 import os
 import pathlib
+import shutil
 import socket
 import tempfile
 import threading
@@ -77,6 +87,7 @@ from ..utils import config as cfg
 from ..utils import faults
 from ..utils.retry import backoff_delay
 from .executors import ExecutorCache
+from .lease import LeaseLost
 from .queueing import AdmissionError, AdmissionPaused, RequestQueue
 from .request import (CANCELLED, DEADLINE, DONE, FAILED, FAILURE_LOG_CAP,
                       PREEMPTED, QUEUED, RUNNING, TERMINAL_STATES,
@@ -188,26 +199,24 @@ class SearchServer:
         from ..engine.distributed import _not_ported
         from ..parallel.mesh import partition_submeshes
 
-        # the parts still to port, refused before anything starts
-        left_out = (
-            ("a request ledger (ledger_dir, TTS_LEDGER)",
-             ledger_dir or cfg.env_str(cfg.LEDGER_ENV)),
-            ("fleet failover (fleet_dir, TTS_FLEET_DIR)",
-             fleet_dir or cfg.env_str(cfg.FLEET_DIR_ENV)),
-            ("fleet failover (failover, TTS_FAILOVER)",
-             cfg.env_flag(cfg.FAILOVER_FLAG) if failover is None
-             else failover),
-            ("the disk executor cache (aot_cache_dir, TTS_AOT_CACHE)",
-             aot_cache_dir or cfg.env_str(cfg.AOT_CACHE_ENV)),
-            ("portfolio racing (TTS_PORTFOLIO)",
-             cfg.env_int(cfg.PORTFOLIO_ENV, 0) >= 2))
-        for what, on in left_out:
-            if on:
-                raise _not_ported(what, "A9c", "SearchServer")
+        # the part still to port, refused before anything starts
+        if aot_cache_dir or cfg.env_str(cfg.AOT_CACHE_ENV):
+            raise _not_ported(
+                "the disk executor cache (aot_cache_dir, TTS_AOT_CACHE)",
+                "A9d", "SearchServer")
         groups = partition_submeshes(n_submeshes, devices=devices)
         per = len(groups[0])
         self.slots = [_Slot(i, g, range(i * per, (i + 1) * per))
                       for i, g in enumerate(groups)]
+        # resolved EARLY because the workdir default depends on it:
+        # durability needs checkpoints that survive the restart, so a
+        # ledger server without an explicit workdir keeps them UNDER
+        # the ledger dir (a fresh temp dir per lifetime would replay
+        # budgets but restart every search from its root)
+        if ledger_dir is None:
+            ledger_dir = cfg.env_str(cfg.LEDGER_ENV)
+        if workdir is None and ledger_dir:
+            workdir = os.path.join(ledger_dir, "workdir")
         self.workdir = pathlib.Path(
             workdir if workdir is not None
             else tempfile.mkdtemp(prefix="tts_service_"))
@@ -420,18 +429,91 @@ class SearchServer:
         from .remediate import RemediationController
         self.remediation = RemediationController(
             self, enabled=remediate, registry=self.metrics)
+        # bound-portfolio racing (service/portfolio): always constructed
+        # (a pure coordination object; zero cost when no request carries
+        # `portfolio`). Must exist BEFORE the ledger replays: replayed
+        # races reconcile through it.
+        from .portfolio import PortfolioCoordinator
+        self.portfolio = PortfolioCoordinator(self)
+        # crash-safe serving (service/ledger): a write-ahead journal of
+        # every request state transition, replayed here at boot so a
+        # hard-killed server's queued and active requests are admitted
+        # again with budgets, exclusions and failure logs intact,
+        # terminal results are served again without a solve, and
+        # standing quarantines and admission pauses survive. Unset ->
+        # off, and every ledger code path below is vacuous. An unusable
+        # ledger dir RAISES instead of degrading: the caller asked for
+        # durability. (ledger_dir was resolved at the top: the workdir
+        # default depends on it.)
+        self.ledger = None
+        self.replayed_spool: dict[str, str] = {}
+        self._recovered = {"queued": 0, "active": 0, "held": 0,
+                           "terminal": 0}
+        # fleet failover (service/lease + service/failover): inside a
+        # shared fleet root this server's ledger is owned through a
+        # fenced LEASE, acquired BEFORE the ledger replays, so a boot
+        # against a ledger a live adopter is serving comes up FENCED
+        # (serves nothing, commits nothing, exits clean) instead of
+        # splitting its brain. Unset fleet dir -> every lease and
+        # watcher path below is vacuous.
+        if fleet_dir is None:
+            fleet_dir = cfg.env_str(cfg.FLEET_DIR_ENV)
+        self.lease = None
+        self.watcher = None
+        self.fenced = False
+        self._fence_reason: str | None = None
+        self._adopted: list = []    # LeaseKeepers of adopted ledgers
+        #                             (kept renewing: a restarted stale
+        #                             owner must find a LIVE lease)
+        if ledger_dir:
+            from .ledger import RequestLedger
+            if fleet_dir:
+                from .lease import LeaseKeeper
+                keeper = LeaseKeeper(ledger_dir, registry=self.metrics,
+                                     on_lost=self._self_fence)
+                try:
+                    keeper.acquire()
+                    self.lease = keeper
+                except LeaseLost as e:
+                    self.fenced = True
+                    self._fence_reason = str(e)
+                    tracelog.event("failover.boot_fenced",
+                                   dir=str(ledger_dir), reason=str(e))
+            if not self.fenced:
+                self.ledger = RequestLedger(ledger_dir,
+                                            registry=self.metrics,
+                                            lease=self.lease,
+                                            on_fenced=self._self_fence)
+                self._replay_boot()
+                self.ledger.journal("boot", pid=os.getpid(),
+                                    submeshes=len(self.slots))
+        # set BEFORE the watcher starts: its takeover thread journals
+        # our ledger-dir name as the `adopter` forward pointer
+        self._ledger_dir = ledger_dir or None
+        self._fleet_dir = fleet_dir or None
+        if fleet_dir and not self.fenced:
+            from .failover import FailoverWatcher
+            self.watcher = FailoverWatcher(
+                self, fleet_dir, own_root=ledger_dir,
+                act=failover, registry=self.metrics)
+            self.watcher.start()
         # flight recorder (obs/store): a durable metric/event store,
         # replayed here so dashboards, health history and whitelisted
-        # tts_* counters RESUME across restarts, and the slo_* burn
-        # rules window over
+        # tts_* counters RESUME across restarts and takeovers, and the
+        # slo_* burn rules window over
         # history older than this process. Unset TTS_OBS_STORE -> every
         # store code path below is vacuous — bit-identical (test-pinned)
         self.obs_store = None
         store_dir = cfg.env_str(cfg.OBS_STORE_ENV)
-        if store_dir:
-            # the writer id: distinct across processes (the host and the
-            # pid; JAX's ledger servers use the ledger family instead)
-            writer = f"{socket.gethostname()}-{os.getpid()}"
+        if store_dir and not self.fenced:
+            # the writer id must be STABLE across restarts (counter
+            # resume keys on it) and DISTINCT across fleet peers: the
+            # host plus the ledger family when there is one
+            writer = socket.gethostname()
+            if ledger_dir:
+                writer += f"-{pathlib.Path(ledger_dir).name}"
+            else:
+                writer += f"-{os.getpid()}"
             try:
                 self.obs_store = obs_store_mod.ObsStore(
                     store_dir, writer, registry=self.metrics,
@@ -491,7 +573,10 @@ class SearchServer:
                        megabatch=self.megabatch,
                        overlap=self.overlap,
                        share_incumbent=self.incumbents is not None,
-                       remediate=self.remediation.enabled)
+                       remediate=self.remediation.enabled,
+                       ledger=ledger_dir or None,
+                       fleet_dir=fleet_dir or None,
+                       fenced=self.fenced)
         if autostart:
             self.start()
 
@@ -525,7 +610,10 @@ class SearchServer:
         """Stop serving: running requests are stopped at their next
         segment boundary and left PREEMPTED with a fresh checkpoint (a
         new server with the same workdir + tags resumes them); queued
-        requests are CANCELLED. Unblocks every `result()` waiter."""
+        requests are CANCELLED, except under a ledger, where they stay
+        QUEUED: a ledger server's shutdown is a DRAIN, and its backlog
+        is admitted again on the next boot. Unblocks every `result()`
+        waiter either way."""
         if not self._closing.is_set():
             tracelog.event("server.close")
         self._closing.set()
@@ -538,7 +626,8 @@ class SearchServer:
                     slot.stop_event.set()
             if self.former is not None:
                 # held batch members are live admitted requests: hand
-                # them back to the record loop below (CANCELLED)
+                # them back to the record loop below (CANCELLED without
+                # a ledger, kept QUEUED for replay with one)
                 self.former.drain()
         if wait:
             if self._scheduler is not None:
@@ -549,9 +638,12 @@ class SearchServer:
                     th.join()
         with self._lock:
             for rec in self.records.values():
-                if rec.state == QUEUED:
+                if rec.state == QUEUED and self.ledger is None:
                     self._finalize(rec, CANCELLED, error="server shutdown")
                 rec.done_event.set()
+        # the failover watcher stops scanning before the lease goes
+        if self.watcher is not None:
+            self.watcher.close()
         # stop the resource sampler and retire its gauge series — a
         # closed server must not keep publishing (or holding) them
         self.resources.close()
@@ -568,8 +660,22 @@ class SearchServer:
             self.capacity.close()
         # and the remediation worker (its journal stays readable)
         self.remediation.close()
-        # the obs store drains LAST so the close-path events above are on
-        # disk for the next lifetime's replay
+        # the ledger closes after every executor thread's final
+        # preempt/terminal record landed: a `drain` marker stamps the
+        # shutdown as graceful (its absence at replay = a hard kill)
+        if self.ledger is not None:
+            self.ledger.journal("drain", pid=os.getpid())
+            self.ledger.close()
+        # release leases: our own (marked `released` so peers do not
+        # adopt a cleanly drained ledger; a fenced keeper leaves the file
+        # to its adopter) and every adopted orphan's
+        if self.lease is not None:
+            self.lease.release()
+        for keeper in self._adopted:
+            keeper.release()
+        # the obs store drains LAST so the close-path events above
+        # (server.close, lease.released) are on disk for the next
+        # lifetime's replay
         if self.obs_store is not None:
             if self.lane_ledger is not None:
                 # one final sample so the just-flushed lane counters
@@ -606,10 +712,14 @@ class SearchServer:
                 "history": self.health.history_sample()}
 
     def journeys(self, tag: str | None = None) -> list[dict]:
-        """Stitched request journeys: they read the request ledger, which
-        is ROADMAP A9c."""
-        from ..engine.distributed import _not_ported
-        raise _not_ported("journeys()", "A9c", "SearchServer")
+        """Stitched request journeys (obs/journey) over this server's
+        ledger, every fleet peer's ledger, and the durable store."""
+        from ..obs import journey as journey_mod
+        store_dir = (str(self.obs_store.root)
+                     if self.obs_store is not None else None)
+        return journey_mod.find_journeys(
+            ledger_dirs=[self._ledger_dir] if self._ledger_dir else [],
+            fleet_dir=self._fleet_dir, store=store_dir, tag=tag)
 
     def __enter__(self) -> "SearchServer":
         self.start()
@@ -621,18 +731,34 @@ class SearchServer:
     # ------------------------------------------------------------ client API
 
     def submit(self, request: SearchRequest, *,
-               spool_id: str | None = None) -> str:
+               spool_id: str | None = None,
+               _portfolio_member: bool = False) -> str:
         """Admit a request; returns its id. Raises AdmissionError (with
         `.reason`) when the queue is full, the request is invalid, or
         the server is closed — rejection is immediate and explicit, the
-        client never learns about overload from a timeout. A request
-        with `portfolio` >= 2 raises NotImplementedError (ROADMAP A9c).
-        `spool_id` (the file spool's id, which JAX's request ledger
-        journals) is accepted and unused."""
+        client never learns about overload from a timeout.
+
+        With a ledger, admission is a DURABILITY promise: the admit
+        record is journaled (fsync'd) before this returns, so a request
+        acknowledged here survives an immediate hard kill. A tag whose
+        recorded terminal is DONE re-serves idempotently: the original
+        request id is returned with its recorded result instead of
+        re-solving. `spool_id`
+        (the file-spool front-end's id) rides the admit record so a
+        restarted serve loop can reconnect result-file delivery."""
         if self._closing.is_set():
             self.queue.rejected += 1
             tracelog.event("request.reject", reason="server closed")
             raise AdmissionError("server closed")
+        if self.fenced:
+            # a fenced server owns nothing: its ledger belongs to an
+            # adopter, so an admission here could never be durable —
+            # the typed refusal tells the client to resubmit to the
+            # peer that holds the lease
+            self.queue.rejected += 1
+            tracelog.event("request.reject",
+                           reason=f"fenced: {self._fence_reason}")
+            raise LeaseLost(f"server fenced: {self._fence_reason}")
         paused = self.admission_paused()
         if paused is not None:
             # the remediation controller's compile_storm valve: an
@@ -648,12 +774,27 @@ class SearchServer:
             tracelog.event("request.reject",
                            reason=f"invalid request: {reason}")
             raise AdmissionError(f"invalid request: {reason}")
-        if request.portfolio is not None:
-            from ..engine.distributed import _not_ported
-            raise _not_ported("portfolio racing (a request with "
-                              "portfolio >= 2)", "A9c",
-                              "SearchServer.submit")
+        if not _portfolio_member:
+            # bound-portfolio racing: an explicit `portfolio: K` (or
+            # the TTS_PORTFOLIO server default, capped at the
+            # admission bound) fans out instead of queueing. Members
+            # resubmit through this method with the guard flag — the
+            # env default must not fan a member out recursively
+            k = request.portfolio
+            if k is None:
+                k = cfg.env_int(cfg.PORTFOLIO_ENV, 0)
+                k = min(k, cfg.env_int("TTS_PORTFOLIO_MAX",
+                                       cfg.PORTFOLIO_MAX_DEFAULT))
+            if k and k >= 2:
+                return self._submit_portfolio(request, int(k),
+                                              spool_id=spool_id)
         with self._lock:
+            done, same = self._done_with_tag(request)
+            if same:
+                return done.id
+            if done is not None:
+                tracelog.event("request.tag_reused_different_problem",
+                               request_id=done.id, tag=request.tag)
             seq = next(self._seq)
             rid = f"req-{seq:04d}"
             tag = request.tag or rid
@@ -706,6 +847,16 @@ class SearchServer:
                 raise
             self.records[rid] = rec
             self._m_submitted.inc()
+            if self.ledger is not None:
+                # journaled BEFORE the id is returned: once the caller
+                # sees this admission, the request survives a hard kill
+                from .spool import payload_from_request
+                self.ledger.journal(
+                    "admit", rid=rid, tag=tag, seq=seq,
+                    payload=payload_from_request(request),
+                    spool_id=spool_id,
+                    tenant=request.tenant,
+                    spent_s=round(rec.spent_prev_s, 3))
             tracelog.event("request.admit", request_id=rid, tag=tag,
                            priority=request.priority,
                            deadline_s=request.deadline_s,
@@ -714,6 +865,124 @@ class SearchServer:
             if self.capacity is not None:
                 self.capacity.on_admit(self._shape_class(request),
                                        request.tenant)
+            return rid
+
+    def _done_with_tag(self, request: SearchRequest) -> tuple:
+        """(the DONE record holding `request`'s tag or None, whether it
+        solved the same problem) under a ledger (caller holds the lock).
+        A same-problem duplicate is served the recorded result instead of
+        solving again (crash-duplicated submissions and client retries
+        are absorbed; DEADLINE/FAILED tags still resubmit-to-extend); a
+        reused tag carrying another instance or bound must solve."""
+        if self.ledger is None or not request.tag:
+            return None, False
+        done = next((r for r in self.records.values()
+                     if r.state == DONE
+                     and (r.request.tag or r.id) == request.tag), None)
+        if done is None:
+            return None, False
+        prior = done.request
+        same = (prior.problem == request.problem
+                and np.array_equal(np.asarray(prior.p_times),
+                                   np.asarray(request.p_times))
+                and prior.lb_kind == request.lb_kind
+                and prior.init_ub == request.init_ub)
+        if same:
+            tracelog.event("request.reserved_terminal", request_id=done.id,
+                           tag=request.tag)
+        return done, same
+
+    def _submit_portfolio(self, request: SearchRequest, k: int, *,
+                          spool_id: str | None) -> str:
+        """Admit a ``portfolio: K`` request: create the (never-queued,
+        never-dispatched) PARENT record, fan out K member sub-requests
+        over distinct configurations (service/portfolio.plan_members),
+        journal the parent->member linkage, and arm the race. The
+        parent id is what the client polls/awaits; it finalizes DONE
+        with the first member to complete a proof (losers cancel), or
+        inherits the least-bad outcome when none does."""
+        import dataclasses as _dc
+
+        from .. import problems
+        from . import portfolio as portfolio_mod
+        prob = problems.get(request.problem)
+        # pin the resolved K on the parent request (it may have come
+        # from the TTS_PORTFOLIO server default): the journaled admit
+        # payload must replay the same race width on the next boot
+        request = _dc.replace(request, portfolio=int(k))
+        with self._lock:
+            # the solo path's idempotent re-serve: a duplicate DONE tag
+            # returns the recorded result instead of re-racing
+            done, same = self._done_with_tag(request)
+            if same:
+                return done.id
+            seq = next(self._seq)
+            rid = f"req-{seq:04d}"
+            tag = request.tag or rid
+            path = str(self.workdir / f"{tag}.ckpt.npz")
+            holder = next(
+                (r for r in self.records.values()
+                 if r.checkpoint_path == path
+                 and r.state not in TERMINAL_STATES), None)
+            if holder is not None:
+                self.queue.rejected += 1
+                tracelog.event("request.reject", tag=tag,
+                               reason=f"tag active on {holder.id}")
+                raise AdmissionError(
+                    f"tag {tag!r} is already active on request "
+                    f"{holder.id} ({holder.state}); wait for it to "
+                    "finish or cancel it first")
+            parent = RequestRecord(
+                id=rid, request=request,
+                submitted_t=time.monotonic(), seq=seq,
+                checkpoint_path=path,
+                spent_prev_s=_prior_spent_s(path))
+            self.records[rid] = parent
+            self._m_submitted.inc()
+            if self.ledger is not None:
+                from .spool import payload_from_request
+                self.ledger.journal(
+                    "admit", rid=rid, tag=tag, seq=seq,
+                    payload=payload_from_request(request),
+                    spool_id=spool_id,
+                    spent_s=round(parent.spent_prev_s, 3))
+            tracelog.event("request.admit", request_id=rid, tag=tag,
+                           priority=request.priority,
+                           deadline_s=request.deadline_s,
+                           portfolio=k,
+                           resumable=parent.spent_prev_s > 0)
+            plan = portfolio_mod.plan_members(
+                request, prob, k, parent_tag=tag, tuner=self.tuner,
+                n_workers=len(self.slots[0].devices))
+            members: list = []
+            try:
+                for mreq, config in plan:
+                    mrid = self.submit(mreq, _portfolio_member=True)
+                    mrec = self.records[mrid]
+                    mrec.portfolio_parent = rid
+                    mrec.portfolio_config = dict(config)
+                    members.append((mrid, config))
+            except AdmissionError as e:
+                # partial fan-out (queue filled mid-race): a half
+                # portfolio is not the race the client asked for —
+                # unwind the admitted members and refuse the parent
+                for mrid, _ in members:
+                    mrec = self.records.get(mrid)
+                    if mrec is not None \
+                            and mrec.state not in TERMINAL_STATES:
+                        self._finalize(mrec, CANCELLED,
+                                       error="portfolio fan-out aborted")
+                self._finalize(
+                    parent, FAILED,
+                    error=f"portfolio fan-out failed at member "
+                          f"{len(members)} of {k}: {e}")
+                raise
+            if self.ledger is not None:
+                self.ledger.journal(
+                    "portfolio", rid=rid,
+                    members=[{"rid": m, "config": c}
+                             for m, c in members])
+            self.portfolio.register(parent, members)
             return rid
 
     def status(self, request_id: str) -> dict:
@@ -748,7 +1017,7 @@ class SearchServer:
         Returns a JSON-safe summary {shapes, warms, by: {disk, compile,
         warm, skipped}, seconds, errors}; "compile" counts fresh captures
         (loops built on the CPU) and "disk" stays 0 until the disk tier
-        (ROADMAP A9c)."""
+        (ROADMAP A9d)."""
         import concurrent.futures as cf
 
         from ..engine import distributed
@@ -980,6 +1249,11 @@ class SearchServer:
             if rec.state != PREEMPTED or not rec.hold:
                 return False
             rec.hold = False
+            if self.ledger is not None:
+                # journaled like every other transition: a crash after
+                # an operator released the request must not replay it
+                # back into the parked state
+                self.ledger.journal("release", rid=rec.id)
             self.queue.requeue(rec)
             return True
 
@@ -990,14 +1264,19 @@ class SearchServer:
 
     def pause_admission(self, reason: str) -> None:
         """Reject new submissions with `reason` until resumed (the
-        spool front-end holds its backlog instead)."""
+        spool front-end holds its backlog instead). Ledger-journaled:
+        a crash while paused restarts PAUSED."""
         with self._lock:
             self._paused_reason = reason
+            if self.ledger is not None:
+                self.ledger.journal("pause", reason=reason)
         tracelog.event("server.admission_paused", reason=reason)
 
     def resume_admission(self) -> None:
         with self._lock:
             was, self._paused_reason = self._paused_reason, None
+            if was is not None and self.ledger is not None:
+                self.ledger.journal("resume")
         if was is not None:
             tracelog.event("server.admission_resumed")
 
@@ -1059,6 +1338,12 @@ class SearchServer:
             if len(rec.excluded_submeshes) >= len(self.slots):
                 rec.excluded_submeshes = (
                     {int(submesh)} if len(self.slots) > 1 else set())
+            if self.ledger is not None:
+                # journaled in ABSOLUTE form: the cap above can RESET
+                # the set, which a relative append would replay wrong
+                self.ledger.journal(
+                    "exclude", rid=rec.id,
+                    excluded=sorted(rec.excluded_submeshes))
 
     def lowest_priority_running(self) -> str | None:
         """The shed_memory action's victim: the lowest-priority,
@@ -1075,12 +1360,17 @@ class SearchServer:
 
     def quarantine_submesh(self, index: int, reason: str) -> None:
         """Hold a slot out of the partition (the remediation
-        controller's containment decision executes here)."""
+        controller's containment decision executes here, and is
+        ledger-journaled, so a crash cannot put a quarantined submesh
+        back into rotation)."""
         with self._lock:
             slot = self.slots[index]
             slot.quarantined = True
             slot.quarantined_since = time.time()
             slot.quarantine_reason = reason
+            if self.ledger is not None:
+                self.ledger.journal("quarantine", submesh=int(index),
+                                    reason=reason)
             self._lane_sync(slot)
 
     def readmit_submesh(self, index: int) -> None:
@@ -1089,6 +1379,8 @@ class SearchServer:
             slot = self.slots[index]
             slot.quarantined = False
             slot.quarantine_reason = None
+            if self.ledger is not None:
+                self.ledger.journal("readmit", submesh=int(index))
             self._lane_sync(slot)
 
     def heartbeat_ages(self) -> dict:
@@ -1223,17 +1515,19 @@ class SearchServer:
                                "age_s": self.former.age_s}
                               if self.former is not None else None),
                 "remediation": self.remediation.snapshot(),
-                # the parts of ROADMAP A9c, off
-                "ledger": None,
-                "failover": None,
+                "ledger": ({**self.ledger.snapshot(),
+                            "recovered": dict(self._recovered)}
+                           if self.ledger is not None else None),
+                "failover": self._failover_snapshot(),
                 "executor_cache": self.cache.snapshot(),
+                # the disk executor cache is ROADMAP A9d: off
                 "aot_cache": None,
                 "compile_ledger": self.cache.ledger_snapshot(),
                 "incumbents": (self.incumbents.snapshot()
                                if self.incumbents is not None else None),
                 "tuner": (self.tuner.snapshot()
                           if self.tuner is not None else None),
-                "portfolio": None,
+                "portfolio": self._portfolio_snapshot(),
                 "counters": self.counters,
                 "metrics": self.metrics.to_json(),
                 "requests": {rid: rec.snapshot()
@@ -1243,6 +1537,456 @@ class SearchServer:
                 **({"capacity": self.capacity_snapshot()}
                    if self.capacity is not None else {}),
             }
+
+    def _portfolio_snapshot(self) -> dict | None:
+        """status_snapshot()'s `portfolio` key: None when no request
+        ever raced, else the race totals; per-race detail (siblings,
+        winner config, cancelled counts) lives on each parent's request
+        snapshot `portfolio` block."""
+        parents = [r for r in self.records.values()
+                   if r.portfolio_members is not None]
+        if not parents:
+            return None
+        return {"parents": len(parents),
+                "active": sum(1 for r in parents
+                              if r.state not in TERMINAL_STATES),
+                "won": sum(1 for r in parents if r.state == DONE),
+                "cancelled_members": sum(r.portfolio_cancelled
+                                         for r in parents)}
+
+    def _failover_snapshot(self) -> dict | None:
+        """status_snapshot()'s `failover` key: None outside fleet mode,
+        else lease + watcher state (the health layer's `peer_down` rule
+        reads it)."""
+        if (self.lease is None and self.watcher is None
+                and not self.fenced):
+            return None
+        out: dict = {"fenced": self.fenced,
+                     "fence_reason": self._fence_reason,
+                     "adopted": len(self._adopted)}
+        if self.lease is not None:
+            out["lease"] = self.lease.snapshot()
+        if self.watcher is not None:
+            out.update(self.watcher.snapshot())
+        return out
+
+    # ------------------------------------------------------ crash recovery
+    # (service/ledger: replaying the write-ahead journal at boot)
+
+    def _replay_boot(self) -> None:
+        """Rebuild serving state from the replayed ledger: standing
+        admission pause + submesh quarantines first (a crash must not
+        launder a degraded configuration back to healthy), then every
+        journaled request — queued/active re-admitted with budgets,
+        exclusions and failure logs intact (their checkpoints make the
+        resume lossless), terminal snapshots kept for idempotent
+        re-serve."""
+        from . import spool as spool_mod
+        st = self.ledger.state
+        if st.boots:
+            # a monotone restart count fed from the ledger itself, so
+            # it survives the registry reset a restart is
+            self.metrics.counter(
+                "tts_server_restarts_total",
+                "server boots that replayed prior ledger state"
+                ).inc(st.boots)
+        if st.paused:
+            with self._lock:
+                self._paused_reason = st.paused
+            self.remediation.restore_pause(st.paused)
+            tracelog.event("ledger.pause_restored", reason=st.paused)
+        for idx, reason in sorted(st.quarantined.items()):
+            if not 0 <= idx < len(self.slots):
+                continue        # journaled on a larger partition
+            if sum(1 for s in self.slots if not s.quarantined) <= 1:
+                # the last healthy slot stays in rotation — the same
+                # never-zero-capacity guard remediate._quarantine
+                # applies live; a shrunk partition must not replay
+                # itself into a server that can never dispatch
+                tracelog.event("ledger.quarantine_not_restored",
+                               submesh=idx,
+                               reason="last healthy submesh")
+                continue
+            slot = self.slots[idx]
+            slot.quarantined = True
+            slot.quarantined_since = time.time()
+            slot.quarantine_reason = reason or "restored from ledger"
+            self.remediation.restore_quarantine(idx)
+        max_seq = -1
+        for entry in sorted(st.requests.values(),
+                            key=lambda e: e.get("seq", 0)):
+            max_seq = max(max_seq, int(entry.get("seq", 0)))
+            try:
+                self._readmit_replayed(entry, spool_mod)
+            except Exception as e:  # noqa: BLE001 — one unparseable
+                # entry (schema drift, a hand-edited ledger) must not
+                # strand the rest of the recovery
+                tracelog.event("ledger.readmit_failed",
+                               request_id=entry.get("rid"),
+                               error=repr(e))
+        if max_seq >= 0:
+            self._seq = itertools.count(max_seq + 1)
+        # re-arm replayed portfolio races AFTER every entry landed
+        # (members replay after their lower-seq parent): a race the
+        # crash interrupted mid-decision resolves right here — a
+        # pre-kill winner decides, members of an already-terminal
+        # parent cancel instead of re-running a finished race
+        self.portfolio.reconcile()
+        if st.requests:
+            tracelog.event("ledger.recovered", restarts=st.boots,
+                           **self._recovered)
+
+    def _readmit_replayed(self, entry: dict, spool_mod) -> None:
+        rid = entry["rid"]
+        req = spool_mod.request_from_payload(entry.get("payload") or {})
+        tag = entry.get("tag") or rid
+        req.tag = tag
+        if entry.get("tenant"):
+            req.tenant = str(entry["tenant"])
+        path = str(self.workdir / f"{tag}.ckpt.npz")
+        rec = RequestRecord(
+            id=rid, request=req, submitted_t=time.monotonic(),
+            seq=int(entry.get("seq", 0)), checkpoint_path=path,
+            # the budget clock is CUMULATIVE across the crash: the
+            # journaled spent_s (heartbeat-fresh) and the checkpoint's
+            # own meta both survive; trust whichever saw more
+            spent_prev_s=max(float(entry.get("spent_s") or 0.0),
+                             _prior_spent_s(path)),
+            dispatches=int(entry.get("dispatches") or 0),
+            preemptions=int(entry.get("preemptions") or 0),
+            failures=int(entry.get("failures") or 0))
+        self._progress_seed(rec)
+        # adoption lineage survives the adopter's own restart: the
+        # replayed admit record carried it (see _adopt_entry)
+        rec.origin_rid = entry.get("origin_rid")
+        rec.origin_owner = entry.get("origin_owner")
+        rec.failure_log = [dict(f) for f in
+                           entry.get("failure_log") or []]
+        # restored exclusions are re-capped against THIS lifetime's
+        # partition (it may be smaller than the one that journaled
+        # them): indices past the partition drop, and a set that would
+        # cover every slot clears — the add_exclusion invariant that a
+        # request must always have somewhere left to run
+        excluded = {int(s) for s in entry.get("excluded") or []
+                    if 0 <= int(s) < len(self.slots)}
+        if len(excluded) >= len(self.slots):
+            excluded = set()
+        rec.excluded_submeshes = excluded
+        rec.error = entry.get("error")
+        # portfolio linkage (the `portfolio` journal record stamped it
+        # on the entries; _apply_restore carries it through compaction
+        # verbatim) — restored BEFORE the state branch so a parent is
+        # recognized and never requeued
+        pf_members = entry.get("portfolio_members")
+        if pf_members:
+            rec.portfolio_members = [m.get("rid") for m in pf_members]
+        if entry.get("portfolio_parent"):
+            rec.portfolio_parent = str(entry["portfolio_parent"])
+            rec.portfolio_config = entry.get("portfolio_config")
+        state = entry.get("state")
+        if state in TERMINAL_STATES:
+            rec.state = state
+            snap = entry.get("terminal") or {}
+            if snap.get("result") is not None:
+                rec.result = _ReplayedResult(snap["result"])
+            rec.error = snap.get("error", rec.error)
+            if rec.portfolio_members is not None:
+                pf = snap.get("portfolio") or {}
+                rec.portfolio_winner = pf.get("winner")
+                rec.portfolio_config = (pf.get("winner_config")
+                                        or rec.portfolio_config)
+                rec.portfolio_cancelled = int(pf.get("cancelled") or 0)
+            rec.done_event.set()
+            self._recovered["terminal"] += 1
+        elif state == PREEMPTED and entry.get("hold"):
+            # an operator parked it (preempt(hold=True)); stay parked
+            # until release() — a restart is not a release
+            rec.state = PREEMPTED
+            rec.hold = True
+            self._recovered["held"] += 1
+        else:
+            rec.state = QUEUED
+            self._recovered["active" if state == RUNNING
+                            else "queued"] += 1
+            if rec.portfolio_members is None:
+                # a portfolio PARENT is a coordination object: it waits
+                # on its members' terminals, it never queues — the
+                # post-replay reconcile() re-arms its race instead
+                self.queue.requeue(rec)
+        with self._lock:
+            self.records[rid] = rec
+        if entry.get("spool_id"):
+            self.replayed_spool[str(entry["spool_id"])] = rid
+        tracelog.event("request.recovered", request_id=rid,
+                       state=rec.state, tag=tag,
+                       spent_s=round(rec.spent_prev_s, 3),
+                       dispatches=rec.dispatches,
+                       excluded=sorted(rec.excluded_submeshes))
+
+    # ------------------------------------------------------ fleet failover
+    # (service/lease + service/failover: fenced ownership and takeover)
+
+    def _self_fence(self, reason: str) -> None:
+        """This process no longer owns its ledger (epoch bumped by an
+        adopter). Stop committing: admission refuses with LeaseLost,
+        the scheduler tick exits cleanly, running requests stop at
+        their next segment boundary (their preempt journals no-op on
+        the fenced ledger — zero commits by construction). Idempotent;
+        fired by the lease keeper's renewal daemon or the ledger's
+        append-path check, whichever notices first."""
+        with self._lock:
+            if self.fenced:
+                return
+            self.fenced = True
+            self._fence_reason = reason
+            for slot in self.slots:
+                for rec in slot.records:
+                    if rec.stop_reason is None:
+                        rec.stop_reason = "fenced"
+                if slot.records and slot.stop_event is not None:
+                    slot.stop_event.set()
+        tracelog.event("server.fenced", reason=reason)
+
+    def _ckpt_fence_meta(self) -> dict:
+        """Fencing stamp for checkpoint meta. Raises LeaseLost before a
+        stale owner's save can even serialize; the epoch stamp it
+        returns makes engine/checkpoint refuse an epoch-stale overwrite
+        on top (the fence is in the data, not just the timing).
+        Vacuous ({}) outside fleet mode."""
+        if self.lease is None:
+            return {}
+        self.lease.check()
+        return {"lease_epoch": self.lease.epoch}
+
+    def adopt_ledger(self, orphan_dir: str,
+                     current_epoch: int | None = None) -> dict:
+        """Take over a dead peer's ledger (the FailoverWatcher's act
+        path; callable directly for drills). Protocol:
+
+        1. CAS the fencing epoch to ``current_epoch + 1`` through the
+           claim file — exactly one adopter; losing returns
+           ``{"outcome": "lost_race"}`` without touching the orphan.
+        2. Replay the orphan through the boot path (the ledger
+           constructor truncates any torn tail to last-good) and
+           journal a ``takeover`` record at the NEW epoch — any stale
+           append the dead owner slips in afterwards is discarded on
+           every future replay.
+        3. Re-admit its QUEUED/ACTIVE requests HERE under fresh ids
+           (the orphan's ``req-NNNN`` ids collide with ours) with
+           budgets, exclusions, failure logs, spool ids and checkpoint
+           files intact; journal each into OUR ledger (a crash here
+           re-replays the adoption) and a ``forget`` tombstone into
+           the orphan (a rebooted original owner replays an empty live
+           set). DONE terminals register for idempotent tag re-serve.
+           The orphan's standing submesh quarantines are deliberately
+           NOT imported — they described the dead host's hardware.
+        4. Keep renewing the orphan's lease: a restarted stale owner
+           must find a LIVE foreign lease and boot fenced, and no
+           second peer may re-adopt. Released at close().
+        """
+        from . import lease as lease_mod
+        from . import spool as spool_mod
+        from .lease import LeaseKeeper
+        from .ledger import RequestLedger
+
+        orphan_dir = str(orphan_dir)
+        if current_epoch is None:
+            info = lease_mod.read_lease(orphan_dir)
+            current_epoch = info.epoch if info is not None else 0
+        keeper = LeaseKeeper(orphan_dir)
+        if not keeper.takeover(current_epoch):
+            tracelog.event("failover.lost_race", dir=orphan_dir,
+                           epoch=current_epoch + 1)
+            return {"outcome": "lost_race", "dir": orphan_dir}
+        moved = reserved = failed = 0
+        orphan = RequestLedger(orphan_dir, lease=keeper)
+        try:
+            # `adopter` names OUR ledger directory: the forward pointer
+            # a journey reconstructor reading the orphan needs to know
+            # where the live requests went (origin_rid on our admits is
+            # the matching back pointer)
+            orphan.journal("takeover", owner=keeper.owner,
+                           from_epoch=current_epoch, pid=os.getpid(),
+                           adopter=(pathlib.Path(self._ledger_dir).name
+                                    if self._ledger_dir else None))
+            entries = sorted(orphan.state.requests.values(),
+                             key=lambda e: e.get("seq", 0))
+            for entry in entries:
+                try:
+                    if entry.get("state") in TERMINAL_STATES:
+                        if entry.get("state") == DONE \
+                                and self._adopt_terminal(entry,
+                                                         spool_mod):
+                            reserved += 1
+                        continue
+                    self._adopt_entry(entry, orphan_dir, spool_mod)
+                    orphan.journal("forget", rid=entry.get("rid"))
+                    moved += 1
+                except Exception as e:  # noqa: BLE001 — one
+                    # unparseable entry must not strand the rest of
+                    # the takeover (the _replay_boot stance)
+                    failed += 1
+                    tracelog.event("failover.adopt_entry_failed",
+                                   request_id=entry.get("rid"),
+                                   error=repr(e))
+        finally:
+            orphan.close()
+        self._adopted.append(keeper)
+        result = {"outcome": "adopted", "dir": orphan_dir,
+                  "epoch": keeper.epoch, "moved": moved,
+                  "reserved": reserved, "failed": failed}
+        tracelog.event("failover.adopted", **result)
+        return result
+
+    def _adopt_entry(self, entry: dict, orphan_dir: str,
+                     spool_mod) -> str:
+        """Re-admit one live orphan entry on THIS server — the
+        _readmit_replayed recipe under a fresh id, journaled into our
+        own ledger. The orphan's checkpoint family is copied into our
+        workdir first (never clobbering an existing one) so the resume
+        is lossless and budget-continuous."""
+        rid_old = entry["rid"]
+        req = spool_mod.request_from_payload(entry.get("payload") or {})
+        tag = entry.get("tag") or rid_old
+        req.tag = tag
+        if entry.get("tenant"):
+            req.tenant = str(entry["tenant"])
+        src_dir = pathlib.Path(orphan_dir) / "workdir"
+        path = str(self.workdir / f"{tag}.ckpt.npz")
+        for suffix in ("", ".prev"):
+            src = src_dir / f"{tag}.ckpt.npz{suffix}"
+            dst = pathlib.Path(path + suffix)
+            if not src.exists() or dst.exists() or src == dst:
+                continue
+            try:
+                # copy to a unique temp then rename: our own executor
+                # must never read a half-copied snapshot
+                tmp = dst.with_name(f".{dst.name}.{os.getpid()}.tmp")
+                shutil.copy2(src, tmp)
+                os.replace(tmp, dst)
+            except OSError as e:
+                tracelog.event("failover.checkpoint_copy_failed",
+                               src=str(src), error=repr(e))
+        with self._lock:
+            seq = next(self._seq)
+            rid = f"req-{seq:04d}"
+            rec = RequestRecord(
+                id=rid, request=req, submitted_t=time.monotonic(),
+                seq=seq, checkpoint_path=path,
+                spent_prev_s=max(float(entry.get("spent_s") or 0.0),
+                                 _prior_spent_s(path)),
+                dispatches=int(entry.get("dispatches") or 0),
+                preemptions=int(entry.get("preemptions") or 0),
+                failures=int(entry.get("failures") or 0))
+            # the copied checkpoint's meta seeds the estimate warm, so
+            # an adopted request's progress continues across the
+            # takeover like its budget clock does
+            self._progress_seed(rec)
+            # id lineage: the fresh rid continues the orphan's rid —
+            # stamped on the record, its admit journal and the adopted
+            # event, so the flight recorder's journey reconstructor
+            # chains ONE logical request across the takeover. If the
+            # entry itself was already an adoption (a second hop), the
+            # ORIGINAL lineage wins: chains stay one link deep to the
+            # first admit.
+            rec.origin_rid = entry.get("origin_rid") or rid_old
+            rec.origin_owner = (entry.get("origin_owner")
+                                or pathlib.Path(orphan_dir).name)
+            rec.failure_log = [dict(f) for f in
+                               entry.get("failure_log") or []]
+            excluded = {int(s) for s in entry.get("excluded") or []
+                        if 0 <= int(s) < len(self.slots)}
+            if len(excluded) >= len(self.slots):
+                excluded = set()
+            rec.excluded_submeshes = excluded
+            rec.error = entry.get("error")
+            if entry.get("state") == PREEMPTED and entry.get("hold"):
+                rec.state = PREEMPTED
+                rec.hold = True
+            else:
+                rec.state = QUEUED
+            self.records[rid] = rec
+            self._m_submitted.inc()
+            if self.ledger is not None:
+                self.ledger.journal(
+                    "admit", rid=rid, tag=tag, seq=seq,
+                    payload=spool_mod.payload_from_request(req),
+                    spool_id=entry.get("spool_id"),
+                    spent_s=round(rec.spent_prev_s, 3),
+                    tenant=req.tenant,
+                    origin_rid=rec.origin_rid,
+                    origin_owner=rec.origin_owner)
+                if rec.excluded_submeshes:
+                    self.ledger.journal(
+                        "exclude", rid=rid,
+                        excluded=sorted(rec.excluded_submeshes))
+            if rec.state == QUEUED:
+                self.queue.requeue(rec)
+        if entry.get("spool_id"):
+            self.replayed_spool[str(entry["spool_id"])] = rid
+        tracelog.event("request.adopted", request_id=rid,
+                       orphan_id=rid_old, tag=tag, state=rec.state,
+                       tenant=req.tenant,
+                       origin_rid=rec.origin_rid,
+                       origin_owner=rec.origin_owner,
+                       spent_s=round(rec.spent_prev_s, 3),
+                       spool_id=entry.get("spool_id"))
+        return rid
+
+    def _adopt_terminal(self, entry: dict, spool_mod) -> bool:
+        """Register a DONE orphan entry for idempotent re-serve: a
+        duplicate-tag submission (a crash-retried client) gets the
+        recorded result instead of a re-solve, exactly as it would
+        have from the dead owner. In-memory only — the orphan ledger
+        keeps the durable copy."""
+        tag = entry.get("tag") or entry.get("rid")
+        snap = entry.get("terminal") or {}
+        if snap.get("result") is None:
+            return False
+        with self._lock:
+            if any((r.request.tag or r.id) == tag
+                   for r in self.records.values()):
+                return False    # the tag already lives here
+            seq = next(self._seq)
+            rid = f"req-{seq:04d}"
+            req = spool_mod.request_from_payload(
+                entry.get("payload") or {})
+            req.tag = tag
+            rec = RequestRecord(
+                id=rid, request=req, submitted_t=time.monotonic(),
+                seq=seq,
+                checkpoint_path=str(self.workdir / f"{tag}.ckpt.npz"),
+                spent_prev_s=float(entry.get("spent_s") or 0.0))
+            rec.state = DONE
+            rec.result = _ReplayedResult(snap["result"])
+            rec.done_event.set()
+            self.records[rid] = rec
+        if entry.get("spool_id"):
+            self.replayed_spool[str(entry["spool_id"])] = rid
+        tracelog.event("request.adopted_terminal", request_id=rid,
+                       tag=tag, spool_id=entry.get("spool_id"))
+        return True
+
+    def _ledger_budget(self, rec: RequestRecord) -> None:
+        """Journal the request's cumulative execution clock, throttled
+        to LEDGER_BUDGET_EVERY_S (every heartbeat would fsync at
+        heartbeat rate; this bounds what a hard kill can lose to a few
+        seconds of budget, never the request)."""
+        if self.ledger is None:
+            return
+        now = time.monotonic()
+        if now - rec.ledger_budget_t < cfg.LEDGER_BUDGET_EVERY_S_DEFAULT:
+            return
+        rec.ledger_budget_t = now
+        extra = {}
+        est = rec.progress.get("estimate") or {}
+        if est.get("progress_ratio") is not None:
+            # the journey timeline's per-lifetime progress marks ride
+            # the same throttled budget record (obs/journey reads them
+            # back; absent when TTS_PROGRESS=0 — record bit-identity)
+            extra["progress"] = est["progress_ratio"]
+        self.ledger.journal("budget", rid=rec.id,
+                           spent_s=round(rec.spent_s(), 3), **extra)
 
     # ------------------------------------------------- progress estimation
 
@@ -1295,6 +2039,7 @@ class SearchServer:
         snap = est.snapshot(self._progress_rate(rec))
         rec.progress["estimate"] = snap
         self._progress_publish(rec, snap)
+        self._portfolio_progress(rec)
 
     def _progress_publish(self, rec: RequestRecord, snap: dict) -> None:
         if snap.get("progress_ratio") is None:
@@ -1314,6 +2059,27 @@ class SearchServer:
                 "tts_eta_seconds",
                 "estimated execution seconds remaining").set(
                 snap["eta_s"], **labels)
+
+    def _portfolio_progress(self, rec: RequestRecord) -> None:
+        """A racing member's estimate rolls up to its parent: the race
+        resolves at the FIRST finisher, so the parent reports the best
+        member's view (furthest progress, its ETA)."""
+        pid = rec.portfolio_parent
+        if pid is None:
+            return
+        parent = self.records.get(pid)
+        if parent is None or parent.portfolio_members is None:
+            return
+        best = None
+        for mid in parent.portfolio_members:
+            m = self.records.get(mid)
+            est = (m.progress.get("estimate") or {}) if m else {}
+            p = est.get("progress_ratio")
+            if p is not None and (best is None
+                                  or p > best["progress_ratio"]):
+                best = {**est, "member": mid}
+        if best is not None:
+            parent.progress = {**parent.progress, "estimate": best}
 
     # ------------------------------------------------------------ internals
 
@@ -1355,6 +2121,12 @@ class SearchServer:
         tracelog.event("request.dispatch_failure", request_id=rec.id,
                        submesh=submesh, attempt=rec.dispatches,
                        error=error)
+        if self.ledger is not None:
+            self.ledger.journal(
+                "failure", rid=rec.id, submesh=submesh,
+                attempt=rec.dispatches, error=error,
+                failures=rec.failures,
+                spent_s=round(rec.spent_prev_s, 3))
         verdict = self.remediation.on_dispatch_failure(rec, submesh,
                                                        error)
         if (verdict == "requeue"
@@ -1378,15 +2150,20 @@ class SearchServer:
 
     def _record_preempt(self, rec: RequestRecord,
                         reason: str | None) -> bool:
-        """PREEMPTED bookkeeping — state, counter, trace event — shared
-        by the solo executor, the batched mid-batch stop handler and the
-        batched finish path. Returns
+        """PREEMPTED bookkeeping — state, counter, ledger journal,
+        trace event — shared by the solo executor, the batched mid-batch
+        stop handler and the batched finish path. Returns
         whether the caller should requeue the record (not on
         shutdown, not while parked, not while closing). Caller holds
         the lock and has already rolled `spent_prev_s` forward."""
         rec.state = PREEMPTED
         rec.preemptions += 1
         self._m_preempt.inc()
+        if self.ledger is not None:
+            self.ledger.journal("preempt", rid=rec.id,
+                                preemptions=rec.preemptions,
+                                spent_s=round(rec.spent_prev_s, 3),
+                                hold=rec.hold)
         tracelog.event("request.preempt", request_id=rec.id,
                        reason=reason or "stop",
                        preemptions=rec.preemptions, hold=rec.hold)
@@ -1408,6 +2185,12 @@ class SearchServer:
             # truthful "fraction complete")
             rec.estimator.finalize()
             rec.progress["estimate"] = rec.estimator.snapshot()
+        if self.ledger is not None:
+            # the full snapshot rides the terminal record: it is what a
+            # duplicate tag is served after a restart (and the forensic
+            # record of HOW it ended)
+            self.ledger.journal("terminal", rid=rec.id, state=state,
+                                snapshot=rec.snapshot())
         self._m_terminal.inc(state=key, tenant=rec.request.tenant)
         self._m_spent.observe(rec.spent_s())
         # live-attribution series are per-request labeled; retire them
@@ -1454,6 +2237,14 @@ class SearchServer:
             # prior run's partial checkpoint).
             self._unlink_checkpoints(rec)
         rec.done_event.set()
+        # bound-portfolio racing hooks (service/portfolio; the lock is
+        # an RLock, so the resolution's nested _finalize calls — a
+        # member's DONE finalizing the parent, a parent's terminal
+        # cancelling queued losers — re-enter here safely)
+        if rec.portfolio_parent is not None:
+            self.portfolio.on_member_terminal(rec)
+        if rec.portfolio_members is not None:
+            self.portfolio.on_parent_terminal(rec)
 
     def _unlink_checkpoints(self, rec: RequestRecord) -> None:
         if not rec.checkpoint_path:
@@ -1476,6 +2267,11 @@ class SearchServer:
                 # check and here; dispatching now would start a search
                 # whose stop_event close() has already swept past —
                 # close(wait=True) would then block on the full solve
+                return
+            if self.fenced:
+                # a fenced scheduler tick exits cleanly: nothing may
+                # dispatch (every dispatch would journal, and a fenced
+                # ledger commits nothing); the adopter serves instead
                 return
             now = time.monotonic()
             # 1. deadline enforcement on running requests. A batched
@@ -1654,6 +2450,9 @@ class SearchServer:
                                                     wait)
             self._m_batches.inc(reason=reason)
             self._m_batch_size.observe(len(batch))
+            if self.ledger is not None:
+                self.ledger.journal("batch", members=[r.id for r in batch],
+                                    reason=reason, submesh=slot.index)
             tracelog.event("batch.close", size=len(batch),
                            reason=reason, submesh=slot.index,
                            members=[r.id for r in batch])
@@ -1678,6 +2477,11 @@ class SearchServer:
             rec.last_heartbeat_t = rec.started_t
             rec.dispatch_heartbeats = 0
             rec.batch_id = bid
+            if self.ledger is not None:
+                self.ledger.journal("dispatch", rid=rec.id,
+                                    submesh=slot.index,
+                                    dispatch=rec.dispatches,
+                                    batch=bid, batch_size=len(recs))
             tracelog.event("request.dispatch", request_id=rec.id,
                            submesh=slot.index, dispatch=rec.dispatches,
                            batch=bid, batch_size=len(recs),
@@ -1722,6 +2526,10 @@ class SearchServer:
             if self.capacity is not None and rep.elapsed > 0:
                 self.capacity.on_progress(cap_shape,
                                           rep.tree / rep.elapsed)
+            # durable budget clock: throttled inside (a hard kill loses
+            # at most LEDGER_BUDGET_EVERY_S of spent_s, never the
+            # request; the checkpoint meta is the second witness)
+            self._ledger_budget(rec)
             rec.progress = {
                 "segment": rep.segment, "iters": rep.iters,
                 "tree": rep.tree, "sol": rep.sol, "best": rep.best,
@@ -1815,6 +2623,7 @@ class SearchServer:
                 checkpoint_path=rec.checkpoint_path,
                 checkpoint_meta_extra=(lambda rec=rec: {
                     **(rec.request.checkpoint_meta or {}),
+                    **self._ckpt_fence_meta(),
                     **({"progress_est": rec.estimator.to_list()}
                        if rec.estimator is not None else {}),
                     "spent_s": round(rec.spent_s(), 2)}),
@@ -1870,6 +2679,26 @@ class SearchServer:
                     for rec in recs:
                         if rec.state == QUEUED:
                             self.queue.requeue(rec)
+            except (LeaseLost, checkpoint.StaleCheckpointError) as e:
+                # fenced mid-batch: every unhandled member preempts
+                # cleanly at this boundary (journals no-op on the
+                # fenced ledger), the solo executor's fence path,
+                # batch-wide
+                with self._lock:
+                    for b, rec in enumerate(recs):
+                        if b in handled or rec.state in TERMINAL_STATES:
+                            continue
+                        rec.spent_prev_s = rec.spent_s()
+                        rec.started_t = None
+                        self._record_preempt(rec, "fenced")
+                        handled.add(b)
+                    slot.record = None
+                    slot.batch = None
+                    slot.stop_event = None
+                    slot.thread = None
+                    self._lane_sync(slot)   # -> idle
+                self._self_fence(f"{type(e).__name__}: {e}")
+                return
             except checkpoint.TRANSIENT_ERRORS as e:
                 error = f"transient: {e!r}"      # retryable: no_retry
                 #                                  stays False
@@ -1965,6 +2794,10 @@ class SearchServer:
         rec.batch_id = None             # THIS dispatch is solo; a
         # stale id from an earlier batched dispatch would contradict
         # the slot's own (null) batch field in snapshots
+        if self.ledger is not None:
+            self.ledger.journal("dispatch", rid=rec.id,
+                                submesh=slot.index,
+                                dispatch=rec.dispatches)
         tracelog.event("request.dispatch", request_id=rec.id,
                        submesh=slot.index, dispatch=rec.dispatches,
                        queue_depth=len(self.queue))
@@ -2014,6 +2847,10 @@ class SearchServer:
             if self.capacity is not None and rep.elapsed > 0:
                 self.capacity.on_progress(cap_shape,
                                           rep.tree / rep.elapsed)
+            # durable budget clock: throttled inside (a hard kill loses
+            # at most LEDGER_BUDGET_EVERY_S of spent_s, never the
+            # request; the checkpoint meta is the second witness)
+            self._ledger_budget(rec)
             rec.progress = {
                 "segment": rep.segment, "iters": rep.iters,
                 "tree": rep.tree, "sol": rep.sol, "best": rep.best,
@@ -2096,6 +2933,11 @@ class SearchServer:
                         # server restarts and legacy<->serve handoffs
                         checkpoint_meta_extra=lambda: {
                             **(req.checkpoint_meta or {}),
+                            # fencing: raises LeaseLost / stamps the
+                            # epoch so a stale owner's save can never
+                            # land over the adopter's (vacuous outside
+                            # fleet mode)
+                            **self._ckpt_fence_meta(),
                             # estimator continuity: the same rule as
                             # spent_s — a resume seeds from this vector
                             **({"progress_est":
@@ -2104,6 +2946,24 @@ class SearchServer:
                             "spent_s": round(rec.spent_s(), 2)})
                     ex_span.set(tree=res.explored_tree, best=res.best,
                                 complete=res.complete)
+            except (LeaseLost, checkpoint.StaleCheckpointError) as e:
+                # fenced mid-dispatch (an adopter bumped our epoch):
+                # stop cleanly at this boundary, PREEMPTED with the
+                # journal no-op'ing on the fenced ledger, never FAILED.
+                # The adopter admitted the request again from the
+                # ledger; our copy is a husk the operator restarts
+                # around.
+                with self._lock:
+                    rec.spent_prev_s = rec.spent_s()
+                    rec.started_t = None
+                    if rec.state not in TERMINAL_STATES:
+                        self._record_preempt(rec, "fenced")
+                    slot.record = None
+                    slot.stop_event = None
+                    slot.thread = None
+                    self._lane_sync(slot)   # -> idle
+                self._self_fence(f"{type(e).__name__}: {e}")
+                return
             except checkpoint.TRANSIENT_ERRORS as e:
                 error = f"transient: {e!r}"
             except Exception as e:  # noqa: BLE001 — FAILED terminal below
@@ -2226,6 +3086,20 @@ class SearchServer:
             slot.stop_event = None
             slot.thread = None
             self._lane_sync(slot)   # -> idle
+
+
+class _ReplayedResult:
+    """Duck-typed stand-in for a DistResult, rebuilt from a ledger
+    terminal snapshot — enough surface for RequestRecord.snapshot()
+    and in-process `result()` readers (per-worker spreads are not
+    journaled; `per_device` replays empty)."""
+
+    def __init__(self, d: dict):
+        self.best = int(d.get("best") or 0)
+        self.explored_tree = int(d.get("explored_tree") or 0)
+        self.explored_sol = int(d.get("explored_sol") or 0)
+        self.complete = bool(d.get("complete"))
+        self.per_device: dict = {}
 
 
 def evt_set(slot: _Slot) -> bool:

@@ -114,9 +114,9 @@ def request_from_payload(payload: dict) -> SearchRequest:
 
 def payload_from_request(req: SearchRequest) -> dict:
     """The inverse of :func:`request_from_payload`: serialize a
-    SearchRequest back into the spool payload schema
-    (`request_from_payload(payload_from_request(r))` rebuilds an
-    equivalent request; JAX's request ledger journals it).
+    SearchRequest back into the spool payload schema (the request
+    ledger's admit-record body: `request_from_payload(
+    payload_from_request(r))` rebuilds an equivalent request).
     Open tuned knobs (chunk/balance_period None) round-trip as
     ``{"tuned": true}``; per-request ``faults`` specs are deliberately
     NOT serialized (a drill fault must not follow a request across the
@@ -232,6 +232,16 @@ def serve_spool(server, spool: str | pathlib.Path,
     spool.mkdir(parents=True, exist_ok=True)
     pending: dict[str, str] = {}        # spool id -> request id
     seen: set[str] = set()
+    # crash recovery (service/ledger): requests this server REPLAYED at
+    # boot that originally arrived through a spool reconnect to their
+    # request files here — re-submitting them would either duplicate
+    # the work or bounce off their own still-active tag, and their
+    # clients are still polling for the result file
+    replayed = dict(getattr(server, "replayed_spool", None) or {})
+    if replayed:
+        pending.update(replayed)
+        seen.update(replayed)
+        emit(json.dumps({"spool_reconnected": len(replayed)}))
     served = 0
     last_work = time.monotonic()
     last_status = 0.0
@@ -247,6 +257,8 @@ def serve_spool(server, spool: str | pathlib.Path,
             seen.add(sid)
             try:
                 payload = json.loads(req_file.read_text())
+                # spool_id rides the ledger's admit record so a
+                # restarted serve loop can reconnect result delivery
                 rid = server.submit(request_from_payload(payload),
                                     spool_id=sid)
             except AdmissionPaused:
@@ -262,10 +274,7 @@ def serve_spool(server, spool: str | pathlib.Path,
                     {"spool_id": sid, "state": "REJECTED",
                      "error": str(e)})
                 continue
-            except (ValueError, KeyError, json.JSONDecodeError,
-                    NotImplementedError) as e:
-                # NotImplementedError: a part the port's server refuses
-                # (ROADMAP A9c), e.g. a `portfolio` race
+            except (ValueError, KeyError, json.JSONDecodeError) as e:
                 _atomic_write_json(
                     spool / f"{sid}{RES_SUFFIX}",
                     {"spool_id": sid, "state": "REJECTED",

@@ -140,13 +140,24 @@ REMEDIATE_DEADLETTER_SUBMESHES_DEFAULT = 3
 REMEDIATE_PROBE_S_DEFAULT = 30.0
 # the graceful SIGTERM/SIGINT drain budget of `serve`
 DRAIN_TIMEOUT_S_DEFAULT = 30.0
-# the server parts still to port (ROADMAP A9c): a request ledger, fleet
-# failover, the disk executor cache and portfolio racing; the server
-# refuses each when it is set
+# crash-safe serving (service/ledger.py): TTS_LEDGER names the request
+# ledger's directory (every request state transition journaled, fsync'd,
+# before it is acknowledged, and replayed at boot); a running request's
+# spent_s is journaled at most every LEDGER_BUDGET_EVERY_S_DEFAULT seconds
 LEDGER_ENV = "TTS_LEDGER"
+LEDGER_BUDGET_EVERY_S_DEFAULT = 5.0
+# fleet failover (service/lease.py, service/failover.py): TTS_FLEET_DIR is
+# the shared root peers scan for expired leases; TTS_FAILOVER=1 arms the
+# takeover (default: observe only); TTS_LEASE_TTL_S is the lease's expiry
+# age (renewals at about TTL/3, scans at about TTL/2)
 FLEET_DIR_ENV = "TTS_FLEET_DIR"
 FAILOVER_FLAG = "TTS_FAILOVER"
+LEASE_TTL_S_DEFAULT = 10.0
+# the disk executor cache, still to port (ROADMAP A9d): the server refuses
+# TTS_AOT_CACHE
 AOT_CACHE_ENV = "TTS_AOT_CACHE"
+# bound-portfolio racing (service/portfolio.py): TTS_PORTFOLIO is the K of
+# requests that name none (0: off), TTS_PORTFOLIO_MAX caps it
 PORTFOLIO_ENV = "TTS_PORTFOLIO"
 PORTFOLIO_MAX_DEFAULT = 8
 
@@ -255,12 +266,13 @@ KNOBS: dict[str, object] = {
     "TTS_REMEDIATE_DEADLETTER_SUBMESHES":
         REMEDIATE_DEADLETTER_SUBMESHES_DEFAULT,
     "TTS_REMEDIATE_PROBE_S": REMEDIATE_PROBE_S_DEFAULT,
-    # refused by the server until ROADMAP A9c (ledger, failover, disk
-    # executor cache, portfolio racing); TTS_PORTFOLIO_MAX bounds a
-    # request's `portfolio` at validation, as in JAX
+    # the request ledger, fleet failover (the fleet root, act or observe,
+    # the lease's TTL), the disk executor cache (refused until ROADMAP
+    # A9d) and portfolio racing (the default K and its cap)
     LEDGER_ENV: None,
     FLEET_DIR_ENV: None,
     FAILOVER_FLAG: False,
+    "TTS_LEASE_TTL_S": LEASE_TTL_S_DEFAULT,
     AOT_CACHE_ENV: None,
     PORTFOLIO_ENV: 0,
     "TTS_PORTFOLIO_MAX": PORTFOLIO_MAX_DEFAULT,

@@ -1,8 +1,9 @@
 """Deterministic fault injection for the resilience layer.
 
 A copy of `tpu_tree_search/utils/faults.py` (stdlib only): the same spec
-grammar, points and per-plan budgets. The port has no `service/` yet, so
-`pause_server` takes its engine-only branch: a plain wedge (a sleep).
+grammar, points and per-plan budgets. `pause_server` freezes the renewals
+of every lease this process holds (`service.lease.suspend_renewals`) and
+then wedges the executor, as in JAX.
 
 None of the recovery paths (checkpoint rollback, segment retry, campaign
 respawn, elastic resume) can be trusted without a way to make the
