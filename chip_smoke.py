@@ -275,6 +275,43 @@ Phases (one line each, then two JSON lines):
      `cli.main` and writes those numbers and its launches to STATS). The
      `kernels` line's `dur_launches` are this phase's launches, the
      children's included; B1, B2, B4 and B5 must launch in them
+ 19. the HTTP front end and on-demand profiling (`obs/` httpd, profiler,
+     chrome_trace, otel, dashboard, aggregate; `serve --http-port
+     --otel-endpoint --profile-dir`, `doctor`, `capacity`, `profile`): two
+     `serve` children on one worker of the card, each behind `--http-port
+     0`, A exporting OTLP to a small collector in this script at shutdown.
+     (a) every GET route of A answers with its status and content type
+     (the host ms of `/healthz`, `/metrics`, `/status`, median of 20), its
+     404/405/400 answers, and A's first `POST /profile` (the process's
+     profiler start-up); (b) ta003 LB2 ub=opt at chunk 16384 submitted
+     over HTTP to its golden; (c) ta021 LB2 ub=opt at chunk 65536,
+     capacity 2^22, 64-step segments, no periodic save: after its second
+     segment a 1 s `POST /profile`, a second one meanwhile answered 409,
+     then four segments more; the artifact read by `chrome_trace` must
+     hold `fused_main` and `lb2_sweep_kernel` events, each step (between
+     two `fused_main`) the sweeps one ta021 step launches; the device
+     self-ms by bucket a step, the request's segment ms inside the window,
+     during its stop and export, and outside it, the export's seconds and
+     the artifact's bytes; then `POST /cancel` (cancelled, CANCELLED) and
+     404 for an unknown id; (d) B, which has captured nothing yet: a 5 s
+     window over ta008 LB2 ub=opt at chunk 16384, its first capture of the
+     process inside the window (the capture's CUDA runtime calls in the
+     trace), broken down before, during and at the instantiation by CUDA
+     runtime call and CPU op, beside the compile ledger's seconds; then a
+     new class, ta009 at chunk 8192, whose capture B holds after its begin
+     call (`CHIP_SMOKE_HOLD_CAPTURE`) until a window opened over HTTP
+     runs: the trace must hold the capture's end and instantiation and not
+     its begin; both requests to their goldens; (e) `doctor` on B exits 0
+     writing `--dashboard` and `--metrics-out`, 1 beside a closed port,
+     `capacity` exits 0; (f) both drained by SIGTERM, A's `otel:` line:
+     with the SDK the collector's spans equal the line's count and
+     `records_to_otlp` of A's trace file, without it nothing arrives; (g)
+     in process, `profile -i 21 -l 2 --chunk 65536 --capacity 4194304
+     --warm 64 --iters 64`: every port kernel's events in its trace equal
+     its launches over the window (all graph replays), beside
+     `profile_step` at the same shape. The `kernels` line's
+     `http_launches` are the children's launches; B2, B4 (fronts-only) and
+     B5 must launch in them
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -284,6 +321,8 @@ import contextlib
 import csv
 import dataclasses
 import gc
+import gzip
+import http.server as http_server
 import io
 import json
 import os
@@ -295,6 +334,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -306,6 +347,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
 
 from tpu_tree_search_torch import cli, native, problems  # noqa: E402
+from tpu_tree_search_torch import profile_step  # noqa: E402
 from tpu_tree_search_torch import service  # noqa: E402
 from tpu_tree_search_torch.service import lease as srv_lease  # noqa: E402
 from tpu_tree_search_torch.service import spool as srv_spool  # noqa: E402
@@ -320,6 +362,9 @@ from tpu_tree_search_torch.engine import telemetry as tele  # noqa: E402
 from tpu_tree_search_torch.kernel_times import (  # noqa: E402
     cuda_ms, kernel_ms, pool_chunk, random_chunk)
 from tpu_tree_search_torch.obs import audit, estimate, health  # noqa: E402
+from tpu_tree_search_torch.obs import chrome_trace  # noqa: E402
+from tpu_tree_search_torch.obs import otel as obs_otel  # noqa: E402
+from tpu_tree_search_torch.obs import profiler as obs_profiler  # noqa: E402
 from tpu_tree_search_torch.obs import journey as obs_journey  # noqa: E402
 from tpu_tree_search_torch.obs import metrics as obs_metrics  # noqa: E402
 from tpu_tree_search_torch.obs import resource as obs_resource  # noqa: E402
@@ -587,7 +632,7 @@ def ms_summary(seconds) -> dict:
 
 
 def serve_child(stats_path: str, argv: list) -> None:
-    """Phase 18: `chip_smoke.py --serve-child STATS serve ...` runs the
+    """Phases 18-19: `chip_smoke.py --serve-child STATS serve ...` runs the
     command line `argv` through `cli.main` (as `python -m
     tpu_tree_search_torch argv` does) with the server's scheduler tick,
     every ledger `journal` call and each dispatch's first segment timed,
@@ -627,6 +672,27 @@ def serve_child(stats_path: str, argv: list) -> None:
     cls._tick, cls._progress_update = timed_tick, first_segment
     cls.adopt_ledger = timed_adopt
     led_mod.RequestLedger.journal = timed_journal
+    hold = os.environ.get("CHIP_SMOKE_HOLD_CAPTURE")
+    if hold:
+        # phase 19 (d): the next capture to begin once `<hold>.armed`
+        # exists stops after its begin call, writes `hold`, and goes on
+        # when this process's profiler runs: a window opened while a
+        # capture is under way
+        from tpu_tree_search_torch.obs import profiler as obs_profiler
+        begin = torch.cuda.CUDAGraph.capture_begin
+
+        def held_begin(self, *args, **kwargs):
+            begin(self, *args, **kwargs)
+            armed = Path(f"{hold}.armed")
+            if armed.exists():
+                armed.unlink()
+                Path(hold).write_text("capturing")
+                t0 = time.monotonic()
+                while (not obs_profiler.session().active
+                       and time.monotonic() - t0 < 60):
+                    time.sleep(0.001)
+
+        torch.cuda.CUDAGraph.capture_begin = held_begin
     kernels.reset_launches()
     torch.cuda.synchronize(DEV)           # the context exists before the
     torch.cuda.reset_peak_memory_stats(DEV)   # peak is reset
@@ -4417,6 +4483,588 @@ for key in ("expand_bounds", "expand_emit", "lb2_sweep", "fused_expand"):
 say("phase 18 seconds", seconds=time.perf_counter() - t_phase18,
     dur_launches=DUR, card=CARD)
 
+# --- phase 19: the HTTP front end and on-demand profiling ---------------
+device.clear_graphs()
+t_phase19 = time.perf_counter()
+HTTP = dict.fromkeys(kernels.LAUNCHES, 0)
+SRV19 = Path(tempfile.mkdtemp(prefix="tts_chip_smoke_http_"))
+# the kernels of a trace and the launch counts they answer to
+TRACE_KERNELS = {"fused_main": ("fused_expand",),
+                 "lb2_sweep_kernel": ("lb2_sweep", "lb2_sweep_bigj"),
+                 "expand_main": ("expand_emit", "expand_fronts",
+                                 "expand_bounds")}
+
+
+def http(method, url, payload=None, timeout=10.0):
+    """(status, content type, body bytes, host seconds) of one call."""
+    data = None if payload is None else json.dumps(payload).encode()
+    if method == "POST" and data is None:
+        data = b""
+    req = urllib.request.Request(url, data=data, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            out = (r.status, r.headers["Content-Type"], r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers["Content-Type"], e.read())
+    return (*out, time.perf_counter() - t0)
+
+
+def http_json(method, url, payload=None, timeout=10.0):
+    code, _, body, secs = http(method, url, payload, timeout)
+    return code, json.loads(body), secs
+
+
+class OtlpCollector:
+    """An OTLP/HTTP traces endpoint on 127.0.0.1 for the `serve` child's
+    export: it counts the POSTs and the spans they carry (decoded with the
+    OTLP protobuf messages, which come with the SDK's exporter)."""
+
+    def __init__(self):
+        self.posts = self.spans = self.bytes = 0
+        self._lock = threading.Lock()
+        outer = self
+
+        class Handler(http_server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n)
+                if self.headers.get("Content-Encoding") == "gzip":
+                    body = gzip.decompress(body)
+                outer.add(body, self.headers.get("Content-Type") or "")
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-protobuf")
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.httpd = http_server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.url = (f"http://127.0.0.1:{self.httpd.server_address[1]}"
+                    "/v1/traces")
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def add(self, body: bytes, ctype: str) -> None:
+        if "json" in ctype:
+            doc = json.loads(body)
+            n = sum(len(ss.get("spans", [])) for rs in doc["resourceSpans"]
+                    for ss in rs.get("scopeSpans", []))
+        else:
+            from opentelemetry.proto.collector.trace.v1 import \
+                trace_service_pb2
+            msg = trace_service_pb2.ExportTraceServiceRequest()
+            msg.ParseFromString(body)
+            n = sum(len(ss.spans) for rs in msg.resource_spans
+                    for ss in rs.scope_spans)
+        with self._lock:
+            self.posts += 1
+            self.spans += n
+            self.bytes += len(body)
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+def popen19(argv, name, env=None):
+    fo = open(SRV19 / f"{name}.out", "w")
+    fe = open(SRV19 / f"{name}.err", "w")
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=fo, stderr=fe, text=True,
+                            env={**os.environ, **(env or {})})
+    fo.close()
+    fe.close()
+    return proc
+
+
+def output19(name) -> str:
+    return ((SRV19 / f"{name}.out").read_text() + "\n"
+            + (SRV19 / f"{name}.err").read_text())
+
+
+def serve19(name, *extra, env=None):
+    """`serve` on one submesh of one worker on the card, its HTTP front end
+    on an ephemeral port, through `chip_smoke.py --serve-child` (its
+    launches, seconds and peak memory land in `<name>.json`); returns the
+    process, its base URL and its stats path."""
+    spool = SRV19 / f"spool_{name}"
+    stats = SRV19 / f"{name}.json"
+    proc = popen19([sys.executable, str(ROOT / "chip_smoke.py"),
+                    "--serve-child", str(stats), "serve", "--spool",
+                    str(spool), "--submeshes", "1", "--status-every", "0",
+                    "--http-port", "0", "--trace-file",
+                    str(SRV19 / f"{name}.jsonl"), "--profile-dir",
+                    str(SRV19 / f"prof_{name}"), *extra], name, env)
+    t0 = time.perf_counter()
+    url = None
+    while url is None:
+        text = (SRV19 / f"{name}.out").read_text()
+        for ln in text.splitlines():
+            if ln.startswith("observability: "):
+                url = ln.split()[1].rsplit("/healthz", 1)[0]
+        check(proc.poll() is None and time.perf_counter() - t0 < 120,
+              f"{name}: no front end\n{output19(name)[-3000:]}")
+        time.sleep(0.05)
+    return proc, url, stats
+
+
+def stop19(proc, name, stats) -> dict:
+    """SIGTERM (the drain), the exit code 0 and the child's numbers; its
+    launches join HTTP."""
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    check(rc == 0, f"{name}: rc {rc}\n{output19(name)[-3000:]}")
+    st = json.loads(Path(stats).read_text())
+    for k, v in st["launches"].items():
+        HTTP[k] += v
+    return st
+
+
+def wait_request(url, rid, done=lambda r: r["state"] in TERMINAL19,
+                 timeout=240.0, every=0.02) -> dict:
+    t0 = time.perf_counter()
+    while True:
+        _, snap, _ = http_json("GET", f"{url}/status")
+        req = snap["requests"][rid]
+        if done(req):
+            return req
+        check(time.perf_counter() - t0 < timeout,
+              f"{rid}: still {req['state']} after {timeout} s")
+        time.sleep(every)
+
+
+TERMINAL19 = ("DONE", "FAILED", "CANCELLED", "DEADLINE")
+
+
+def golden19(label, req, inst):
+    res = req.get("result") or {}
+    got = (res.get("explored_tree"), res.get("explored_sol"),
+           res.get("best"))
+    check(req["state"] == "DONE" and got == GOLD_LB2[inst],
+          f"{label}: {req['state']} {got} != {GOLD_LB2[inst]} "
+          f"({req.get('error')})")
+
+
+def submit19(url, inst, **kw) -> str:
+    payload = {"inst": inst, "lb": 2, "ub": "opt", "chunk": 16384,
+               "capacity": 1 << 22, **kw}
+    code, body, _ = http_json("POST", f"{url}/submit", payload)
+    check(code == 200, f"submit ta{inst:03d}: {code} {body}")
+    return body["request_id"]
+
+
+def profile19(url, duration, out, key):
+    """`POST /profile?duration_s=...` on a thread; its answer, wall-clock
+    start and host seconds land in `out[key]`."""
+    def go():
+        t_unix = time.time()
+        code, body, secs = http_json(
+            "POST", f"{url}/profile?duration_s={duration}",
+            timeout=duration + 120)
+        out[key] = {"code": code, "body": body, "t_unix": t_unix,
+                    "seconds": secs}
+    th = threading.Thread(target=go)
+    th.start()
+    return th
+
+
+def artifact_bytes(art) -> int:
+    return sum(p.stat().st_size for p in Path(art).rglob("*.trace.json.gz"))
+
+
+def kernel_events(events, name):
+    return sorted((e for e in events if e.get("cat") == "kernel"
+                   and f"::{name}<" in str(e.get("name"))),
+                  key=lambda e: e["ts"])
+
+
+def runtime_table(events, top=12) -> list:
+    """CUDA runtime and driver calls of a trace, by name: count and host
+    ms, the largest first."""
+    n, us = {}, {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver"):
+            n[e["name"]] = n.get(e["name"], 0) + 1
+            us[e["name"]] = us.get(e["name"], 0.0) + e["dur"]
+    return [{"name": k, "calls": n[k], "ms": us[k] / 1e3}
+            for k in sorted(us, key=lambda k: -us[k])[:top]]
+
+
+def capture_breakdown(events) -> dict | None:
+    """A trace's first graph capture on the thread that made it: the
+    time before its begin call (that thread's first event on), the
+    capture (begin to end) and the instantiation, each with its CUDA
+    runtime and driver calls by name (count, ms), its slowest kernel
+    launch calls (a first launch loads its module) and its CPU ops by
+    self time."""
+    rt = sorted((e for e in events if e.get("ph") == "X" and e.get("cat")
+                 in ("cuda_runtime", "cuda_driver")), key=lambda e: e["ts"])
+    begin = next((e for e in rt if "begincapture" in e["name"].lower()),
+                 None)
+    if begin is None:
+        return None
+    tid = begin["tid"]
+    mine = [e for e in rt if e["tid"] == tid]
+    end = next(e for e in mine if e["ts"] >= begin["ts"]
+               and "endcapture" in e["name"].lower())
+    inst = next(e for e in mine if e["ts"] >= end["ts"]
+                and "graphinstantiate" in e["name"].lower())
+    cpu = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") == "cpu_op" and e.get("tid") == tid]
+    t0 = min([e["ts"] for e in mine + cpu])
+    out = {}
+    for part, (a, b) in (("before", (t0, begin["ts"])),
+                         ("capture", (begin["ts"], end["ts"] + end["dur"])),
+                         ("instantiate", (inst["ts"],
+                                          inst["ts"] + inst["dur"]))):
+        calls = [e for e in mine if a <= e["ts"] < b]
+        launches = sorted((e["dur"] for e in calls
+                           if e["name"].startswith("cudaLaunchKernel")),
+                          reverse=True)
+        cpu_us, cpu_n = chrome_trace.self_times(
+            [e for e in cpu if a <= e["ts"] < b], lane="cpu")
+        out[part] = {
+            "ms": (b - a) / 1e3,
+            "runtime": runtime_table(calls, top=8),
+            "launches": len(launches),
+            "launches_over_1ms": sum(1 for d in launches if d > 1e3),
+            "launch_ms_over_1ms": sum(d for d in launches if d > 1e3) / 1e3,
+            "cpu_ops": [{"name": k, "calls": cpu_n[k], "ms": v / 1e3}
+                        for k, v in cpu_us.most_common(6)]}
+    return out
+
+
+def capture_calls(events) -> dict:
+    """The graph-capture calls a trace holds, by kind."""
+    out = {"begin": 0, "end": 0, "instantiate": 0}
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        low = str(e.get("name")).lower()
+        out["begin"] += "begincapture" in low
+        out["end"] += "endcapture" in low
+        out["instantiate"] += "graphinstantiate" in low
+    return out
+
+
+OTEL_SDK = obs_otel.available()
+collector = OtlpCollector()
+# this process's own profiler start-up (CUPTI, about 10 s on a process's
+# first capture) beside the children's boots; (g) waits for it
+def warm_profiler():
+    with obs_profiler.trace(SRV19 / "warm"):
+        pass
+
+
+warm_main = threading.Thread(target=warm_profiler)
+warm_main.start()
+proc_a = proc_b = None
+try:
+    # two children: A serves (a)-(c) and exports OTLP at shutdown (f); B
+    # boots beside it and stays idle until (d) traces its first capture
+    proc_a, url_a, stats_a = serve19("a", "--otel-endpoint", collector.url)
+    hold_b = SRV19 / "b_hold"
+    proc_b, url_b, stats_b = serve19(
+        "b", env={"CHIP_SMOKE_HOLD_CAPTURE": str(hold_b)})
+    # B's profiler start-up (about 10 s of CUPTI on a process's first
+    # capture) runs now, beside A's (a)-(c); B captures nothing until (d)
+    first_b = {}
+    th_first_b = profile19(url_b, 0.2, first_b, "p")
+
+    # (a) the live surface: every GET route, then the host ms of the three
+    # routes a scraper polls (median of 20 calls each)
+    want_json = {"/healthz": {"status"}, "/status": {"requests", "queue"},
+                 "/trace": {"traceEvents", "displayTimeUnit"},
+                 "/alerts": {"enabled", "firing", "alerts"},
+                 "/capacity": {"enabled"}, "/journey": {"enabled"},
+                 "/": {"service", "endpoints"}}
+    routes = {}
+    for path in ("/healthz", "/metrics", "/status", "/trace", "/alerts",
+                 "/capacity", "/dashboard", "/journey", "/journey?tag=x",
+                 "/"):
+        code, ctype, body, secs = http("GET", url_a + path)
+        routes[path] = (code, ctype)
+        check(code == 200, f"GET {path}: {code}")
+        base = path.split("?")[0]
+        if base == "/metrics":
+            check(ctype.startswith("text/plain")
+                  and b"tts_http_requests_total" in body,
+                  f"GET /metrics: {ctype}")
+        elif base == "/dashboard":
+            check(ctype.startswith("text/html") and b"<script" not in body
+                  and b"tpu_tree_search_torch" in body,
+                  f"GET /dashboard: {ctype}")
+        else:
+            doc = json.loads(body)
+            check(ctype == "application/json"
+                  and want_json[base] <= set(doc),
+                  f"GET {path}: {ctype} {sorted(doc)}")
+    check(http("GET", url_a + "/nope")[0] == 404
+          and http("GET", url_a + "/submit")[0] == 405
+          and http("POST", url_a + "/cancel", {"request_id": "req-9999"})[0]
+          == 404 and http("POST", url_a + "/submit", {"lb": 2})[0] == 400
+          and http("POST", url_a + "/profile?duration_s=-1")[0] == 400,
+          "a: 404/405/400 answers")
+    route_ms = {p: ms_summary([http("GET", url_a + p)[3]
+                               for _ in range(20)])
+                for p in ("/healthz", "/metrics", "/status")}
+    # the process's first capture pays the profiler's start-up (CUPTI)
+    first = {}
+    profile19(url_a, 0.2, first, "p").join()
+    check(first["p"]["code"] == 200, f"first profile: {first['p']}")
+    say("HTTP front end (serve on one worker; GET routes, host ms of 20 "
+        "calls)", routes=routes, route_ms=route_ms,
+        first_profile_s=first["p"]["seconds"], otel_sdk=OTEL_SDK, card=CARD)
+
+    # (b) a golden over HTTP: ta003 LB2 ub=opt at chunk 16384
+    rid_b = submit19(url_a, 3)
+    req_b = wait_request(url_a, rid_b)
+    golden19("HTTP ta003", req_b, 3)
+
+    # (c) a profile over the full-width path: ta021 at chunk 65536
+    # (no periodic save: a save of its pool takes seconds, and the window
+    # would hold it instead of steps)
+    rid_c = submit19(url_a, 21, chunk=65536, segment_iters=64, tag="p21",
+                     checkpoint_every=1 << 20)
+
+    def segment_at_least(n):
+        return lambda r: (r["progress"].get("segment", 0) >= n
+                          or r["state"] in TERMINAL19)
+
+    wait_request(url_a, rid_c, done=segment_at_least(2))
+    prof_c = {}
+    th_c = profile19(url_a, 1.0, prof_c, "window")
+    time.sleep(0.3)
+    code_busy, busy, _ = http_json("POST", f"{url_a}/profile?duration_s=1")
+    th_c.join(timeout=300)
+    check(code_busy == 409, f"second profile: {code_busy} {busy}")
+    seg_after = http_json("GET", f"{url_a}/status")[1]["requests"][
+        rid_c]["progress"].get("segment", 0)
+    wait_request(url_a, rid_c, done=segment_at_least(seg_after + 4))
+    pc = prof_c["window"]
+    check(pc["code"] == 200, f"ta021 profile: {pc}")
+    art_c = pc["body"]["artifact"]
+    ev_c = chrome_trace.load_profile_trace(art_c)
+    fm = kernel_events(ev_c, "fused_main")
+    sw = kernel_events(ev_c, "lb2_sweep_kernel")
+    per_step = [sum(1 for e in sw if a["ts"] < e["ts"] < b["ts"])
+                for a, b in zip(fm, fm[1:])]
+    check(len(fm) >= 32 and sw, f"ta021 window: {len(fm)} fused_main, "
+          f"{len(sw)} lb2_sweep_kernel events")
+    code, body, _ = http_json("POST", f"{url_a}/cancel",
+                              {"request_id": rid_c})
+    check(code == 200 and body["cancelled"] is True,
+          f"cancel ta021: {code} {body}")
+    req_c = wait_request(url_a, rid_c)
+    check(req_c["state"] == "CANCELLED", f"ta021: {req_c['state']}")
+    check(http("POST", f"{url_a}/cancel", {"request_id": "req-9999"})[0]
+          == 404, "cancel of an unknown id")
+    self_c, _ = chrome_trace.self_times(ev_c)
+    steps_c = max(len(fm), 1)
+    buckets_c = {k: v / 1e3 / steps_c for k, v in
+                 chrome_trace.bucketed_self_times(self_c).most_common()}
+    export_c = pc["seconds"] - 1.0
+
+    # (d) a cold boot, traced: B's first capture inside a window, then a
+    # window opened while another class captures
+    th_first_b.join(timeout=300)
+    check(first_b["p"]["code"] == 200, f"B first profile: {first_b['p']}")
+    prof_d = {}
+    th_d = profile19(url_b, 5.0, prof_d, "cold")
+    time.sleep(0.3)
+    rid_d = submit19(url_b, 8)
+    th_d.join(timeout=300)
+    req_d = wait_request(url_b, rid_d)
+    golden19("cold ta008", req_d, 8)
+    pd = prof_d["cold"]
+    check(pd["code"] == 200, f"cold profile: {pd}")
+    ev_d = chrome_trace.load_profile_trace(pd["body"]["artifact"])
+    cap_d = capture_calls(ev_d)
+    check(cap_d["begin"] > 0 and cap_d["instantiate"] > 0,
+          f"cold ta008: the first capture is not in the window {cap_d}")
+    first_capture = capture_breakdown(ev_d)
+    cpu_d, cpu_n = chrome_trace.self_times(ev_d, lane="cpu")
+    _, snap_b, _ = http_json("GET", f"{url_b}/status")
+    ledger_b = snap_b["compile_ledger"]
+    # the reverse order: a new class (ta009 at chunk 8192) whose capture
+    # B holds after its begin call until a window opened over HTTP runs
+    Path(f"{hold_b}.armed").write_text("")
+    rid_e = submit19(url_b, 9, chunk=8192)
+    t_hold = time.perf_counter()
+    while not hold_b.exists():
+        check(proc_b.poll() is None and time.perf_counter() - t_hold < 120,
+              "B: the ta009 capture never began")
+        time.sleep(0.005)
+    prof_e = {}
+    profile19(url_b, 0.5, prof_e, "during").join(timeout=300)
+    req_e = wait_request(url_b, rid_e)
+    golden19("ta009 captured across a window's start", req_e, 9)
+    pe = prof_e["during"]
+    check(pe["code"] == 200, f"profile during a capture: {pe}")
+    cap_e = capture_calls(chrome_trace.load_profile_trace(
+        pe["body"]["artifact"]))
+    check(cap_e["begin"] == 0 and cap_e["end"] > 0
+          and cap_e["instantiate"] > 0,
+          f"ta009: the window did not open mid-capture {cap_e}")
+    say("a cold boot traced (B: a window over ta008's first capture of the "
+        "process, then one opened while ta009's capture is under way)",
+        ta008_state=req_d["state"], capture_calls_ta008=cap_d,
+        first_capture=first_capture, ta009_state=req_e["state"],
+        capture_calls_ta009=cap_e, first_profile_s=first_b["p"]["seconds"],
+        compile_ledger=[{k: e.get(k) for k in ("key", "trace_s",
+                                                "compile_s", "method")}
+                        for e in ledger_b],
+        runtime_calls=runtime_table(ev_d),
+        cpu_ops_self_ms=[{"name": k, "calls": cpu_n[k], "ms": v / 1e3}
+                         for k, v in cpu_d.most_common(12)],
+        card=CARD)
+
+    # (e) the fleet commands against B
+    html19, prom19 = SRV19 / "fleet.html", SRV19 / "fleet.prom"
+    rc_ok, out_ok, err_ok = cli_run(["doctor", url_b, "--dashboard",
+                                     str(html19), "--metrics-out",
+                                     str(prom19)])
+    check(rc_ok == 0, f"doctor: {rc_ok}\n{out_ok[-2000:]}{err_ok[-2000:]}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    rc_down, out_down, _ = cli_run(["doctor", url_b,
+                                    f"http://127.0.0.1:{closed}",
+                                    "--timeout", "1"])
+    check(rc_down == 1 and "unreachable" in out_down,
+          f"doctor with a closed port: {rc_down}\n{out_down[-2000:]}")
+    check(html19.stat().st_size > 0 and "fleet health" in html19.read_text()
+          and "origin=" in prom19.read_text(), "doctor's files")
+    rc_cap, out_cap, _ = cli_run(["capacity", url_b])
+    check(rc_cap == 0 and "lanes=" in out_cap,
+          f"capacity: {rc_cap}\n{out_cap[-2000:]}")
+    say("fleet commands against B", doctor=rc_ok,
+        doctor_line=out_ok.splitlines()[0], doctor_closed_port=rc_down,
+        capacity=rc_cap, dashboard_bytes=html19.stat().st_size, card=CARD)
+
+    # (f) shutdown: B, then A with its OTLP export
+    st_b = stop19(proc_b, "b", stats_b)
+    proc_b = None
+    st_a = stop19(proc_a, "a", stats_a)
+    proc_a = None
+finally:
+    for p in (proc_a, proc_b):
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait()
+    collector.close()
+out_a = output19("a")
+otel_line = next((ln for ln in out_a.splitlines()
+                  if ln.startswith("otel: exported ")), None)
+check(otel_line is not None, f"A printed no otel line\n{out_a[-2000:]}")
+shipped = int(otel_line.split()[2])
+recs_a = chrome_trace.read_jsonl(SRV19 / "a.jsonl")
+mapped = len(obs_otel.records_to_otlp(recs_a)["resourceSpans"][0]
+             ["scopeSpans"][0]["spans"])
+if OTEL_SDK:
+    check(shipped == collector.spans == mapped,
+          f"otel: shipped {shipped}, collected {collector.spans}, "
+          f"mapped {mapped}")
+else:
+    check(shipped == 0 and collector.posts == 0,
+          f"otel without the SDK: {otel_line}, {collector.posts} posts")
+
+# (c) continued: the request's segments inside the window against those
+# outside it (the trace's monotonic clock to wall time by its meta line)
+t0_unix = next(json.loads(ln)["t0_unix"] for ln in
+               (SRV19 / "a.jsonl").read_text().splitlines()
+               if '"meta"' in ln)
+win = (pc["t_unix"], pc["t_unix"] + 1.0, pc["t_unix"] + pc["seconds"])
+seg_in, seg_export, seg_out = [], [], []
+for r in recs_a:
+    if r.get("name") == "segment" and r.get("request_id") == rid_c \
+            and r.get("segment", 0) > 1:      # the first holds the capture
+        a = t0_unix + r["ts"]
+        b = a + r["dur"]
+        (seg_export if a < win[2] and b > win[1] else
+         seg_in if a < win[1] and b > win[0] else seg_out).append(r["dur"])
+say("ta021 profiled over HTTP (chunk 65536, 64-step segments, a 1 s window)",
+    fused_main=len(fm), lb2_sweep_kernel=len(sw),
+    lb2_per_step=sorted(set(per_step)), second_profile=code_busy,
+    device_self_ms_per_step=buckets_c,
+    segment_ms_in_window=ms_summary(seg_in),
+    segment_ms_during_stop_and_export=ms_summary(seg_export),
+    segment_ms_outside=ms_summary(seg_out),
+    profile_answer_s=pc["seconds"], export_and_stop_s=export_c,
+    artifact_bytes=artifact_bytes(art_c), state=req_c["state"], card=CARD)
+say("shutdown", otel_line=otel_line, otel_sdk=OTEL_SDK,
+    collector={"posts": collector.posts, "spans": collector.spans,
+               "bytes": collector.bytes}, records_to_otlp_spans=mapped,
+    a={k: st_a[k] for k in ("rc", "seconds", "peak_bytes")},
+    b={k: st_b[k] for k in ("rc", "seconds", "peak_bytes")}, card=CARD)
+
+# (g) the `profile` command in process: each kernel's events in the trace
+# equal its launches over the window, then profile_step at the same shape
+warm_main.join(timeout=300)
+window = {}
+sess19 = obs_profiler.session()
+_start, _stop = sess19.start, sess19.stop
+
+
+def counted_start(log_dir):
+    out = _start(log_dir)
+    window["launches"] = dict(kernels.LAUNCHES)
+    window["replayed"] = dict(kernels.REPLAYED)
+    return out
+
+
+def counted_stop():
+    torch.cuda.synchronize()
+    window["launches"] = {k: kernels.LAUNCHES[k] - v
+                          for k, v in window["launches"].items()}
+    window["replayed"] = {k: kernels.REPLAYED[k] - v
+                          for k, v in window["replayed"].items()}
+    return _stop()
+
+
+sess19.start, sess19.stop = counted_start, counted_stop
+buf = io.StringIO()
+try:
+    with contextlib.redirect_stdout(buf):
+        rc_g = cli.main(["profile", "-i", "21", "-l", "2", "--chunk",
+                         "65536", "--capacity", str(1 << 22), "--warm", "64",
+                         "--iters", "64", "--out", str(SRV19 / "prof_g")])
+finally:
+    del sess19.start, sess19.stop
+check(rc_g == 0, f"profile command: rc {rc_g}\n{buf.getvalue()[-2000:]}")
+line_g = json.loads(buf.getvalue().splitlines()[0])
+ev_g = chrome_trace.load_profile_trace(line_g["artifact"])
+events_g = {k: len(kernel_events(ev_g, k)) for k in TRACE_KERNELS}
+launch_g = {k: sum(window["launches"][x] for x in keys)
+            for k, keys in TRACE_KERNELS.items()}
+check(events_g == launch_g and events_g["fused_main"] == 64
+      and window["replayed"] == window["launches"],
+      f"profile command: events {events_g} != launches {launch_g} "
+      f"(replayed {window['replayed']})")
+ratio = launch_g["lb2_sweep_kernel"] // max(launch_g["fused_main"], 1)
+check(launch_g["lb2_sweep_kernel"] == ratio * launch_g["fused_main"]
+      and per_step and set(per_step) == {ratio},
+      f"ta021 over HTTP: lb2 sweeps per step {sorted(set(per_step))}, "
+      f"one step launches {ratio}")
+step_g = profile_step.profile(21, 2, 65536, 1 << 22, 64, 64, DEV)
+say("profile command (ta021 LB2, chunk 65536, capacity 2^22, 64 warm + 64 "
+    "traced steps) beside profile_step",
+    json_line=line_g, trace_events=events_g, window_launches=launch_g,
+    profile_step={k: step_g[k] for k in ("device_ms_per_step",
+                                         "device_ops_per_step",
+                                         "device_busy_share",
+                                         "top_device_ops")}, card=CARD)
+shutil.rmtree(SRV19)
+for key in ("expand_fronts", "lb2_sweep", "fused_expand"):
+    check(HTTP[key] > 0, f"phase 19: {key} never launched")
+say("phase 19 seconds", seconds=time.perf_counter() - t_phase19,
+    http_launches=HTTP, card=CARD)
+
 for r in RESULTS:
     check(r["launches"] > 0, f"{r['name']}: no launch on its main path")
     key = r.pop("launches_key")
@@ -4430,6 +5078,7 @@ for r in RESULTS:
     r["obs_launches"] = OBS[key]
     r["serve_launches"] = SRV[key]
     r["dur_launches"] = DUR[key]
+    r["http_launches"] = HTTP[key]
 print(json.dumps({"kernels": RESULTS}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@ duplicate active tag, fault isolation, the executor cache (same shape
 hits, another lb misses), two instances of one class through one cached
 loop (each its solo run, the caller's tables untouched), megabatching, a
 failed first dispatch redispatched with the remediation journal, the
-`serve` and `client` commands, and the left-out arguments naming their
-ROADMAP item (the durability layer's own tests are test_torch_ledger*.py,
+`serve` and `client` commands, the front end's flags starting `serve`,
+and the left-out arguments naming their ROADMAP item (the durability layer's own tests are test_torch_ledger*.py,
 test_torch_lease*.py, test_torch_failover.py, test_torch_portfolio*.py and
 test_torch_journey*.py). One scenario runs through both servers and their request
 and status snapshots are compared key by key, the wall-clock keys listed
@@ -419,9 +419,30 @@ def test_left_out_server_parts_name_their_roadmap_item(tmp_path,
                      workdir=tmp_path, **kw)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--http-port", "0"], "A10"), (["--otel-endpoint", "x"], "A10"),
-    (["--profile-dir", "p"], "A10"), (["--aot-cache", "a"], "A9d")])
+@pytest.mark.parametrize("argv,line", [
+    (["--http-port", "0"], "observability: http://127.0.0.1:"),
+    (["--otel-endpoint", "http://127.0.0.1:9/v1/traces"],
+     "otel: exported 0 span(s) at shutdown (0 total) to "
+     "http://127.0.0.1:9/v1/traces"),
+    (["--profile-dir", "prof"], "served 0 request(s)")])
+def test_front_end_flags_start_the_server(tmp_path, argv, line):
+    """`--http-port`, `--otel-endpoint` and `--profile-dir` are taken:
+    `serve` on an empty spool prints the line the flag adds and exits 0,
+    naming no ROADMAP item."""
+    sp = str(tmp_path / "spool")
+    args = ["serve", "--spool", sp, "--device", "cpu", "--idle-exit", "0.3",
+            "--status-every", "0", "--workdir", str(tmp_path / "wd"),
+            "--health-interval-s", "0", "--resource-sample-s", "0"]
+    args += [str(tmp_path / a) if a == "prof" else a for a in argv]
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    assert rc == 0, err.getvalue()
+    assert line in out.getvalue() and "served 0 request(s)" in out.getvalue()
+    assert "ROADMAP" not in err.getvalue()
+
+
+@pytest.mark.parametrize("argv,item", [(["--aot-cache", "a"], "A9d")])
 def test_left_out_flags_name_their_roadmap_item(tmp_path, argv, item):
     sp = str(tmp_path / "spool")
     args = ["serve", "--spool", sp, "--device", "cpu"] + argv

@@ -157,7 +157,9 @@ def test_port_imports_no_jax():
                  "engine.sequential", "engine.telemetry", "kernel_times",
                  "obs.audit", "obs.capacity", "obs.estimate", "obs.health",
                  "obs.metric_names", "obs.metrics", "obs.resource",
-                 "obs.store", "obs.tracelog", "ops.batched",
+                 "obs.store", "obs.tracelog", "obs.aggregate",
+                 "obs.chrome_trace", "obs.dashboard", "obs.httpd",
+                 "obs.otel", "obs.profiler", "ops.batched",
                  "ops.columns", "ops.expand", "ops.fused", "ops.kernels",
                  "ops.nqueens_ops", "ops.reference", "parallel.balance",
                  "problems.base", "problems.knapsack", "problems.nqueens",

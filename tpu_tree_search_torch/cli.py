@@ -1,6 +1,6 @@
 """Command line of the port: the `pfsp`, `nqueens`, `solve`, `devices`,
-`serve`, `client` and `journey` subcommands, on one device or on several
-workers (`-D`).
+`serve`, `client`, `journey`, `profile`, `doctor` and `capacity`
+subcommands, on one device or on several workers (`-D`).
 
 Reproduces these paths of `tpu_tree_search/cli.py`:
 `run_pfsp` -> `device.search`, and with `--segment-iters` or
@@ -55,8 +55,26 @@ ledger and a watcher over the peers' leases under F) and `--failover`
 (adopt an expired peer's ledger), with JAX's `ledger:` and `failover:`
 banner lines; a server that boots fenced serves nothing and exits 0, as
 does a SIGTERM drain. `client --portfolio K` races K configurations.
-`--http-port`, `--otel-endpoint` and `--profile-dir` exit 1 naming ROADMAP
-A10, and `--aot-cache` naming A9d.
+`--http-port N` (0: ephemeral) puts the HTTP front end (`obs/httpd.py`)
+before the server, bound to `--http-host`, and prints JAX's
+`observability: <url>/healthz ...` line; `--otel-endpoint URL` exports the
+flight recorder as OTLP at shutdown (`obs/otel.py`) and with
+`--otel-interval-s N` every N seconds too, printing JAX's `otel:` lines;
+`--profile-dir` is the root of `POST /profile` captures. `--aot-cache`
+exits 1 naming ROADMAP A9d.
+
+`profile` (JAX `run_profile`) warms the single-device loop (`device.run`,
+`--warm` steps), traces `--iters` more through the process's one profiler
+(`obs/profiler.py`) and prints JAX's JSON line (`artifact`, `inst`, `lb`,
+`iters`, `evals`, `device_self_ms`, `buckets_ms`) and the top ops by self
+time: the card's ops on the card, the CPU ops with `--device cpu`.
+`doctor URL...` scrapes servers' front ends (`obs/aggregate.py`) and
+prints the fleet's verdict, exit 0 healthy, 1 unhealthy or unreachable
+(or down with its lease held), 2 (`DOCTOR_TAKEOVER_EXIT_CODE`) for a lease
+in `--fleet-dir` that expired unreleased; `--dashboard` and
+`--metrics-out` write the fleet's HTML page and Prometheus text.
+`capacity URL...` prints each server's `/capacity` document, exit 1 when
+one is unreachable.
 
 `journey --ledger DIR` (repeatable) and/or `--fleet-dir F` prints one
 stitched timeline per logical request across restarts and takeovers
@@ -104,6 +122,10 @@ on the card. `--csv` appends the reference's CSV row
         --chunk 16384
     python -m tpu_tree_search_torch serve --spool sp --ledger L &
     python -m tpu_tree_search_torch journey --ledger L --tag T
+    python -m tpu_tree_search_torch serve --spool sp --http-port 0 &
+    python -m tpu_tree_search_torch doctor http://127.0.0.1:PORT
+    python -m tpu_tree_search_torch profile -i 21 -l 2 --chunk 65536 \\
+        --capacity 4194304 --warm 64 --iters 64
 """
 
 from __future__ import annotations
@@ -591,7 +613,14 @@ def _serve_args(sub) -> None:
                    help="print a JSON status snapshot every N seconds "
                         "(0 disables)")
     p.add_argument("--http-port", type=int, default=None,
-                   help="the HTTP front-end (ROADMAP A10: refused)")
+                   help="start the HTTP front end (obs/httpd: /healthz "
+                        "/metrics /status /trace /alerts /capacity "
+                        "/dashboard /journey, POST /submit /cancel "
+                        "/profile) on this port (0: ephemeral, printed at "
+                        "startup; default: off)")
+    p.add_argument("--http-host", type=str, default="127.0.0.1",
+                   help="bind address for --http-port (default loopback; "
+                        "0.0.0.0 exposes it)")
     p.add_argument("--trace-file", type=str, default=None,
                    help="append the flight recorder's log to this JSONL "
                         "file (also via TTS_TRACE_FILE)")
@@ -602,9 +631,19 @@ def _serve_args(sub) -> None:
                    help="keep the search-telemetry vector in every served "
                         "search (also via TTS_SEARCH_TELEMETRY=1)")
     p.add_argument("--otel-endpoint", type=str, default=None,
-                   help="OTLP export (ROADMAP A10: refused)")
+                   help="export the flight recorder's ring as OTLP spans to "
+                        "this OTLP/HTTP traces URL at shutdown "
+                        "(obs/otel.py; needs the opentelemetry SDK, "
+                        "without it one warning and nothing exported)")
+    p.add_argument("--otel-interval-s", type=float, default=0.0,
+                   help="also flush the ring to --otel-endpoint every N "
+                        "seconds while serving (each flush ships only "
+                        "records newer than the last; <= 0: at shutdown "
+                        "only)")
     p.add_argument("--profile-dir", type=str, default=None,
-                   help="POST /profile captures (ROADMAP A10: refused)")
+                   help="artifact root of POST /profile captures "
+                        "(obs/profiler; a subdirectory a capture; default: "
+                        "<workdir>/profiles)")
     p.add_argument("--resource-sample-s", type=float, default=None,
                    help="memory sampler period in seconds (default 1.0, "
                         "also via TTS_RESOURCE_SAMPLE_S; <= 0 disables)")
@@ -776,11 +815,8 @@ def run_serve(args) -> int:
     from .obs import tracelog
     from .service import SearchServer, spool
 
-    for flag, item in (("http_port", "A10"), ("otel_endpoint", "A10"),
-                       ("profile_dir", "A10"), ("aot_cache", "A9d")):
-        value = getattr(args, flag)
-        if value is not None and value is not False:     # --http-port 0
-            raise _not_ported(f"--{flag.replace('_', '-')}", item, "serve")
+    if args.aot_cache is not None:
+        raise _not_ported("--aot-cache", "A9d", "serve")
     if args.search_telemetry:
         _cfg.set_env("TTS_SEARCH_TELEMETRY", "1")
     if args.overlap:
@@ -810,84 +846,136 @@ def run_serve(args) -> int:
     drain_timeout = (args.drain_timeout if args.drain_timeout is not None
                      else _cfg.env_float("TTS_DRAIN_TIMEOUT_S"))
     _install_drain_handlers(drain_evt, drain_timeout)
-    with SearchServer(n_submeshes=args.submeshes, devices=devices,
-                      workdir=args.workdir,
-                      max_queue_depth=args.queue_depth,
-                      segment_iters=args.segment_iters,
-                      phase_profile=True if args.phase_metrics else None,
-                      resource_sample_s=args.resource_sample_s,
-                      health_interval_s=args.health_interval_s,
-                      overlap=True if args.overlap else None,
-                      share_incumbent=(True if args.share_incumbent
-                                       else None),
-                      tune_cache_dir=args.tune_cache,
-                      tune_at_boot=True if args.tune else None,
-                      remediate=True if args.remediate else None,
-                      ledger_dir=args.ledger,
-                      megabatch=True if args.megabatch else None,
-                      batch_max=args.batch_max,
-                      batch_age_s=args.batch_age_s) as srv:
-        if srv.megabatch:
-            print(f"megabatch: ON (max {srv.former.max_size}, "
-                  f"age {srv.former.age_s:g}s)", flush=True)
-        print(f"remediation: "
-              f"{'ACT' if srv.remediation.enabled else 'observe'}"
-              f"-mode (TTS_REMEDIATE)", flush=True)
-        if srv.ledger is not None:
-            led = srv.ledger.snapshot()
-            rec = srv._recovered
-            print(f"ledger: {led['dir']} (restart "
-                  f"#{led['restarts']}, replayed "
-                  f"{led['replayed']} record(s), recovered "
-                  f"{rec['queued']}q/{rec['active']}a/"
-                  f"{rec['held']}h/{rec['terminal']}t, "
-                  f"truncated {led['truncated']})", flush=True)
-        if srv.lease is not None or srv.fenced:
-            mode = ("FENCED" if srv.fenced else
-                    ("ACT" if srv.watcher is not None
-                     and srv.watcher.act else "observe"))
-            epoch = srv.lease.epoch if srv.lease is not None else "-"
-            print(f"failover: {mode}-mode, lease epoch {epoch}, "
-                  f"ttl {_cfg.env_float('TTS_LEASE_TTL_S'):g}s "
-                  f"(TTS_FLEET_DIR/TTS_FAILOVER)", flush=True)
-        if srv.tuner is not None and srv.tuner.cache is not None:
-            print(f"tune cache: {srv.tuner.cache.root} "
-                  f"({srv.tuner.cache.entries()} entr(y/ies), "
-                  f"probe-at-boot={srv.tune_at_boot})", flush=True)
-        env_spec = _cfg.env_str(_cfg.PREWARM_ENV)
-        prewarm_spec = args.prewarm if args.prewarm is not None else env_spec
-        if env_spec is not None and env_spec.strip().lower() in (
-                "0", "off", "no"):
-            # the environment's kill-switch wins over the flag
-            prewarm_spec = None
-        if prewarm_spec is not None and prewarm_spec.strip().lower() \
-                not in ("0", "off", "no"):
-            try:
-                summary = srv.prewarm_boot(prewarm_spec,
-                                           spool_dir=args.spool)
-            except ValueError as e:
-                # a bad spec boots cold, as in JAX
-                print(f"prewarm SKIPPED: {e}", flush=True)
-            else:
-                print(f"prewarm: {summary['warms']} executable(s) for "
-                      f"{summary['shapes']} shape(s) in "
-                      f"{summary['seconds']}s "
-                      f"(disk={summary['by']['disk']} "
-                      f"compile={summary['by']['compile']} "
-                      f"warm={summary['by']['warm']} "
-                      f"skipped={summary['by']['skipped']} "
-                      f"errors={summary['errors']})", flush=True)
-        print(f"serving: {args.submeshes} submesh(es) x "
-              f"{len(srv.slots[0].devices)} device(s) "
-              f"({srv.slots[0].devices[0]}), spool {args.spool}",
-              flush=True)
-        served = spool.serve_spool(
-            srv, args.spool, idle_exit_s=args.idle_exit,
-            status_every_s=args.status_every or None,
-            emit=lambda s: print(s, flush=True),
-            # a FENCED server (its lease lost to an adopter) stops
-            # serving the spool too: its requests live on the peer now
-            should_exit=lambda: drain_evt.is_set() or srv.fenced)
+    httpd = None
+    otel_exp = None
+    otel_stop = None
+    if args.otel_endpoint:
+        from .obs import otel
+        # ONE exporter for the interval flushes and the shutdown flush:
+        # its seq watermark keeps a record from shipping twice
+        otel_exp = otel.IncrementalExporter(endpoint=args.otel_endpoint)
+        if args.otel_interval_s and args.otel_interval_s > 0:
+            otel_stop = threading.Event()
+
+            def _otel_tick():
+                while not otel_stop.wait(args.otel_interval_s):
+                    try:
+                        otel_exp.flush(tracelog.get().records())
+                    except Exception:  # noqa: BLE001 — a flaky
+                        # collector must not kill the flusher; the next
+                        # tick (same watermark) retries the same tail
+                        pass
+            threading.Thread(target=_otel_tick, name="otel-flush",
+                             daemon=True).start()
+            print(f"otel: flushing to {args.otel_endpoint} every "
+                  f"{args.otel_interval_s:g}s", flush=True)
+    try:
+        with SearchServer(n_submeshes=args.submeshes, devices=devices,
+                          workdir=args.workdir,
+                          max_queue_depth=args.queue_depth,
+                          segment_iters=args.segment_iters,
+                          phase_profile=True if args.phase_metrics else None,
+                          resource_sample_s=args.resource_sample_s,
+                          health_interval_s=args.health_interval_s,
+                          overlap=True if args.overlap else None,
+                          share_incumbent=(True if args.share_incumbent
+                                           else None),
+                          tune_cache_dir=args.tune_cache,
+                          tune_at_boot=True if args.tune else None,
+                          remediate=True if args.remediate else None,
+                          ledger_dir=args.ledger,
+                          megabatch=True if args.megabatch else None,
+                          batch_max=args.batch_max,
+                          batch_age_s=args.batch_age_s) as srv:
+            if srv.megabatch:
+                print(f"megabatch: ON (max {srv.former.max_size}, "
+                      f"age {srv.former.age_s:g}s)", flush=True)
+            print(f"remediation: "
+                  f"{'ACT' if srv.remediation.enabled else 'observe'}"
+                  f"-mode (TTS_REMEDIATE)", flush=True)
+            if srv.ledger is not None:
+                led = srv.ledger.snapshot()
+                rec = srv._recovered
+                print(f"ledger: {led['dir']} (restart "
+                      f"#{led['restarts']}, replayed "
+                      f"{led['replayed']} record(s), recovered "
+                      f"{rec['queued']}q/{rec['active']}a/"
+                      f"{rec['held']}h/{rec['terminal']}t, "
+                      f"truncated {led['truncated']})", flush=True)
+            if srv.lease is not None or srv.fenced:
+                mode = ("FENCED" if srv.fenced else
+                        ("ACT" if srv.watcher is not None
+                         and srv.watcher.act else "observe"))
+                epoch = srv.lease.epoch if srv.lease is not None else "-"
+                print(f"failover: {mode}-mode, lease epoch {epoch}, "
+                      f"ttl {_cfg.env_float('TTS_LEASE_TTL_S'):g}s "
+                      f"(TTS_FLEET_DIR/TTS_FAILOVER)", flush=True)
+            if srv.tuner is not None and srv.tuner.cache is not None:
+                print(f"tune cache: {srv.tuner.cache.root} "
+                      f"({srv.tuner.cache.entries()} entr(y/ies), "
+                      f"probe-at-boot={srv.tune_at_boot})", flush=True)
+            if args.http_port is not None:
+                # BEFORE the pre-warm: a readiness probe (or the doctor)
+                # that cannot reach /healthz during a long warm would
+                # restart the server into the same warm
+                from .obs.httpd import start_http_server
+                httpd = start_http_server(srv, host=args.http_host,
+                                          port=args.http_port,
+                                          profile_dir=args.profile_dir)
+                print(f"observability: {httpd.url}/healthz /metrics "
+                      "/status /trace /alerts /dashboard; "
+                      "POST /submit /cancel /profile?duration_s=N",
+                      flush=True)
+            env_spec = _cfg.env_str(_cfg.PREWARM_ENV)
+            prewarm_spec = (args.prewarm if args.prewarm is not None
+                            else env_spec)
+            if env_spec is not None and env_spec.strip().lower() in (
+                    "0", "off", "no"):
+                # the environment's kill-switch wins over the flag
+                prewarm_spec = None
+            if prewarm_spec is not None and prewarm_spec.strip().lower() \
+                    not in ("0", "off", "no"):
+                try:
+                    summary = srv.prewarm_boot(prewarm_spec,
+                                               spool_dir=args.spool)
+                except ValueError as e:
+                    # a bad spec boots cold, as in JAX
+                    print(f"prewarm SKIPPED: {e}", flush=True)
+                else:
+                    print(f"prewarm: {summary['warms']} executable(s) for "
+                          f"{summary['shapes']} shape(s) in "
+                          f"{summary['seconds']}s "
+                          f"(disk={summary['by']['disk']} "
+                          f"compile={summary['by']['compile']} "
+                          f"warm={summary['by']['warm']} "
+                          f"skipped={summary['by']['skipped']} "
+                          f"errors={summary['errors']})", flush=True)
+            print(f"serving: {args.submeshes} submesh(es) x "
+                  f"{len(srv.slots[0].devices)} device(s) "
+                  f"({srv.slots[0].devices[0]}), spool {args.spool}",
+                  flush=True)
+            served = spool.serve_spool(
+                srv, args.spool, idle_exit_s=args.idle_exit,
+                status_every_s=args.status_every or None,
+                emit=lambda s: print(s, flush=True),
+                # a FENCED server (its lease lost to an adopter) stops
+                # serving the spool too: its requests live on the peer now
+                should_exit=lambda: drain_evt.is_set() or srv.fenced)
+            # the `with` close below is the drain: stop at segment
+            # boundaries, save, flush the writers (the watchdog escalates if
+            # it wedges); /healthz answers 503 meanwhile
+    finally:
+        if httpd is not None:
+            httpd.close()
+        if otel_stop is not None:
+            otel_stop.set()
+        if otel_exp is not None:
+            # the interval flusher's instance: only the tail past its
+            # watermark ships, never a record a flush already shipped
+            n = otel_exp.flush(tracelog.get().records())
+            print(f"otel: exported {n} span(s) at shutdown "
+                  f"({otel_exp.spans} total) to "
+                  f"{args.otel_endpoint}", flush=True)
     watchdog = getattr(drain_evt, "watchdog", None)
     if watchdog is not None:
         watchdog.cancel()
@@ -1078,6 +1166,9 @@ def build_parser() -> argparse.ArgumentParser:
     _serve_args(sub)
     _client_args(sub)
     _journey_args(sub)
+    _profile_args(sub)
+    _doctor_args(sub)
+    _capacity_args(sub)
 
     p = sub.add_parser("devices",
                        help="describe the visible devices (the reference's "
@@ -1134,6 +1225,302 @@ def run_journey(args) -> int:
     # a tag given but nothing matched: nonzero, so a caller checking for
     # one journey cannot pass on an empty answer
     return 0 if journeys or not args.tag else 1
+
+
+def _profile_args(sub) -> None:
+    """The `profile` command's flags (JAX `cli.py` `_profile_parser`),
+    with `--device`."""
+    p = sub.add_parser(
+        "profile",
+        help="standalone capture on demand: warm the single-device loop "
+             "past its ramp, trace a steady-state window with "
+             "torch.profiler (obs/profiler, the session POST /profile "
+             "uses) and print the self-time attribution")
+    p.add_argument("-i", "--inst", type=int, default=21,
+                   help="Taillard instance id")
+    p.add_argument("-l", "--lb", type=int, default=1, choices=(0, 1, 2))
+    p.add_argument("--chunk", type=int, default=256)
+    p.add_argument("--capacity", type=int, default=1 << 18)
+    p.add_argument("--warm", type=int, default=50,
+                   help="warm-up iterations before the traced window")
+    p.add_argument("--iters", type=int, default=20,
+                   help="traced-window iterations")
+    p.add_argument("--out", type=str, default=None,
+                   help="artifact root (default: a fresh temp dir); each "
+                        "capture gets its own subdirectory")
+    p.add_argument("--top", type=int, default=15,
+                   help="ops to list in the self-time table")
+    _device_arg(p)
+    p.set_defaults(fn=run_profile)
+
+
+def run_profile(args) -> int:
+    """The JAX `run_profile`: `--warm` steps, then `--iters` more under
+    the profiler; the JSON line, then the top ops by self time."""
+    import tempfile
+
+    from .engine import device
+    from .obs import chrome_trace, profiler
+    from .ops import batched
+    from .problems import taillard
+
+    dev = device.resolve_device(args.device)
+    p = taillard.processing_times(args.inst)
+    ub = taillard.optimal_makespan(args.inst)
+    tables = batched.make_tables(p, device=dev)
+    state = device.init_state(p.shape[1], args.capacity, ub, p_times=p,
+                              device=dev)
+    state = device.run(tables, state, args.lb, args.chunk,
+                       max_iters=args.warm)
+    before = device.counters(state)       # one read: the loop is idle
+    print(f"# warmed: iters={before.iters} pool={before.size}",
+          file=sys.stderr)
+
+    sess = profiler.session()
+    root = args.out or tempfile.mkdtemp(prefix="tts_profile_")
+    log_dir = sess.fresh_dir(root)
+    with sess.trace(log_dir):
+        out = device.run(tables, state, args.lb, args.chunk,
+                         max_iters=args.warm + args.iters)
+        after = device.counters(out)      # waits for the window's work
+
+    self_us, counts = chrome_trace.self_times(
+        chrome_trace.load_profile_trace(log_dir))
+    total = sum(self_us.values())
+    buckets = chrome_trace.bucketed_self_times(self_us)
+    print(json.dumps({
+        "artifact": log_dir, "inst": args.inst, "lb": args.lb,
+        "iters": after.iters - before.iters,
+        "evals": after.evals - before.evals,
+        "device_self_ms": round(total / 1e3, 2),
+        "buckets_ms": {k: round(v / 1e3, 2)
+                       for k, v in buckets.most_common()},
+    }))
+    print("\n# top ops by device self-time "
+          "(obs/chrome_trace.self_times):")
+    for name, d in self_us.most_common(args.top):
+        print(f"{d / 1e3:10.2f} ms  x{counts[name]:<6} "
+              f"[{chrome_trace.bucket_of(name):>15}]  {name[:90]}")
+    print(f"\n# artifact: {log_dir}")
+    return 0
+
+
+def _doctor_args(sub) -> None:
+    """The `doctor` command's flags (JAX `cli.py` `_doctor_parser`)."""
+    p = sub.add_parser(
+        "doctor",
+        help="one-shot fleet health verdict: scrape N servers' /healthz "
+             "/status /metrics /alerts (obs/aggregate), print the "
+             "judgment, exit nonzero on any unreachable server or firing "
+             "alert")
+    p.add_argument("urls", nargs="+", metavar="URL",
+                   help="server base URLs (http://host:port)")
+    p.add_argument("--json", action="store_true",
+                   help="print the merged fleet view as JSON instead of "
+                        "the table")
+    p.add_argument("--dashboard", type=str, default=None,
+                   help="also render the fleet dashboard HTML here "
+                        "(obs/dashboard; self-contained, no external "
+                        "assets)")
+    p.add_argument("--metrics-out", type=str, default=None,
+                   help="also write the merged, origin-labelled Prometheus "
+                        "exposition here (one aggregated scrape target)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="per-endpoint scrape timeout in seconds")
+    p.add_argument("--fleet-dir", type=str, default=None,
+                   help="shared fleet root (TTS_FLEET_DIR): also read "
+                        "every peer's lease file, so a down server splits "
+                        "into down with its lease held (exit 1: wait out "
+                        "the TTL) and down with its lease expired (exit 2: "
+                        "requests orphaned, takeover needed)")
+    p.set_defaults(fn=run_doctor)
+
+
+# doctor exit codes (JAX's): 0 healthy; 1 unhealthy (unreachable, firing,
+# degraded, or down with its lease held: wait out the TTL); 2 an expired
+# unreleased lease in --fleet-dir (an orphaned ledger: take it over now)
+DOCTOR_TAKEOVER_EXIT_CODE = 2
+
+
+def run_doctor(args) -> int:
+    """The JAX `run_doctor`: scrape, merge, judge; the table or the JSON,
+    the dashboard and the merged metrics when asked."""
+    from .obs import aggregate, dashboard
+
+    fleet = aggregate.scrape(args.urls, timeout=args.timeout)
+    merged = aggregate.merge(fleet)
+    lease_report = (aggregate.fleet_lease_report(args.fleet_dir)
+                    if args.fleet_dir else None)
+    healthy, reasons = aggregate.verdict(merged,
+                                         lease_report=lease_report)
+    if args.dashboard:
+        with open(args.dashboard, "w") as f:
+            f.write(dashboard.render_fleet(merged))
+        print(f"# wrote {args.dashboard}", file=sys.stderr)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(aggregate.fleet_to_prometheus(merged))
+        print(f"# wrote {args.metrics_out}", file=sys.stderr)
+    if args.json:
+        print(json.dumps({"healthy": healthy, "reasons": reasons,
+                          **({"leases": lease_report}
+                             if lease_report is not None else {}),
+                          **{k: v for k, v in merged.items()
+                             if k != "metrics"}}, indent=1))
+    else:
+        for s in merged["servers"]:
+            print(_doctor_row(s))
+        for r in lease_report or []:
+            state = ("released" if r["released"] else
+                     "EXPIRED" if r["expired"] else "live")
+            print(f"lease {r['dir']}: {state} owner={r['owner']} "
+                  f"epoch={r['epoch']} age={r['age_s']:g}s"
+                  f"/ttl={r['ttl_s']:g}s")
+        print("healthy" if healthy else
+              "UNHEALTHY:\n  " + "\n  ".join(reasons))
+    if healthy:
+        return 0
+    if lease_report and aggregate.needs_takeover(lease_report):
+        return DOCTOR_TAKEOVER_EXIT_CODE
+    return 1
+
+
+def _doctor_row(s: dict) -> str:
+    """One server's line of the doctor's table (JAX's columns)."""
+    degraded = bool(s.get("quarantined"))
+    mark = ("ok" if s["ok"] and s["healthz"] == "ok"
+            and not s.get("firing") and not degraded
+            else ("DEGRADED" if degraded and s["ok"]
+                  and s["healthz"] == "ok"
+                  and not s.get("firing") else "UNHEALTHY"))
+    aot = s.get("aot_cache")
+    aot_col = (f" aot={aot['hits']}h/{aot['misses']}m"
+               f"/{aot['entries']}e" if aot else "")
+    paused = s.get("admission_paused")
+    rem_col = (f" quarantined={s.get('quarantined')}"
+               if s.get("quarantined") else "") + (
+               f" PAUSED({paused})" if paused else "")
+    led_col = ""
+    if s.get("restarts") is not None:
+        led_col = (f" restarts={s.get('restarts')}"
+                   f" recovered={s.get('recovered_requests')}"
+                   f" ledger_lag_s={s.get('ledger_lag_s')}")
+    pf = s.get("portfolio")
+    pf_col = (f" portfolio={pf['active']}a/{pf['won']}w"
+              f"/{pf['cancelled_members']}cxl" if pf else "")
+    # the predictive columns (obs/estimate): absent while no request
+    # publishes an estimate (warm-up, or TTS_PROGRESS=0)
+    eta_col = ""
+    if s.get("progress_mean") is not None:
+        eta_col = f" progress={s['progress_mean'] * 100:.1f}%"
+    if s.get("eta_max_s") is not None:
+        eta_col += f" eta_s={s['eta_max_s']:g}"
+    # the capacity columns (obs/capacity): absent with TTS_CAPACITY=0 or
+    # before a service-time estimate exists
+    cap_col = ""
+    if s.get("utilization") is not None:
+        cap_col = (f" rho={s['utilization']:.2f}"
+                   f" headroom={s['capacity_headroom']:.2f}")
+    fo_col = ""
+    if s.get("failover_mode") is not None or s.get("fenced"):
+        fo_col = (f" failover={s.get('failover_mode')}"
+                  f" epoch={s.get('lease_epoch')}"
+                  f" peers_down={s.get('peers_down')}"
+                  f" takeovers={s.get('takeovers')}") + (
+                  " FENCED" if s.get("fenced") else "")
+    return (f"{s['origin']:<24} {mark:<10} "
+            f"firing={s.get('firing')} "
+            f"queue={s.get('queue_depth')} "
+            f"busy={s.get('submeshes_busy')}/{s.get('submeshes')} "
+            f"requests={s.get('requests')}{eta_col}{cap_col}"
+            f"{aot_col}{rem_col}{pf_col}{led_col}{fo_col}")
+
+
+def _capacity_args(sub) -> None:
+    """The `capacity` command's flags (JAX `cli.py` `_capacity_parser`)."""
+    p = sub.add_parser(
+        "capacity",
+        help="fleet capacity and utilization report (obs/capacity): "
+             "scrape N servers' GET /capacity and print per-lane state and "
+             "utilization, per-shape-class demand against capacity (rho, "
+             "headroom, predicted queue wait) and the what-if partition "
+             "advisor")
+    p.add_argument("urls", nargs="+", metavar="URL",
+                   help="server base URLs (http://host:port)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable documents instead of the tables")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="per-endpoint scrape timeout in seconds")
+    p.set_defaults(fn=run_capacity)
+
+
+def run_capacity(args) -> int:
+    """The JAX `run_capacity`: each server's `/capacity` document, as JSON
+    or tables; exit 1 when one is unreachable."""
+    from .obs import aggregate
+
+    docs, rc = [], 0
+    for url in args.urls:
+        base = url.rstrip("/")
+        origin = base.split("://", 1)[-1]
+        try:
+            _, body = aggregate._get(base + "/capacity", args.timeout)
+            docs.append({"origin": origin, **json.loads(body)})
+        except (OSError, ValueError) as e:
+            docs.append({"origin": origin, "error": str(e)})
+            rc = 1
+    if args.json:
+        print(json.dumps(docs, indent=1))
+        return rc
+    for doc in docs:
+        for line in _capacity_lines(doc):
+            print(line)
+    return rc
+
+
+def _capacity_lines(doc: dict) -> list:
+    """The `capacity` command's lines for one server (JAX's format)."""
+    if doc.get("error"):
+        return [f"{doc['origin']}: UNREACHABLE ({doc['error']})"]
+    if not doc.get("enabled"):
+        return [f"{doc['origin']}: capacity layer off (TTS_CAPACITY=0)"]
+    rho = doc.get("utilization")
+    out = [f"{doc['origin']}: lanes={doc.get('healthy_lanes')}"
+           f"/{doc.get('lanes')} devices={doc.get('devices')} "
+           f"arrivals={doc.get('arrival_per_s', 0):.3f}/s "
+           + (f"rho={rho:.2f} headroom={doc.get('headroom'):.2f}"
+              if rho is not None else "rho=— (no service estimate)")
+           + (f" pred_wait_s={doc['predicted_wait_s']:.3f}"
+              if doc.get("predicted_wait_s") is not None else "")
+           + (f" pred_req_per_s={doc['predicted_req_per_s']:.3f}"
+              if doc.get("predicted_req_per_s") is not None else "")]
+    for ln in doc.get("lanes_detail") or []:
+        secs = ln.get("seconds") or {}
+        top = ", ".join(f"{k}={secs[k]:.1f}s" for k in sorted(
+            secs, key=lambda k: -secs[k])[:3])
+        out.append(f"  lane {ln.get('lane')}: {ln.get('state'):<13} "
+                   f"exec={ln.get('utilization', 0) * 100:5.1f}%  "
+                   f"[{top}]  conservation_err="
+                   f"{ln.get('conservation_error_s'):.2e}s")
+    for c in doc.get("classes") or []:
+        srv_s = c.get("service_s")
+        out.append(f"  class {c.get('shape')} tenant={c.get('tenant')}: "
+                   f"lambda={c.get('arrival_per_s', 0):.3f}/s "
+                   + (f"E[S]={srv_s:.3f}s rho={c.get('utilization'):.2f}"
+                      if srv_s is not None else "E[S]=— (warming up)"))
+    wi = doc.get("what_if") or []
+    if wi:
+        out.append("  what-if (same devices, n equal lanes):")
+        for row in wi:
+            cur = "  <- current" if row.get("current") else ""
+            wait = row.get("predicted_wait_s")
+            out.append(f"    {row['lanes']} lane(s) x "
+                       f"{row['devices_per_lane']} dev: "
+                       f"req/s={row['predicted_req_per_s']:.3f} "
+                       f"rho={row['utilization']:.2f} "
+                       + (f"wait_s={wait:.3f}" if wait is not None
+                          else "wait_s=inf (saturated)") + cur)
+    return out
 
 
 def run_devices(args) -> int:

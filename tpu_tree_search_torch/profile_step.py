@@ -17,20 +17,27 @@ of its kernel and copy intervals over the window's wall time), device
 milliseconds and operations (kernels and copies) per step, those that
 took the most time, by name, with their share of the busy time, and the
 peak device memory allocated since the state was made. On a CPU run
-there is no device trace: those fields are null.
+there is no device trace: those fields are null. The window is traced
+through the process's one profiler (`obs/profiler.session()`, the door
+`POST /profile` and the `profile` command use) into a temporary
+directory, and read back with `obs/chrome_trace.load_profile_trace`: the
+device operations are its events of the card's categories
+(`chrome_trace.DEVICE_CATS`).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
+import tempfile
 import time
 from collections import defaultdict
 
 import torch
-from torch.autograd import DeviceType
 
 from .engine import device
+from .obs import chrome_trace, profiler
 from .ops import batched, fused as fz
 from .problems import taillard
 from .tune.defaults import BENCH_CHUNK_DEFAULT
@@ -65,21 +72,24 @@ def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
                                fused=mode)
     before = device.counters(state)
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if on_cuda:
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
     sync()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        if loop == "graph":
-            out = device.run(tables, state, lb_kind, chunk,
-                             before.iters + steps, fused=mode)
-        else:
-            out = state
-            for _ in range(steps):
-                out = device.step(tables, lb_kind, chunk, out, fused=mode)
-        sync()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+    log_dir = tempfile.mkdtemp(prefix="tts_profile_step_")
+    try:
+        with profiler.trace(log_dir):
+            t0 = time.perf_counter()
+            if loop == "graph":
+                out = device.run(tables, state, lb_kind, chunk,
+                                 before.iters + steps, fused=mode)
+            else:
+                out = state
+                for _ in range(steps):
+                    out = device.step(tables, lb_kind, chunk, out,
+                                      fused=mode)
+            sync()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        events = chrome_trace.load_profile_trace(log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
     after = device.counters(out)
     done = after.iters - before.iters
     res = {"instance": f"ta{inst:03d}", "lb": lb_kind, "chunk": chunk,
@@ -91,15 +101,15 @@ def profile(inst: int, lb_kind: int, chunk: int, capacity: int, warm: int,
            "top_device_ops": None,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                  if on_cuda else None)}
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in chrome_trace.DEVICE_CATS]
     if on_cuda and kern:
-        busy = _busy_us([(e.time_range.start, e.time_range.end)
-                         for e in kern])
+        busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kern])
         by_name: dict[str, float] = defaultdict(float)
         count: dict[str, int] = defaultdict(int)
         for e in kern:
-            by_name[e.name] += e.time_range.elapsed_us()
-            count[e.name] += 1
+            by_name[e["name"]] += e["dur"]
+            count[e["name"]] += 1
         ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
         res.update(
             device_busy_share=busy / wall_us,

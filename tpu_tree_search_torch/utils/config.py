@@ -10,7 +10,8 @@ and `obs/estimate`, and the search server's: the `SERVICE_*` defaults,
 admission, pre-warm, megabatching, remediation, the tuning cache and the
 observability store): a `TTS_*` name must be registered, so a misspelt
 knob raises at its first read instead of never applying. The resilience,
-tuner and observability defaults are the JAX package's.
+tuner and observability defaults (with `PROFILE_MAX_DURATION_S`) are the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -103,6 +104,9 @@ SERVICE_RETRY_ATTEMPTS_DEFAULT = 2
 SERVICE_RETRY_BASE_S_DEFAULT = 0.2
 # the server's resource-sampler period (obs/resource; <= 0: no thread)
 OBS_RESOURCE_SAMPLE_S_DEFAULT = 1.0
+# the ceiling of a `POST /profile` window (obs/httpd), so that a mistyped
+# duration cannot hold the process's one profiler for hours
+PROFILE_MAX_DURATION_S = 300.0
 # the observability store (obs/store): records a segment, retention and
 # the sink queue's bound
 OBS_STORE_ENV = "TTS_OBS_STORE"
